@@ -7,8 +7,8 @@ Phases, one line each (any failure raises and exits non-zero):
 
 0. device: the card's name and power limit (nvidia-smi), torch, CUDA and
    nvcc versions;
-1. build: compiles ``src/repro_torch/kernels/csrc/nomad_sgd.cu`` (nvcc,
-   sm_90a) and prints the build seconds;
+1. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
+   source, in parallel, sm_90a) and prints the build seconds;
 2. data + pack of the main path's problem, then every kernel wrapper
    against its plain PyTorch version on cells cut from that pack, at
    k=100, in fp32 and in bf16 with fp32 accumulation (bf16 also held to
@@ -25,7 +25,23 @@ Phases, one line each (any failure raises and exits non-zero):
    each route the launch it makes, beside its byte bound, chain length
    and the plain version's time on the same inputs; and
    ``nomad_sgd_block`` on a whole cell, bitwise equal to the sequential
-   route's launch.
+   route's launch;
+5. serving: the main path's result saved with ``save_fit_result``,
+   ``RecServer.from_checkpoint`` booted from it (factors bitwise the
+   trained ones), 2,000 queries through ``serve_mc.run_load`` (4 clients,
+   ``max_batch=64``, top-10) without and with ``filter_rated``, every
+   microbatch through the CUDA top-k kernel and none through its plain
+   version; then the kernel against its plain version on the trained
+   factors (within tolerance) at every user bucket the serving runs
+   launched (top-10 and their filtered over-fetch) and at U=64, and its
+   time;
+6. the top-k kernel at the Yahoo! Music catalog (624,961 items, 1,999,990
+   users, k=100) on seeded factors published through ``FactorStore`` in
+   fp32, bf16 and int8: for U in {1, 8, 64} users at top-10 and U=64 at
+   top-1,000, its time (CUDA events) beside its bound, the plain
+   version's and ``torch.topk(W_u @ H.T)``'s; bitwise against the plain
+   version on integer-valued factors, within tolerance on the seeded
+   ones, and a control that must be rejected (the tie rule reversed).
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -34,6 +50,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -46,6 +63,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 EPOCHS = 3
 KERNEL_SRC = "src/repro_torch/kernels/csrc/nomad_sgd.cu"
+TOPK_SRC = "src/repro_torch/kernels/csrc/topk.cu"
+#: the pallas_call of the JAX package's serving top-k kernel
+TOPK_REPLACES = "src/repro/serve/topk.py:312"
+#: the Yahoo! Music catalog (configs/nomad_mf.py): items, users, rank
+YAHOO_N, YAHOO_M, YAHOO_K = 624_961, 1_999_990, 100
+SERVE_QUERIES = 2000
 #: the Pallas kernel (pallas_call line) each route's launches replace:
 #: all three routes launch the one CUDA kernel through
 #: ``nomad_sgd_waves_csr``
@@ -57,9 +80,10 @@ REPLACES = {
 #: the padded wrappers with the JAX package's signatures
 PADDED = ("nomad_sgd_waves_grid", "nomad_sgd_waves_block", "nomad_sgd_block")
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
-#: the tensor cores
+#: the tensor cores, dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate)
 PEAK_BW = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TC16 = 989e12
 EPS_FP32 = 2.0 ** -24
 
 
@@ -221,6 +245,308 @@ def interleave(csr, m_tile: int, n_tile: int):
                                device=dev))
 
 
+def topk_tolerance(ps, k: int):
+    """Per-score bound of the top-k kernel against its plain version:
+    the fp32 k-dot summed in another order (``16 eps sqrt(k)`` of ``1 +
+    |s|``), plus one ulp of the score dtype where the sum is rounded to
+    it afterwards."""
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+           torch.float16: 2.0 ** -10}[ps.dtype]
+    a = ps.double().abs()
+    return 16 * EPS_FP32 * k ** 0.5 * (1 + a) + ulp * a
+
+
+def check_topk(what, s, i, ps, pi, k: int) -> float:
+    """Hold the kernel's ``(s, i)`` against the plain version's ``(ps,
+    pi)``, which may hold one column more (the next item, for the gap
+    below the last): scores within :func:`topk_tolerance`, ids equal
+    wherever neighbouring plain scores are further apart than twice it.
+    Returns the max abs score error."""
+    k_top = s.shape[1]
+    tol = topk_tolerance(ps, k)
+    psd = ps.double()
+    finite = torch.isfinite(psd[:, :k_top])
+    d = (s.double() - psd[:, :k_top]).abs()
+    close = (torch.equal(torch.isfinite(s.double()), finite)
+             and bool((d[finite] <= tol[:, :k_top][finite]).all()))
+    gap = psd[:, :-1] - psd[:, 1:]
+    apart = torch.ones(psd.shape, dtype=torch.bool, device=psd.device)
+    apart[:, 1:] &= gap > 2 * tol[:, 1:]
+    apart[:, :-1] &= gap > 2 * tol[:, :-1]
+    apart = apart[:, :k_top]
+    same = bool((i[apart] == pi[:, :k_top][apart]).all())
+    err = float(d[finite].max()) if bool(finite.any()) else 0.0
+    phase("check", what=what, max_abs_err=f"{err:.3e}",
+          ids_checked=f"{float(apart.float().mean()):.3f}", ids_equal=same,
+          ids_differing=int((i != pi[:, :k_top]).sum()),
+          scores_close=close)
+    if not (close and same):
+        raise AssertionError(f"{what}: kernel and plain version disagree")
+    return err
+
+
+def topk_bound(W_u, H, h_scale, k_top: int):
+    """Least time of one top-k call, ``(ms, "bytes" | "operations")``:
+    ``H``, ``W_u`` and the scales read once and the ``(U, k_top)`` result
+    written once, over HBM bandwidth, or the ``2 U n k`` flops of the
+    scores over the peak for their operands, whichever is larger.  bf16
+    and fp16 products are exact in fp32, so their peak is the tensor
+    cores' with fp32 accumulation; fp32 ``W_u`` (against an fp32 or an
+    int8 ``H``) takes the fp32 peak outside the tensor cores."""
+    U, k = W_u.shape
+    n = H.shape[0]
+    nbytes = (H.numel() * H.element_size() + W_u.numel() * W_u.element_size()
+              + (0 if h_scale is None else 4 * n)
+              + U * k_top * (W_u.element_size() + 4))
+    t_bytes = nbytes / PEAK_BW * 1e3
+    peak = PEAK_FP32 if W_u.dtype == torch.float32 else PEAK_TC16
+    t_ops = 2 * U * n * k / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(W_u, H, h_scale, k_top: int):
+    """``torch.topk(W_u @ H.T, k_top)`` (an int8 ``H`` widened to fp32
+    beforehand, its scale applied to the product): the yardstick, never
+    called by the port."""
+    if h_scale is None:
+        return lambda: torch.topk(W_u @ H.T, k_top)
+    Hf = H.float()
+    return lambda: torch.topk((W_u @ Hf.T) * h_scale, k_top)
+
+
+def serve_phase(result, problem, dev):
+    """[5.serve]: the slice end to end on the main path's result.
+    Returns the kernel record at the serving shape and the top-k launches
+    the serving runs made."""
+    import shutil
+    from collections import Counter
+
+    from repro_torch.checkpoint import save_fit_result
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.launch.serve_mc import run_load
+    from repro_torch.serve import RecServer, ServeConfig
+
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_fit_result(str(ckpt), int(result.epochs_done), result)
+    save_s = time.perf_counter() - t0
+    cfg = ServeConfig(top_k=10, max_batch=64)
+    t0 = time.perf_counter()
+    server = RecServer.from_checkpoint(str(ckpt), cfg, device=dev)
+    boot_s = time.perf_counter() - t0
+    store = server.store
+    view = store.view()
+    for x in ("W", "H"):
+        check_bitwise(f"restored {x} == trained {x}",
+                      getattr(view, x).cpu(),
+                      torch.from_numpy(getattr(result, x)))
+    phase("5.boot", step=store.boot_step, save_s=f"{save_s:.2f}",
+          boot_s=f"{boot_s:.2f}", m=view.m, n=view.n, k=view.k,
+          device=view.W.device)
+
+    # instruments for the serving runs: calls of the plain version, and
+    # the (users, k_top) shape of every launch, recorded where the
+    # wrapper hands its inputs to the kernel; the launch counter stays
+    # the wrapper's own
+    plain, launch = ktopk.topk_plain, ktopk._launch
+    plain_calls, shapes = [0], Counter()
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    def recorded_launch(W_u, H, h_scale, k_top):
+        shapes[W_u.shape[0], k_top] += 1
+        return launch(W_u, H, h_scale, k_top)
+
+    ktopk.topk_plain, ktopk._launch = counted_plain, recorded_launch
+    total_launches = 0
+    rng = np.random.default_rng(5)
+    try:
+        for filt in (False, True):
+            if filt:
+                t0 = time.perf_counter()
+                view = store.publish(view.W, view.H,
+                                     rated=(problem.rows, problem.cols))
+                phase("5.rated", version=view.version,
+                      publish_s=f"{time.perf_counter() - t0:.2f}",
+                      rated=len(view.rated_items))
+            srv = RecServer(store, dataclasses.replace(cfg,
+                                                       filter_rated=filt))
+            ktopk.reset_launches()
+            plain_calls[0] = 0
+            with srv:
+                srv.recommend([0])
+                qps, p50, p99 = run_load(srv, view.m, SERVE_QUERIES,
+                                         clients=4)
+                sample = rng.choice(view.m, 16, replace=False)
+                recs = [srv.recommend([u]) for u in sample]
+            launches = ktopk.topk_scores_cuda.launches
+            batches = srv.n_batches
+            total_launches += launches
+            for u, rec in zip(sample, recs):
+                again = srv.score([u])
+                if not (rec.items.shape == (1, 10)
+                        and np.all((rec.items >= 0) & (rec.items < view.n))
+                        and np.all(np.isfinite(rec.scores))
+                        and np.all(np.diff(rec.scores[0]) <= 0)
+                        and np.array_equal(rec.items, again.items)
+                        and np.array_equal(rec.scores, again.scores)):
+                    raise AssertionError(f"user {u}: bad recommendation "
+                                         f"{rec}")
+                if filt and set(rec.items[0].tolist()) & set(
+                        view.rated_for([u])[0].tolist()):
+                    raise AssertionError(f"user {u}: a rated item served")
+            phase("5.serve", filter_rated=filt, queries=SERVE_QUERIES,
+                  answered=srv.n_queries, qps=f"{qps:.1f}",
+                  p50_ms=f"{p50:.3f}", p99_ms=f"{p99:.3f}",
+                  microbatches=batches, topk_launches=launches,
+                  plain_calls=plain_calls[0])
+            if launches < batches or plain_calls[0] != 0:
+                raise AssertionError(
+                    f"serving: {launches} kernel launches for {batches} "
+                    f"microbatches, {plain_calls[0]} plain calls")
+    finally:
+        ktopk.topk_plain, ktopk._launch = plain, launch
+    buckets = Counter()
+    for (U, _), c in shapes.items():
+        buckets[U] += c
+    phase("5.buckets", users_per_launch=json.dumps(dict(sorted(
+        buckets.items()))), k_tops=len({kt for _, kt in shapes}))
+
+    # one microbatch of 4 users scored synchronously, host clock: the
+    # scoring part of a served request's latency
+    srv = RecServer(store, cfg)
+    four = rng.choice(view.m, 4, replace=False)
+    srv.score(four)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        srv.score(four)
+    phase("5.score", users=4, sync_ms=f"{(time.perf_counter() - t0) * 20:.3f}")
+
+    # the kernel against its plain version at the shapes the serving runs
+    # launched: each user bucket at top-10 and at the smallest and the
+    # largest filtered over-fetch it saw; and a full microbatch (U=64)
+    # at top-10, the over-fetch of its users and the whole catalog
+    H = view.H
+    cases = []
+    for U in sorted(buckets):
+        over = sorted(kt for u, kt in shapes if u == U and kt != 10)
+        cases += [(U, kt) for kt in sorted({10, *over[:1], *over[-1:]})]
+    rows = torch.from_numpy(rng.choice(view.m, 64, replace=False)).to(dev)
+    over = 10 + max(len(r) for r in view.rated_for(rows.cpu().numpy()))
+    cases += [(64, 10), (64, min(view.n, over)), (64, view.n)]
+    errs = []
+    for U, k_top in cases:
+        W_u = view.W.index_select(0, rows[:U])
+        s, i = ktopk.topk_scores_cuda(W_u, H, k_top=k_top)
+        ps, pi = plain(W_u, H, k_top=min(view.n, k_top + 1))
+        errs.append(check_topk(f"topk serving U={U} k_top={k_top}", s, i,
+                               ps, pi, view.k))
+    serve_err = max(errs)
+    W_u = view.W.index_select(0, rows)
+    k_ms = cuda_ms(lambda: ktopk.topk_scores_cuda(W_u, H, k_top=10), 20)
+    _, p_ms = timed(lambda: plain(W_u, H, k_top=10))
+    lib_ms = cuda_ms(library_call(W_u, H, None, 10), 20)
+    b_ms, b_by = topk_bound(W_u, H, None, 10)
+    phase("5.topk", U=64, n=view.n, k_top=10, kernel_ms=f"{k_ms:.4f}",
+          bound_ms=f"{b_ms:.5f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
+          library_ms=f"{lib_ms:.4f}")
+    return dict(name="topk_scores_cuda[serve,fp32,U=64,k_top=10]",
+                route="cuda", source=TOPK_SRC, replaces=TOPK_REPLACES,
+                launches=total_launches, launches_on="[5.serve]",
+                max_abs_err=serve_err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms), total_launches
+
+
+def topk_phase(dev, launches: int):
+    """[6.topk]: the kernel at the Yahoo! Music catalog.  Returns one
+    kernel record per (storage, cell); the cells bypass the server, so
+    each record's ``launches`` is the kernel's count on the serving path
+    (``launches_on``), not this phase's."""
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.serve import FactorStore
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    W = torch.randn((YAHOO_M, YAHOO_K), generator=g, device=dev) * 0.3
+    H = torch.randn((YAHOO_N, YAHOO_K), generator=g, device=dev) * 0.3
+    views = {}
+    for storage, kw in (("fp32", {}), ("bf16", dict(dtype=torch.bfloat16)),
+                        ("int8", dict(quantize="int8"))):
+        t0 = time.perf_counter()
+        views[storage] = FactorStore(dev).publish(W, H, **kw)
+        v = views[storage]
+        phase("6.publish", storage=storage,
+              seconds=f"{time.perf_counter() - t0:.2f}",
+              W_bytes=v.W.numel() * v.W.element_size(),
+              H_bytes=v.H.numel() * v.H.element_size())
+    del W, H
+
+    # integer-valued factors: kernel == plain, bitwise; and a control
+    gi = torch.Generator(device=dev).manual_seed(1)
+    Hi = torch.randint(-2, 3, (YAHOO_N, YAHOO_K), generator=gi, device=dev)
+    Wi = torch.randint(-2, 3, (64, YAHOO_K), generator=gi, device=dev)
+    hs = torch.rand(YAHOO_N, generator=gi, device=dev) + 0.01
+    for storage, args in (
+            ("fp32", (Wi.float(), Hi.float(), None)),
+            ("bf16", (Wi.bfloat16(), Hi.bfloat16(), None)),
+            ("int8", (Wi.float(), Hi.to(torch.int8), hs))):
+        for k_top in (10, 1000):
+            s, i = ktopk.topk_scores_cuda(*args, k_top=k_top)
+            ps, pi = ktopk.topk_plain(*args, k_top=k_top)
+            if not (torch.equal(s, ps) and torch.equal(i, pi)):
+                raise AssertionError(f"topk integer {storage} k_top="
+                                     f"{k_top}: kernel != plain")
+            phase("check", what=f"topk integer-valued {storage} U=64 "
+                  f"k_top={k_top} kernel == plain", bitwise=True)
+    # control: the same selection with ties broken to the larger id
+    s, i = ktopk.topk_scores_cuda(Wi.float(), Hi.float(), k_top=1000)
+    dense = Wi.float() @ Hi.float().T
+    desc = torch.arange(YAHOO_N - 1, -1, -1, device=dev)
+    order = torch.sort(-dense[:, desc], dim=1, stable=True).indices[:, :1000]
+    reversed_ids = desc[order].int()
+    rejected = not torch.equal(reversed_ids, i)
+    phase("control", what="topk ties to the larger id", rejected=rejected,
+          differing=int((reversed_ids != i).sum()))
+    if not rejected:
+        raise AssertionError("the top-k check cannot tell the tie rule")
+    del Hi, Wi, dense
+
+    records = []
+    for storage, view in views.items():
+        for U, k_top in ((1, 10), (8, 10), (64, 10), (64, 1000)):
+            rows = torch.from_numpy(np.random.default_rng(U).choice(
+                YAHOO_M, U, replace=False)).to(dev)
+            W_u, H, h_scale = view.W.index_select(0, rows), view.H, None
+            if view.quantized:
+                W_u = W_u.float() * view.w_scale.index_select(0, rows)[:,
+                                                                    None]
+                h_scale = view.h_scale
+            s, i = ktopk.topk_scores_cuda(W_u, H, h_scale, k_top=k_top)
+            ps, pi = ktopk.topk_plain(W_u, H, h_scale, k_top=k_top + 1)
+            err = check_topk(f"topk {storage} U={U} k_top={k_top}", s, i,
+                             ps, pi, YAHOO_K)
+            k_ms = cuda_ms(lambda: ktopk.topk_scores_cuda(
+                W_u, H, h_scale, k_top=k_top), 10)
+            _, p_ms = timed(lambda: ktopk.topk_plain(W_u, H, h_scale,
+                                                     k_top=k_top))
+            lib_ms = cuda_ms(library_call(W_u, H, h_scale, k_top), 10)
+            b_ms, b_by = topk_bound(W_u, H, h_scale, k_top)
+            phase("6.topk", storage=storage, U=U, k_top=k_top,
+                  kernel_ms=f"{k_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+                  bound_by=b_by, plain_ms=f"{p_ms:.2f}",
+                  library_ms=f"{lib_ms:.4f}")
+            records.append(dict(
+                name=f"topk_scores_cuda[{storage},U={U},k_top={k_top}]",
+                route="cuda", source=TOPK_SRC, replaces=TOPK_REPLACES,
+                launches=launches, launches_on="[5.serve]",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms))
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -255,9 +581,9 @@ def main() -> int:
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.load()
+    lib = _build.load("nomad_sgd")
     phase("1.build", seconds=f"{time.perf_counter() - t0:.2f}",
-          library=_build.library_path().name,
+          libraries=",".join(x.name for x in _build.library_paths()),
           max_k=lib.nomad_sgd_max_k())
 
     # -- 2. data, pack, kernels against their plain versions -------------
@@ -389,7 +715,7 @@ def main() -> int:
                 and bool(np.isfinite(res.W).all())
                 and bool(np.isfinite(res.H).all())):
             raise AssertionError(f"{route}: non-finite or misshapen factors")
-        routes[route] = dict(launches=launched, wall_s=wall)
+        routes[route] = dict(launches=launched, wall_s=wall, result=res)
         phase(f"3.{route}", epochs=epochs, wall_s=f"{wall:.3f}",
               rmse=json.dumps(rm), last_finite=finite,
               max_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -534,6 +860,10 @@ def main() -> int:
             source=KERNEL_SRC, replaces=REPLACES[route],
             launches=routes[route]["launches"], max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    record, serve_launches = serve_phase(routes["grid"]["result"], problem,
+                                         dev)
+    kernels.append(record)
+    kernels.extend(topk_phase(dev, serve_launches))
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

@@ -175,7 +175,7 @@ def _check(Ws, Hs, csr: WaveCSR, accum_fp32: bool) -> None:
 
 
 def _launch(Ws, Hs, csr: WaveCSR, lr: float, lam: float) -> None:
-    lib = _build.load()
+    lib = _build.load("nomad_sgd")
     k = Ws.shape[2]
     if k > lib.nomad_sgd_max_k():
         raise ValueError(f"k={k} exceeds the kernel's "

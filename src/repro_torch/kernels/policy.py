@@ -14,6 +14,9 @@ policy, so configs carry over unchanged.  The impls map onto the port as:
   (:mod:`.nomad_sgd`) on CUDA tensors, its plain version on CPU tensors;
 * ``'auto'`` — ``'pallas'`` on CUDA, ``'xla'`` elsewhere.
 
+:meth:`KernelPolicy.serve_impl` maps the same impls onto the serving
+top-k scorer.
+
 The object is a frozen (hashable) dataclass, so it can serve as a
 memoization key for packed layouts (``MCProblem.packed``).
 """
@@ -175,6 +178,19 @@ class KernelPolicy:
                       else max(m_local, n_local))
         return dataclasses.replace(
             self, wave_chunk=wave_chunk, block_rows=block_rows)
+
+    def serve_impl(self, device: Union[str, torch.device]) -> str:
+        """Which serving top-k scorer this policy selects for factors on
+        ``device`` (:mod:`repro_torch.serve.topk`): ``'pallas'``, the
+        CUDA top-k kernel, for the kernel train impls; ``'xla'``, the
+        plain tiled scan, otherwise; ``'auto'`` follows the train
+        dispatch rule of :mod:`.ops` (the kernel when the factors are on
+        CUDA).  The JAX package's ``serve_impl`` is a property that
+        resolves ``'auto'`` by backend; here the device of the factors
+        decides, so it takes the device."""
+        if self.impl == "auto":
+            return "pallas" if torch.device(device).type == "cuda" else "xla"
+        return "pallas" if self.impl in ("pallas", "wave_pallas") else "xla"
 
     @classmethod
     def coerce(cls, value: Union[str, "KernelPolicy", None], *,

@@ -193,7 +193,9 @@ def test_solve_defaults_to_cuda(tiny_mc_problem):
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys\n"
             "import repro_torch.api, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.core.nomad\n"
+            "repro_torch.convert, repro_torch.core.nomad, "
+            "repro_torch.serve, repro_torch.checkpoint, "
+            "repro_torch.launch.serve_mc, repro_torch.kernels.topk\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
