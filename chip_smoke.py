@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs
+    python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
+                                     # then Qwen2.5-32B serving
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -41,7 +42,23 @@ Phases, one line each (any failure raises and exits non-zero):
    top-1,000, its time (CUDA events) beside its bound, the plain
    version's and ``torch.topk(W_u @ H.T)``'s; bitwise against the plain
    version on integer-valued factors, within tolerance on the seeded
-   ones, and a control that must be rejected (the tie rule reversed).
+   ones, and a control that must be rejected (the tie rule reversed);
+7. the LM: Qwen2.5-32B at full width and depth (64 layers, bf16, seeded
+   weights on the card) served through ``repro_torch.launch.serve``:
+   prefill of 4 prompts of 1,024 tokens (every layer's attention through
+   the CUDA flash kernel, none through its plain version), the merge into
+   decode caches of 1,056 positions and 32 greedy decode steps, twice
+   (warm-up, measured); prefill and decode times beside their bounds,
+   peak memory; on the same weights the prefill's logits with the kernel
+   against the plain chunked flash (``impl="xla"``), a control that
+   check must reject (the first layer's attention unmasked), and decode
+   after prefill against the full forward; the prefill and 4 decode steps
+   under ``torch.profiler`` (device busy share, largest kernels); then
+   the kernel against its plain
+   version at the served shape in bf16 and fp32 (fp32 also against the
+   materialized oracle), two controls it must
+   reject (no causal mask; KV head ``h % Hkv``), and its time beside its
+   bound, the plain version's and SDPA's.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -55,6 +72,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -79,6 +97,17 @@ REPLACES = {
 }
 #: the padded wrappers with the JAX package's signatures
 PADDED = ("nomad_sgd_waves_grid", "nomad_sgd_waves_block", "nomad_sgd_block")
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attn.cu"
+#: the pallas_call of the JAX package's flash-attention kernel
+FLASH_REPLACES = "src/repro/kernels/flash_attn.py:99"
+#: the LM serving cell: Qwen2.5-32B, B prompts of P tokens, G decode steps
+LM_B, LM_P, LM_G = 4, 1024, 32
+#: max |logit difference| between two runs on the same bf16 weights
+#: (see lm_phase's checks): 128 residual additions (rms ~10) each rounded
+#: to bf16 walk to ~2 % of the final norm's input, ~0.02 rms in logits of
+#: rms ~1 and ~5x that at the max of 608k of them; the bound is 2.5x that.
+#: A control (one layer's attention unmasked) must exceed it.
+LM_LOGIT_BOUND = 0.25
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
 #: the tensor cores, dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate)
 PEAK_BW = 3.35e12
@@ -547,6 +576,352 @@ def topk_phase(dev, launches: int):
     return records
 
 
+def flash_within(got, want, dtype) -> bool:
+    """The flash kernel's result ``got`` against its plain version's
+    ``want``: both accumulate in fp32 (the reference's own ``2e-5`` abs
+    and rel between two fp32 orders of summation), and in bf16 or fp16
+    each rounds once to the output type, which adds up to two ulps of
+    it."""
+    from repro_torch.testing import low_precision_tolerance
+    w = want.double()
+    tol = (2e-5 * (1 + w.abs()) if dtype == torch.float32
+           else low_precision_tolerance(w, dtype))
+    return bool(((got.double() - w).abs() <= tol).all())
+
+
+def flash_bound(B, Hq, Hkv, S, D, dtype):
+    """Least time of one causal flash call, ``(ms, "bytes" |
+    "operations")``: the two products over the keys each query sees
+    (``2 * 2 * B * Hq * D * S (S + 1) / 2`` flops) at the peak of the
+    operand type (bf16/fp16 tensor cores, fp32 FMA units), or q, k, v
+    read once and o written once over HBM bandwidth."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    flops = 4 * B * Hq * D * (S * (S + 1) // 2)
+    nbytes = elem * B * S * D * (2 * Hq + 2 * Hkv)
+    t_ops = flops / (PEAK_FP32 if dtype == torch.float32 else PEAK_TC16) * 1e3
+    t_bytes = nbytes / PEAK_BW * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_kernel_checks(dev, launches: int):
+    """[7.flash]: the kernel against its plain version at the served
+    shape, in bf16 and fp32, on q/k/v laid out as the prefill hands them
+    over ((B, S, H, D) projections viewed as (B, H, S, D)); two controls
+    the check must reject; its time beside its bound, the plain
+    version's and SDPA's.  Returns the kernel records (``launches`` is
+    the main path's count)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as kfa
+    B, Hq, Hkv, S, D = LM_B, 40, 8, LM_P, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    records = []
+    from repro_torch.kernels import ref
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev)
+                    * sc).to(dtype).transpose(1, 2)
+                   for h, sc in ((Hq, 0.3), (Hkv, 0.3), (Hkv, 1.0)))
+        got = kfa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = kfa.flash_attention_plain(q, k, v, causal=True)
+        err = float((got.double() - want.double()).abs().max())
+        ok = flash_within(got, want, dtype)
+        phase("check", what=f"flash_attention {name} B={B} Hq={Hq} Hkv={Hkv} "
+              f"S={S} D={D} kernel vs plain", max_abs_err=f"{err:.3e}",
+              within=ok)
+        if not ok:
+            raise AssertionError(f"flash_attention {name}: kernel and plain "
+                                 "version disagree")
+        if dtype == torch.float32:
+            # a second witness: the materialized oracle (in bf16 it rounds
+            # the probabilities to bf16, which the kernel does not)
+            oracle = ref.flash_attention_ref(q, k, v, causal=True)
+            ok = flash_within(got, oracle, dtype)
+            phase("check", what=f"flash_attention {name} kernel vs "
+                  "materialized oracle", max_abs_err=(
+                      f"{float((got.double() - oracle.double()).abs().max()):.3e}"),
+                  within=ok)
+            del oracle
+            if not ok:
+                raise AssertionError("flash_attention fp32: kernel and "
+                                     "materialized oracle disagree")
+        # wrong results the check must reject: no causal mask, and query
+        # head h reading KV head h % Hkv instead of h // (Hq / Hkv)
+        wrong_heads = torch.arange(Hq, device=dev) % Hkv
+        for what, bad in (
+                ("plain without the causal mask",
+                 kfa.flash_attention_plain(q, k, v, causal=False)),
+                ("plain with KV head h % Hkv",
+                 kfa.flash_attention_plain(q, k[:, wrong_heads],
+                                           v[:, wrong_heads], causal=True))):
+            rejected = not flash_within(got, bad, dtype)
+            phase("control", what=f"flash {name} {what}", rejected=rejected)
+            if not rejected:
+                raise AssertionError(f"the flash check cannot tell {what}")
+        k_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v), 10)
+        p_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), 3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10)
+        b_ms, b_by = flash_bound(B, Hq, Hkv, S, D, dtype)
+        phase("7.flash", dtype=name, kernel_ms=f"{k_ms:.4f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
+              sdpa_ms=f"{lib_ms:.4f}")
+        records.append(dict(
+            name=f"flash_attention[{name},B={B},Hq={Hq},Hkv={Hkv},S={S},"
+                 f"D={D}]", route="cuda", source=FLASH_SRC,
+            replaces=FLASH_REPLACES,
+            launches=launches if dtype == torch.bfloat16 else 0,
+            launches_on=("[7.lm] prefill" if dtype == torch.bfloat16
+                         else "[7.lm] prefill (bf16 only)"),
+            max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    return records
+
+
+def logits_agree(what, got, want, bound: float, tag="check") -> bool:
+    """Two runs' logits (B, V) on the same bf16 weights agree when their
+    max abs difference is within ``bound`` and the greedy token is the
+    same in every row whose top-2 margin (in ``want``) is more than twice
+    the difference."""
+    d = float((got.float() - want.float()).abs().max())
+    top2 = torch.topk(want.float(), 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * d
+    same = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+    phase(tag, what=what, max_abs_diff=f"{d:.4f}", bound=bound,
+          rows_with_clear_argmax=f"{int(clear.sum())}/{clear.numel()}",
+          argmax_equal=same)
+    return d <= bound and same
+
+
+def check_logits(what, got, want, bound: float) -> None:
+    if not logits_agree(what, got, want, bound):
+        raise AssertionError(f"{what}: logits differ beyond {bound} or a "
+                             "clear argmax differs")
+
+
+def device_busy(fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU and CUDA); returns ``(wall
+    ms, device busy ms, {kernel name: ms})``: busy is the union of the
+    kernels' intervals on the card, so overlapping kernels count once."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + (e.time_range.end - e.time_range.start) / 1e3)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e3, by_name
+
+
+def lm_profile(model, cfg, prompts, dev, unprofiled_ms) -> None:
+    """[7.profile]: where the served path's time goes: the prefill and 4
+    decode steps under the profiler, each with its device busy time, its
+    largest kernels and its busy share, of the profiled wall time and of
+    ``unprofiled_ms[what]`` (the same work's time in the measured run:
+    the profiler adds host time to every op, so where the host sets the
+    pace the second share is the one a user sees)."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    state = {}
+
+    def prefill():
+        state["logits"], state["pre"] = lserve.make_prefill(cfg)(
+            model, {"inputs": prompts})
+
+    def decode(steps=4):
+        step = lserve.make_decode_step(cfg)
+        tok = state["logits"].argmax(-1)
+        for i in range(steps):
+            logits, state["cache"] = step(model, {"inputs": tok[:, None]},
+                                          state["cache"], P + i)
+            tok = logits.argmax(-1)
+
+    with torch.inference_mode():
+        for what, fn, per in (("prefill", prefill, 1), ("decode", decode, 4)):
+            wall, busy, by_name = device_busy(fn)
+            if not busy > 0:
+                raise AssertionError(f"{what}: the profiler saw no kernel "
+                                     "run on the card")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+            phase("7.profile", what=what, wall_ms=f"{wall / per:.2f}",
+                  device_busy_ms=f"{busy / per:.2f}",
+                  busy_share=f"{busy / wall:.3f}",
+                  unprofiled_ms=f"{unprofiled_ms[what]:.2f}",
+                  busy_share_unprofiled=(
+                      f"{busy / per / unprofiled_ms[what]:.3f}"),
+                  top_kernels_ms=json.dumps({n[:48]: round(t / per, 3)
+                                             for n, t in top}))
+            if what == "prefill":
+                state["cache"] = lserve._merge_prefill_cache(
+                    T.init_cache(cfg, B, P + 4, device=dev), state["pre"],
+                    cfg, P)
+                del state["pre"]
+
+
+def lm_phase(dev):
+    """[7.lm]: Qwen2.5-32B served end to end on the card: init, prefill
+    of B prompts, merge into the decode caches, greedy decode steps, all
+    through ``repro_torch.launch.serve``; then checks on the same
+    weights.  Returns the flash kernel's launches in the prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("qwen2_5_32b")
+    B, P, G = LM_B, LM_P, LM_G
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    phase("7.init", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+          params=n_params, weight_bytes=weight_bytes, seconds=f"{init_s:.2f}",
+          mem_bytes=torch.cuda.memory_allocated())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config has "
+                             f"{cfg.param_count()}")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, P))).to(dev)
+
+    # instrument: calls of the kernel's plain version (the wrapper's
+    # launch count stays its own)
+    plain, plain_calls = kfa.flash_attention_plain, [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    kfa.flash_attention_plain = counted_plain
+    runs = []
+    try:
+        with torch.inference_mode():
+            for run in ("warm-up", "measured"):
+                kfa.reset_launches()
+                plain_calls[0] = 0
+                torch.cuda.reset_peak_memory_stats()
+                toks, t = lserve.generate(model, cfg, prompts, G + 1)
+                runs.append((toks, t, kfa.flash_attention.launches,
+                             plain_calls[0],
+                             torch.cuda.max_memory_allocated()))
+                phase("7.run", run=run, prefill_s=f"{t['prefill_s']:.4f}",
+                      decode_s=f"{t['decode_s']:.4f}",
+                      flash_launches=runs[-1][2], plain_calls=runs[-1][3])
+    finally:
+        kfa.flash_attention_plain = plain
+    toks, t, launches, n_plain, peak = runs[-1]
+    if any(r[2] != cfg.n_layers or r[3] != 0 for r in runs):
+        raise AssertionError(f"prefill launched the flash kernel "
+                             f"{[r[2] for r in runs]} times (want "
+                             f"{cfg.n_layers}), plain calls "
+                             f"{[r[3] for r in runs]}")
+    if not (toks.shape == (B, G + 1) and bool((toks >= 0).all())
+            and bool((toks < cfg.vocab_size).all())
+            and torch.equal(toks, runs[0][0])):
+        raise AssertionError("generated tokens misshapen, out of range or "
+                             "not the same in both runs")
+
+    # what decode must read per step: every weight but the embedding
+    # table (B rows of it), and the valid part of every layer's KV cache
+    kv_step = 2 * cfg.n_layers * B * (P + G // 2) * cfg.n_kv_heads * \
+        cfg.head_dim * 2
+    dec_bytes = (weight_bytes - cfg.vocab_size * cfg.d_model * 2
+                 + B * cfg.d_model * 2 + kv_step)
+    dec_bound_ms = dec_bytes / PEAK_BW * 1e3
+    # prefill: 2 flops per weight per token, plus the attention products
+    pre_flops = (2 * (n_params - cfg.vocab_size * cfg.d_model) * B * P
+                 + cfg.n_layers * 4 * B * cfg.n_heads * cfg.head_dim
+                 * (P * (P + 1) // 2))
+    pre_bound_ms = pre_flops / PEAK_TC16 * 1e3
+    step_ms = t["decode_s"] / G * 1e3
+    phase("7.lm", batch=B, prompt=P, decode_steps=G,
+          prefill_ms=f"{t['prefill_s'] * 1e3:.2f}",
+          prefill_tok_s=f"{B * P / t['prefill_s']:.1f}",
+          prefill_bound_ms=f"{pre_bound_ms:.2f}",
+          decode_ms_per_step=f"{step_ms:.3f}",
+          decode_tok_s=f"{B * G / t['decode_s']:.1f}",
+          decode_bound_ms_per_step=f"{dec_bound_ms:.3f}",
+          peak_mem_bytes=peak, flash_launches=launches, plain_calls=n_plain,
+          tokens=json.dumps(toks[:, :8].tolist()))
+    lm_profile(model, cfg, prompts, dev,
+               {"prefill": t["prefill_s"] * 1e3, "decode": step_ms})
+
+    # the same weights: the prefill's last logits with the kernel and
+    # with the plain chunked flash; then decode after prefill against the
+    # full forward (tests/test_models.py:58)
+    with torch.inference_mode():
+        pal, _ = lserve.make_prefill(cfg, impl="pallas")(
+            model, {"inputs": prompts})
+        xla, _ = lserve.make_prefill(cfg, impl="xla")(
+            model, {"inputs": prompts})
+        if not torch.equal(pal.argmax(-1), toks[:, 0]):
+            raise AssertionError("the prefill's greedy token differs from "
+                                 "the served one")
+        check_logits("prefill last logits pallas vs xla", pal, xla,
+                     LM_LOGIT_BOUND)
+        # control: the first layer's attention without the causal mask
+        # (its plain version), every other layer through the kernel
+        calls = [0]
+
+        def first_layer_unmasked(q, k, v, *, causal=True, **kw):
+            calls[0] += 1
+            if calls[0] == 1:
+                return kfa.flash_attention_plain(q, k, v, causal=False)
+            return kfa.flash_attention(q, k, v, causal=causal, **kw)
+
+        A.flash_attn = types.SimpleNamespace(
+            flash_attention=first_layer_unmasked)
+        try:
+            bad, _ = lserve.make_prefill(cfg)(model, {"inputs": prompts})
+        finally:
+            A.flash_attn = kfa
+        if logits_agree("prefill, layer 0 unmasked, vs xla", bad, xla,
+                        LM_LOGIT_BOUND, tag="control"):
+            raise AssertionError("the logits check cannot tell one layer's "
+                                 "attention without the causal mask")
+        del pal, xla, bad
+        # the flash kernel's contract (S a multiple of its 256-row blocks)
+        # holds at t = P - 256; causal, so forward(x)[t] sees x[:t + 1]
+        t = P - 256
+        last, pre = lserve.make_prefill(cfg)(model,
+                                             {"inputs": prompts[:, :t]})
+        cache = lserve._merge_prefill_cache(
+            T.init_cache(cfg, B, t + 1, device=dev), pre, cfg, t)
+        del pre
+        dec, cache = lserve.make_decode_step(cfg)(
+            model, {"inputs": prompts[:, t:t + 1]}, cache, t)
+        del cache
+        full, _, _ = T.forward(model, cfg, prompts, impl="pallas")
+        check_logits(f"prefill(x[:{t}]) logits vs forward(x)[{t - 1}]",
+                     last, full[:, t - 1], LM_LOGIT_BOUND)
+        check_logits(f"decode(prefill(x[:{t}]), x[{t}]) vs forward(x)[{t}]",
+                     dec, full[:, t], LM_LOGIT_BOUND)
+        finite = bool(torch.isfinite(full.float()).all())
+        del full
+    if not finite:
+        raise AssertionError("non-finite logits")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -584,7 +959,8 @@ def main() -> int:
     lib = _build.load("nomad_sgd")
     phase("1.build", seconds=f"{time.perf_counter() - t0:.2f}",
           libraries=",".join(x.name for x in _build.library_paths()),
-          max_k=lib.nomad_sgd_max_k())
+          max_k=lib.nomad_sgd_max_k(),
+          flash_max_d=_build.load("flash_attn").flash_attention_max_d())
 
     # -- 2. data, pack, kernels against their plain versions -------------
     m = max(500, int(2_649_429 * args.scale))
@@ -864,6 +1240,10 @@ def main() -> int:
                                          dev)
     kernels.append(record)
     kernels.extend(topk_phase(dev, serve_launches))
+    torch.cuda.empty_cache()
+    flash_launches = lm_phase(dev)
+    torch.cuda.empty_cache()
+    kernels.extend(flash_kernel_checks(dev, flash_launches))
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

@@ -1,0 +1,16 @@
+"""Qwen2.5-32B [hf:Qwen/Qwen2.5-0.5B family; dense, GQA kv=8, QKV bias]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=27648, vocab_size=152064, qkv_bias=True, rope_theta=1e6,
+)
+
+
+def smoke_config():
+    return ModelConfig(
+        name="qwen2.5-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=256, qkv_bias=True, remat=False,
+        dtype="float32")

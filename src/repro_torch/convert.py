@@ -4,7 +4,10 @@ arrays, as a reference ``FitResult`` or checkpoint holds them, on one
 side, and the port's sharded ``(p, m_local, k)`` / ``(p, n_local, k)``
 torch tensors on the other.  For serving, :func:`serving_factors` turns
 the same global arrays (and an int8 view's scales) into the tensors the
-port's ``FactorStore`` publishes.
+port's ``FactorStore`` publishes.  For the LM, :func:`lm_params_from_reference`
+unstacks the reference's period-stacked parameter tree into the port's
+``Transformer`` (one module per layer), and :func:`lm_params_to_reference`
+stacks it back.
 
 bf16 travels through an fp32 carrier (numpy has no bfloat16 of its own;
 the reference checkpoint stores bf16 the same way): every bf16 value is
@@ -89,3 +92,95 @@ def serving_factors(W, H, *, w_scale=None, h_scale=None,
         out["w_scale"] = serving_array(w_scale, device, torch.float32)
         out["h_scale"] = serving_array(h_scale, device, torch.float32)
     return out
+
+
+# --------------------------------------------------------------------- #
+# LM parameters                                                         #
+# --------------------------------------------------------------------- #
+
+def _flatten(tree, prefix: str = ""):
+    """``{"a": {"b": x}}`` -> ``{"a.b": x}``; lists index by position."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for key, val in items:
+        name = f"{prefix}{key}"
+        if isinstance(val, (dict, list, tuple)):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def _layer_trees(params_np, cfg):
+    """The reference's per-layer parameter trees, unstacked: the prologue
+    layers, then layer ``n_prologue + s * period + pos`` from step ``s``
+    of ``blocks["pos<pos>"]``."""
+    out = list(params_np.get("prologue", []))
+    for idx in range(cfg.n_prologue, cfg.n_layers):
+        s, pos = divmod(idx - cfg.n_prologue, cfg.period)
+        block = _flatten(params_np["blocks"][f"pos{pos}"])
+        out.append({name: a[s] for name, a in block.items()})
+    return [_flatten(t) for t in out]
+
+
+def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
+    """The JAX package's LM parameter tree (``init_params``'s, as numpy
+    arrays: ``jax.tree.map(np.asarray, params)``) as the port's
+    ``Transformer`` on ``device`` (``None`` = ``"cuda"``).  The period axis
+    is unstacked into one module per layer.  Weights are stored in
+    ``dtype`` (``None``: the dtype of the reference's ``lm_head``), norm
+    scales in fp32; bf16 comes through its fp32 carrier, exactly."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    if dtype is None:
+        head = np.asarray(params_np["lm_head"]["w"])
+        dtype = getattr(torch, head.dtype.name)
+    flat = {k: v for k, v in _flatten(params_np).items()
+            if not k.startswith(("blocks.", "prologue."))}
+    for i, tree in enumerate(_layer_trees(params_np, cfg)):
+        flat.update({f"layers.{i}.{k}": v for k, v in tree.items()})
+    model = Transformer(cfg, dtype=dtype, device=dev)
+    state = model.state_dict()
+    if set(state) != set(flat):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(state) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(state))}")
+    with torch.no_grad():
+        for name, t in state.items():
+            src = serving_array(flat[name], dev)
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)}, the "
+                                 f"model wants {tuple(t.shape)}")
+            t.copy_(src)
+    return model
+
+
+def lm_params_to_reference(model, cfg) -> dict:
+    """The inverse of :func:`lm_params_from_reference`: the reference's
+    tree of numpy arrays, layers stacked on the period axis again (bf16
+    as its fp32 carrier)."""
+    state = {k: to_numpy(v) for k, v in model.state_dict().items()}
+
+    def nest(flat):
+        out: dict = {}
+        for name, a in flat.items():
+            *path, leaf = name.split(".")
+            node = out
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = a
+        return out
+
+    per_layer = [nest({k[len(f"layers.{i}."):]: v for k, v in state.items()
+                       if k.startswith(f"layers.{i}.")})
+                 for i in range(cfg.n_layers)]
+    tree = nest({k: v for k, v in state.items()
+                 if not k.startswith("layers.")})
+    tree["prologue"] = per_layer[:cfg.n_prologue]
+    body = per_layer[cfg.n_prologue:]
+    tree["blocks"] = {
+        f"pos{pos}": nest({k: np.stack([_flatten(t)[k]
+                                        for t in body[pos::cfg.period]])
+                           for k in _flatten(body[pos])})
+        for pos in range(cfg.period)}
+    return tree

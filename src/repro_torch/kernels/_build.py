@@ -30,6 +30,11 @@ _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: each source's exported functions: (argument types, result type), every
 #: pointer and the stream a ``c_void_p``
 SIGNATURES = {
+    "flash_attn": {
+        "flash_attention_fwd": ([_p] * 4 + [_i] * 6 + [_f, _i] + [_ll] * 12
+                                + [_p], _i),
+        "flash_attention_max_d": ([], _i),
+    },
     "nomad_sgd": {
         "nomad_sgd_waves": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f, _i, _p],
                             _i),

@@ -1,0 +1,136 @@
+"""Causal GQA flash attention as one hand-written CUDA kernel
+(``csrc/flash_attn.cu``), its wrapper and its plain PyTorch version.
+
+Replaces the JAX package's Pallas kernel ``src/repro/kernels/flash_attn.py::
+flash_attention``: q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)`` with ``Hq %
+Hkv == 0``; query head ``h`` reads KV head ``h // (Hq // Hkv)``.  Online
+softmax in fp32 over key blocks, masked scores ``-1e30``, the final divide
+by ``max(l, 1e-30)``, the output in q's dtype.  D up to 128; fp32, bf16
+and fp16.
+
+:func:`flash_attention` launches the kernel on CUDA tensors (on the
+current stream, without synchronising) or raises; on CPU tensors, and
+only there, it runs :func:`flash_attention_plain`.  It counts its
+launches in ``flash_attention.launches``.  The kernel tiles by 64 query
+rows and 64 keys; ``block_q``/``block_k`` keep the reference's contract
+(``S`` a multiple of each, once cut to ``S``) and set the key blocks of
+the plain version.  The tensors may be strided views (the transposes of
+``(B, S, H, D)`` projections), as long as the feature axis is
+contiguous; the output has q's strides.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_D = 128
+
+
+def _check(q, k, v, block_q: int, block_k: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S, D)")
+    B, Hq, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    Hkv = k.shape[1]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"head dim {D} outside [1, {MAX_D}]")
+    bq, bk = min(block_q, S), min(block_k, S)
+    if bq < 1 or bk < 1 or S % bq or S % bk:
+        raise ValueError(f"S={S} must be a multiple of block_q={bq} and "
+                         f"block_k={bk}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
+                        f"one of {tuple(_DTYPE_CODE)} for all three")
+    dev = q.device
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"unsupported device {dev}")
+    if k.device != dev or v.device != dev:
+        raise RuntimeError(f"q on {dev}, k on {k.device}, v on {v.device}")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          block_q: int = 256, block_k: int = 256):
+    """Plain PyTorch version of the kernel: the same online softmax, in
+    fp32, over key blocks of ``min(block_k, S)``.  Rows that cannot see a
+    key block under the causal mask skip it (what skipping the blocks
+    above the diagonal does, exactly: such a block changes nothing)."""
+    _check(q, k, v, block_q, block_k)
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    bk = min(block_k, S)
+    scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, g, S, D)
+    m = torch.full((B, Hkv, g, S), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, g, S), device=dev)
+    acc = torch.zeros((B, Hkv, g, S, D), device=dev)
+    pos = torch.arange(S, device=dev)
+    for k0 in range(0, S, bk):
+        lo = k0 if causal else 0
+        kb = k[:, :, k0:k0 + bk].float()
+        vb = v[:, :, k0:k0 + bk].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, lo:], kb) * scale
+        if causal:
+            see = pos[lo:, None] >= pos[None, k0:k0 + bk]
+            s = torch.where(see, s, NEG_INF)
+        m_prev = m[..., lo:]
+        m_new = torch.maximum(m_prev, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_prev - m_new)
+        l[..., lo:] = corr * l[..., lo:] + p.sum(-1)
+        acc[..., lo:, :] = (acc[..., lo:, :] * corr[..., None]
+                            + torch.einsum("bhgqk,bhkd->bhgqd", p, vb))
+        m[..., lo:] = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, S, D).to(q.dtype)
+
+
+def _launch(q, k, v, causal: bool):
+    lib = _build.load("flash_attn")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s feature axis must be contiguous")
+    B, Hq, S, D = q.shape
+    o = torch.empty_like(q)      # q's strides when q is dense, else packed
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+            k.shape[1], S, D, int(causal), 1.0 / (D ** 0.5),
+            _DTYPE_CODE[q.dtype], *strides,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: code {err}")
+    return o
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
+                    block_k: int = 256):
+    """Attention of ``q (B, Hq, S, D)`` over ``k, v (B, Hkv, S, D)`` (the
+    JAX package's ``flash_attention`` without ``interpret``).  The kernel
+    on CUDA tensors, :func:`flash_attention_plain` on CPU tensors.
+    Returns ``(B, Hq, S, D)`` in q's dtype."""
+    _check(q, k, v, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     block_q=block_q, block_k=block_k)
+    out = _launch(q, k, v, causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def reset_launches() -> None:
+    flash_attention.launches = 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the block-SGD kernel.
+"""Plain PyTorch versions of the block-SGD kernel, and the materialized
+attention oracle of the flash kernel (:func:`flash_attention_ref`).
 
 ``block_sgd_ref`` is *the* canonical semantics of a NOMAD block update:
 sequential SGD over the ratings of one (worker, item-block) cell, exactly
@@ -111,3 +112,28 @@ def block_sgd_waves(W, H, rows, cols, vals, mask, lr, lam,
         W[r[m]] = w_new[m]
         H[c[m]] = h_new[m]
     return W, H
+
+
+def flash_attention_ref(q, k, v, causal=True, scale=None):
+    """Plain materialized attention, the oracle of the flash kernel (the
+    JAX package's ``ref.flash_attention_ref``).
+
+    q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq % Hkv == 0 (GQA).  The
+    scores are taken in q's dtype and widened to fp32, masked with
+    ``-inf``, softmaxed in fp32 and cast to v's dtype for the second
+    product, as the reference does.
+    """
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kk = torch.repeat_interleave(k, group, dim=1)
+    vv = torch.repeat_interleave(v, group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    if causal:
+        msk = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                    device=q.device))
+        logits = torch.where(msk[None, None], logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(vv.dtype), vv)

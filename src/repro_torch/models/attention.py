@@ -1,0 +1,152 @@
+"""Attention: GQA projections, the prefill path (the flash kernel or its
+plain chunked twin) and the decode path against a KV cache.
+
+Decode attention is plain torch ops over the whole cache, positions at
+or past ``cur_len`` masked, as in the JAX package (its einsum + reduction
+form is what GSPMD shards there; here it is one device).  KV caches keep
+the reference's ``(B, S_max, Hkv, D)`` layout; the port updates them in
+place during decode (the reference returns new arrays), which saves a
+copy of every layer's cache per token.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..kernels import flash_attn
+from . import layers, rope as rope_mod
+from .flash_xla import flash_attention_xla
+
+NEG_INF = -1e30
+
+#: what a sharding context needs before the port can take one
+SPMD_ITEM = ("ROADMAP Queue 1 item 15 (distributed/{tp,sharding}.py for the "
+             "LM)")
+
+
+def _no_ctx(ctx) -> None:
+    if ctx is not None:
+        raise NotImplementedError(
+            "sharded attention (ctx) is not ported yet: "
+            f"{SPMD_ITEM}; pass ctx=None")
+
+
+class Attention(nn.Module):
+    """The GQA sublayer's weights: ``wq``, ``wk``, ``wv`` (with the
+    config's QKV bias) and ``wo``, each ``(d_in, d_out)``."""
+
+    def __init__(self, cfg, *, dtype=None, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        kw = dict(dtype=dtype, device=device)
+        self.cfg = cfg
+        self.wq = layers.Dense(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
+        self.wk = layers.Dense(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                               **kw)
+        self.wv = layers.Dense(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
+                               **kw)
+        self.wo = layers.Dense(cfg.n_heads * hd, d, **kw)
+
+    def reset_parameters(self, generator=None) -> None:
+        for lin in (self.wq, self.wk, self.wv, self.wo):
+            lin.reset_parameters(generator)
+
+    def forward(self, x, *, angles=None, impl="xla", ctx=None):
+        return attn_apply(self, x, self.cfg, angles=angles, impl=impl,
+                          ctx=ctx)
+
+
+def attn_init(generator, cfg, dtype, device=None) -> Attention:
+    p = Attention(cfg, dtype=dtype, device=device)
+    p.reset_parameters(generator)
+    return p
+
+
+def chunked_attention(q, k, v, *, causal=True, chunk=1024):
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D).  Returns (B, Hq, S, D).
+
+    Blockwise online softmax, the same arithmetic as
+    :func:`flash_attention_xla` (the reference differentiates the two
+    differently; their forwards agree)."""
+    return flash_attention_xla(q, k, v, causal, chunk)
+
+
+def decode_attention(q, k_cache, v_cache, cur_len):
+    """q: (B, Hq, D); caches: (B, S_max, Hkv, D); cur_len: int.  Keys at
+    positions ``>= cur_len`` are masked.  fp32 inside, q's dtype out."""
+    B, Hq, D = q.shape
+    S = k_cache.shape[1]
+    Hkv = k_cache.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qg = (q.float() * scale).reshape(B, Hkv, group, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    valid = torch.arange(S, device=q.device) < cur_len
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, S_max, Hkv, D)
+    v: torch.Tensor
+
+
+def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
+    """Prefill self-attention.  x: (B, S, d).  Returns ``(out (B, S, d),
+    KVCache of this sequence's k, v (B, S, Hkv, D))``.
+
+    ``impl``: ``"pallas"`` is the flash kernel (the CUDA kernel on the
+    card, its plain version on the CPU), ``"xla"`` the plain chunked
+    flash of ``flash_xla``, ``"xla_naive"`` :func:`chunked_attention`.
+    """
+    _no_ctx(ctx)
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = layers.dense(p.wq, x).reshape(B, S, cfg.n_heads, hd)
+    k = layers.dense(p.wk, x).reshape(B, S, cfg.n_kv_heads, hd)
+    v = layers.dense(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
+    if angles is not None:
+        q = rope_mod.apply_rotary(q, angles)
+        k = rope_mod.apply_rotary(k, angles)
+    # (B, H, S, D) views: the kernel reads the projections' layout
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if impl == "pallas":
+        o = flash_attn.flash_attention(qt, kt, vt, causal=True)
+    elif impl == "xla_naive":
+        o = chunked_attention(qt, kt, vt, causal=True)
+    elif impl == "xla":
+        o = flash_attention_xla(qt, kt, vt, True, cfg.attn_chunk)
+    else:
+        raise ValueError(f"impl must be 'pallas', 'xla' or 'xla_naive', "
+                         f"got {impl!r}")
+    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
+    return layers.dense(p.wo, o), KVCache(k=k, v=v)
+
+
+def attn_decode(p, x, cache: KVCache, cfg, *, pos: int, angles=None,
+                ctx=None):
+    """Single-token decode.  x: (B, 1, d); writes this token's k, v at
+    ``pos`` of ``cache`` (in place) and attends over positions ``<= pos``.
+    Returns ``(out (B, 1, d), cache)``."""
+    _no_ctx(ctx)
+    B = x.shape[0]
+    hd = cfg.head_dim
+    xq = x[:, 0]
+    q = layers.dense(p.wq, xq).reshape(B, cfg.n_heads, hd)
+    k = layers.dense(p.wk, xq).reshape(B, cfg.n_kv_heads, hd)
+    v = layers.dense(p.wv, xq).reshape(B, cfg.n_kv_heads, hd)
+    if angles is not None:
+        q = rope_mod.apply_rotary(q[:, None], angles)[:, 0]
+        k = rope_mod.apply_rotary(k[:, None], angles)[:, 0]
+    cache.k[:, pos] = k.to(cache.k.dtype)
+    cache.v[:, pos] = v.to(cache.v.dtype)
+    o = decode_attention(q, cache.k, cache.v, pos + 1)
+    out = layers.dense(p.wo, o.reshape(B, cfg.n_heads * hd))
+    return out[:, None], cache

@@ -1,6 +1,12 @@
-"""Comparison helper for the port's checks (its tests and
-``chip_smoke.py``): two implementations of the update that both compute
-in fp32 over the same low-precision factor storage.
+"""Comparison helpers for the port's checks (its tests and
+``chip_smoke.py``).
+
+:func:`low_precision_tolerance` bounds two low-precision results that
+both compute in fp32 and round once (the flash kernel and its plain
+version): the fp32 bound plus units in the last place of the type.
+
+The rest compares two implementations of the block-SGD update that both
+compute in fp32 over the same low-precision factor storage.
 
 They differ only in the order of the k-dot's fp32 sum, a few fp32 ulps,
 and a bf16 ulp is 2^16 fp32 ulps.  So their stored results disagree only
@@ -13,12 +19,40 @@ type, differs on most of the elements it updates.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 #: most elements the update changed on which the two may differ: their
 #: share, and a count for tiny tensors (one flip and its echo)
 FLIP_SHARE = 2.0 ** -10
 FLIP_SLACK = 2
+
+#: significand bits (the implicit one included) of the types :func:`ulp`
+#: takes
+_MANTISSA = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+
+
+def ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The unit in the last place of ``dtype`` at each value of ``x``, in
+    float64 (at 0 and below the normal range: at ``dtype``'s smallest
+    normal)."""
+    _, e = torch.frexp(x.double())
+    e = torch.clamp(e, min=math.frexp(torch.finfo(dtype).tiny)[1])
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float64),
+                       e - _MANTISSA[dtype])
+
+
+def low_precision_tolerance(want: torch.Tensor, dtype: torch.dtype,
+                            n_ulps: float = 2.0,
+                            fp32_rel: float = 2e-5) -> torch.Tensor:
+    """Per-element bound of two results that compute in fp32 and round
+    once to ``dtype``: their fp32 values may differ by ``fp32_rel`` of
+    ``1 + |want|`` (sums in another order, cancellation included), and
+    rounding adds up to ``n_ulps`` units in the last place of ``dtype``
+    at ``want``."""
+    w = want.double()
+    return n_ulps * ulp(w, dtype) + fp32_rel * (1 + w.abs())
 
 
 def flips(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor

@@ -195,7 +195,9 @@ def test_port_imports_neither_jax_nor_reference():
             "import repro_torch.api, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.core.nomad, "
             "repro_torch.serve, repro_torch.checkpoint, "
-            "repro_torch.launch.serve_mc, repro_torch.kernels.topk\n"
+            "repro_torch.launch.serve_mc, repro_torch.kernels.topk, "
+            "repro_torch.launch.serve, repro_torch.models.transformer, "
+            "repro_torch.configs, repro_torch.kernels.flash_attn\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
