@@ -54,11 +54,14 @@ Phases, one line each (any failure raises and exits non-zero):
    check must reject (the first layer's attention unmasked), and decode
    after prefill against the full forward; the prefill and 4 decode steps
    under ``torch.profiler`` (device busy share, largest kernels); then
-   the kernel against its plain
-   version at the served shape in bf16 and fp32 (fp32 also against the
-   materialized oracle), two controls it must
-   reject (no causal mask; KV head ``h % Hkv``), and its time beside its
-   bound, the plain version's and SDPA's.
+   each flash kernel's registers, shared memory and spills
+   (``cudaFuncGetAttributes``); the kernel against its plain version at
+   the served shape in bf16, fp16 and fp32 (fp32 also against the
+   materialized oracle; bf16/fp16 within the P-rounding bound of
+   ``repro_torch.testing.flash_p_rounding_tolerance``) and in bf16 at
+   (S, D) = (200, 64) and (1024, 36), two controls it must reject in
+   each (no causal mask; KV head ``h % Hkv``), and at the served shape
+   its time beside its bound, the plain version's and SDPA's.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -576,16 +579,19 @@ def topk_phase(dev, launches: int):
     return records
 
 
-def flash_within(got, want, dtype) -> bool:
-    """The flash kernel's result ``got`` against its plain version's
-    ``want``: both accumulate in fp32 (the reference's own ``2e-5`` abs
-    and rel between two fp32 orders of summation), and in bf16 or fp16
-    each rounds once to the output type, which adds up to two ulps of
-    it."""
-    from repro_torch.testing import low_precision_tolerance
+def flash_within(got, want, dtype, abs_v=None) -> bool:
+    """The flash kernel's result ``got`` against ``want`` (its plain
+    version's, or the oracle's).  fp32: both accumulate in fp32, the
+    reference's own ``2e-5`` abs and rel between two orders of
+    summation.  bf16 and fp16: the tensor-core kernel also rounds its
+    probabilities once to the type before ``P V``, so the bound is
+    ``repro_torch.testing.flash_p_rounding_tolerance``: that fp32 bound,
+    two ulps of the output, and the type's epsilon times ``abs_v``, the
+    plain version on ``|v|``."""
+    from repro_torch.testing import flash_p_rounding_tolerance
     w = want.double()
     tol = (2e-5 * (1 + w.abs()) if dtype == torch.float32
-           else low_precision_tolerance(w, dtype))
+           else flash_p_rounding_tolerance(w, abs_v, dtype))
     return bool(((got.double() - w).abs() <= tol).all())
 
 
@@ -603,39 +609,60 @@ def flash_bound(B, Hq, Hkv, S, D, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+#: [7.flash]'s cases: (dtype, S, D, timed); the served shape in each type,
+#: then a ragged last tile (S=200, D padded to 64) and rows of 72 bytes
+#: (D=36: the element-wise loading variant), B, Hq, Hkv as served
+FLASH_CASES = ((torch.bfloat16, LM_P, 128, True),
+               (torch.float16, LM_P, 128, True),
+               (torch.float32, LM_P, 128, True),
+               (torch.bfloat16, 200, 64, False),
+               (torch.bfloat16, LM_P, 36, False))
+
+
 def flash_kernel_checks(dev, launches: int):
-    """[7.flash]: the kernel against its plain version at the served
-    shape, in bf16 and fp32, on q/k/v laid out as the prefill hands them
-    over ((B, S, H, D) projections viewed as (B, H, S, D)); two controls
-    the check must reject; its time beside its bound, the plain
-    version's and SDPA's.  Returns the kernel records (``launches`` is
-    the main path's count)."""
+    """[7.flash]: each kernel of ``csrc/flash_attn.cu`` with its registers,
+    shared memory and spills; then the kernel against its plain version
+    at each of :data:`FLASH_CASES`, on q/k/v laid out as the prefill
+    hands them over ((B, S, H, D) projections viewed as (B, H, S, D)),
+    fp32 also against the materialized oracle, and two controls the
+    check must reject; at the served shape its time beside its bound,
+    the plain version's and SDPA's.  Returns the kernel records
+    (``launches`` is the main path's count, bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as kfa
-    B, Hq, Hkv, S, D = LM_B, 40, 8, LM_P, 128
+    from repro_torch.kernels import ref
+    for name, attrs in kfa.kernel_attrs().items():
+        phase("7.flash", kernel=name, **attrs)
+        if attrs["local_bytes"]:
+            raise AssertionError(f"{name} spills {attrs['local_bytes']} "
+                                 "bytes per thread")
+    B, Hq, Hkv = LM_B, 40, 8
     g = torch.Generator(device=dev).manual_seed(3)
     records = []
-    from repro_torch.kernels import ref
-    for dtype in (torch.bfloat16, torch.float32):
-        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    for dtype, S, D, timed_case in FLASH_CASES:
+        name = {torch.bfloat16: "bf16", torch.float16: "fp16",
+                torch.float32: "fp32"}[dtype]
         q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev)
                     * sc).to(dtype).transpose(1, 2)
                    for h, sc in ((Hq, 0.3), (Hkv, 0.3), (Hkv, 1.0)))
         got = kfa.flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
+        kernel = kfa.KERNELS[kfa.kernel_index(q, k, v, got)]
         want = kfa.flash_attention_plain(q, k, v, causal=True)
+        abs_v = (None if dtype == torch.float32 else kfa.flash_attention_plain(
+            q.float(), k.float(), v.abs().float(), causal=True))
         err = float((got.double() - want.double()).abs().max())
-        ok = flash_within(got, want, dtype)
+        ok = flash_within(got, want, dtype, abs_v)
         phase("check", what=f"flash_attention {name} B={B} Hq={Hq} Hkv={Hkv} "
-              f"S={S} D={D} kernel vs plain", max_abs_err=f"{err:.3e}",
-              within=ok)
+              f"S={S} D={D} kernel vs plain", kernel=kernel,
+              max_abs_err=f"{err:.3e}", within=ok)
         if not ok:
-            raise AssertionError(f"flash_attention {name}: kernel and plain "
-                                 "version disagree")
+            raise AssertionError(f"flash_attention {name} S={S} D={D}: "
+                                 "kernel and plain version disagree")
         if dtype == torch.float32:
             # a second witness: the materialized oracle (in bf16 it rounds
-            # the probabilities to bf16, which the kernel does not)
+            # the probabilities to bf16, which the fp32 kernel does not)
             oracle = ref.flash_attention_ref(q, k, v, causal=True)
             ok = flash_within(got, oracle, dtype)
             phase("check", what=f"flash_attention {name} kernel vs "
@@ -655,25 +682,30 @@ def flash_kernel_checks(dev, launches: int):
                 ("plain with KV head h % Hkv",
                  kfa.flash_attention_plain(q, k[:, wrong_heads],
                                            v[:, wrong_heads], causal=True))):
-            rejected = not flash_within(got, bad, dtype)
-            phase("control", what=f"flash {name} {what}", rejected=rejected)
+            rejected = not flash_within(got, bad, dtype, abs_v)
+            phase("control", what=f"flash {name} S={S} D={D} {what}",
+                  rejected=rejected)
             if not rejected:
                 raise AssertionError(f"the flash check cannot tell {what}")
+        del want, abs_v
+        if not timed_case:
+            continue
         k_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v), 10)
         p_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), 3)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 10)
         b_ms, b_by = flash_bound(B, Hq, Hkv, S, D, dtype)
-        phase("7.flash", dtype=name, kernel_ms=f"{k_ms:.4f}",
+        phase("7.flash", dtype=name, kernel=kernel, kernel_ms=f"{k_ms:.4f}",
               bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
               sdpa_ms=f"{lib_ms:.4f}")
         records.append(dict(
             name=f"flash_attention[{name},B={B},Hq={Hq},Hkv={Hkv},S={S},"
                  f"D={D}]", route="cuda", source=FLASH_SRC,
-            replaces=FLASH_REPLACES,
+            replaces=FLASH_REPLACES, kernel=kernel,
             launches=launches if dtype == torch.bfloat16 else 0,
             launches_on=("[7.lm] prefill" if dtype == torch.bfloat16
-                         else "[7.lm] prefill (bf16 only)"),
+                         else f"[7.lm] prefill (bf16 only; {name} is not "
+                              "served)"),
             max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     return records

@@ -34,6 +34,7 @@ SIGNATURES = {
         "flash_attention_fwd": ([_p] * 4 + [_i] * 6 + [_f, _i] + [_ll] * 12
                                 + [_p], _i),
         "flash_attention_max_d": ([], _i),
+        "flash_attention_kernel_attrs": ([_i, _p], _i),
     },
     "nomad_sgd": {
         "nomad_sgd_waves": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f, _i, _p],

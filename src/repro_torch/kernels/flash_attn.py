@@ -6,7 +6,12 @@ flash_attention``: q ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)`` with ``Hq %
 Hkv == 0``; query head ``h`` reads KV head ``h // (Hq // Hkv)``.  Online
 softmax in fp32 over key blocks, masked scores ``-1e30``, the final divide
 by ``max(l, 1e-30)``, the output in q's dtype.  D up to 128; fp32, bf16
-and fp16.
+and fp16.  Two kernels, by dtype: bf16 and fp16 run on the tensor cores
+(``mma.sync``, K/V tiles through ``cp.async``), rounding the
+probabilities once to the input type before ``P V`` (see
+``repro_torch.testing.flash_p_rounding_tolerance``); fp32 runs on the FMA
+units and keeps them in fp32.  The tensor-core kernel copies rows in
+16-byte chunks where :func:`vector_loads` holds, else element by element.
 
 :func:`flash_attention` launches the kernel on CUDA tensors (on the
 current stream, without synchronising) or raises; on CPU tensors, and
@@ -25,7 +30,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_D = 128
 
 
@@ -45,10 +50,10 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
     if bq < 1 or bk < 1 or S % bq or S % bk:
         raise ValueError(f"S={S} must be a multiple of block_q={bq} and "
                          f"block_k={bk}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
-                        f"one of {tuple(_DTYPE_CODE)} for all three")
+                        f"one of {_DTYPES} for all three")
     dev = q.device
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
@@ -94,6 +99,37 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.reshape(B, Hq, S, D).to(q.dtype)
 
 
+#: the kernels of ``csrc/flash_attn.cu``, in the numbering of its
+#: ``kKernels``: the fp32 FMA kernel, then the tensor-core kernel by dtype,
+#: loads (16-byte or element-wise) and D padded to 128 or 64
+KERNELS = ("flash_fwd_kernel<float>",) + tuple(
+    f"flash_fwd_mma_kernel<{t},{ld},{dp}>" for t in ("bf16", "fp16")
+    for ld in ("16B", "elementwise") for dp in (128, 64))
+
+
+def vector_loads(*tensors) -> bool:
+    """Whether the tensor-core kernel can move the rows of ``tensors`` (q,
+    k, v and o) in 16-byte chunks: a 16-bit dtype, ``D % 8 == 0``, and
+    every base address and (b, h, s) stride a multiple of 16 bytes.
+    Otherwise it takes its element-wise loading variant."""
+    if tensors[0].element_size() != 2 or tensors[0].shape[-1] % 8:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3])
+               for t in tensors)
+
+
+def kernel_index(q, k, v, o) -> int:
+    """The index into :data:`KERNELS` of the kernel a launch on these
+    tensors runs: fp32 the FMA kernel; bf16 and fp16 the tensor-core
+    kernel, with 16-byte loads where :func:`vector_loads` holds, and D
+    padded to 64 where ``D <= 64``, else to 128."""
+    if q.dtype == torch.float32:
+        return 0
+    return (1 + 4 * (q.dtype == torch.float16)
+            + 2 * (not vector_loads(q, k, v, o)) + (q.shape[-1] <= 64))
+
+
 def _launch(q, k, v, causal: bool):
     lib = _build.load("flash_attn")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -107,11 +143,29 @@ def _launch(q, k, v, causal: bool):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
             k.shape[1], S, D, int(causal), 1.0 / (D ** 0.5),
-            _DTYPE_CODE[q.dtype], *strides,
+            kernel_index(q, k, v, o), *strides,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: code {err}")
     return o
+
+
+def kernel_attrs() -> dict:
+    """``{kernel: {regs, static_smem, dynamic_smem, local_bytes,
+    ctas_per_sm}}`` for each of :data:`KERNELS`, read by
+    ``cudaFuncGetAttributes`` and the occupancy calculator on the current
+    card (the fp32 kernel's dynamic shared memory at D = 128)."""
+    import ctypes
+    lib = _build.load("flash_attn")
+    out, keys = {}, ("regs", "static_smem", "dynamic_smem", "local_bytes",
+                     "ctas_per_sm")
+    for i, name in enumerate(KERNELS):
+        vals = (ctypes.c_int * len(keys))()
+        err = lib.flash_attention_kernel_attrs(i, vals)
+        if err != 0:
+            raise RuntimeError(f"attributes of {name}: code {err}")
+        out[name] = dict(zip(keys, vals))
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,

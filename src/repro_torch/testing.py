@@ -2,8 +2,10 @@
 ``chip_smoke.py``).
 
 :func:`low_precision_tolerance` bounds two low-precision results that
-both compute in fp32 and round once (the flash kernel and its plain
-version): the fp32 bound plus units in the last place of the type.
+both compute in fp32 and round once: the fp32 bound plus units in the
+last place of the type.  :func:`flash_p_rounding_tolerance` adds what the
+tensor-core flash kernel's one more rounding (of the probabilities,
+before ``P V``) can cost.
 
 The rest compares two implementations of the block-SGD update that both
 compute in fp32 over the same low-precision factor storage.
@@ -53,6 +55,43 @@ def low_precision_tolerance(want: torch.Tensor, dtype: torch.dtype,
     at ``want``."""
     w = want.double()
     return n_ulps * ulp(w, dtype) + fp32_rel * (1 + w.abs())
+
+
+#: machine epsilon (twice the unit roundoff) of the types the flash
+#: kernel rounds its probabilities to
+P_EPS = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def flash_p_rounding_tolerance(want: torch.Tensor, abs_v_out: torch.Tensor,
+                               dtype: torch.dtype) -> torch.Tensor:
+    """Per-element bound of the bf16/fp16 flash kernel against its plain
+    version ``want``:
+
+        |got - want| <= 2e-5 (1 + |want|) + 2 ulps_T(want)
+                        + eps_T * plain(q, k, |v|)
+
+    where ``abs_v_out`` is ``plain(q, k, |v|)``, the plain version on the
+    same q, k and ``v.abs()`` (computed in fp32), and ``eps_T``
+    (:data:`P_EPS`) is ``dtype``'s machine epsilon.
+
+    Derivation.  Per row, both compute ``o = sum_j p_j v_j / l`` with
+    ``p_j = exp(s_j - m)`` and ``l = sum_j p_j`` in fp32.  The plain
+    version keeps ``p_j`` in fp32; the kernel rounds each ``p_j`` once to
+    ``dtype`` before the product with V (``l`` still sums the fp32
+    values).  Rounding to nearest moves ``p_j`` by at most the unit
+    roundoff ``u_T = eps_T / 2`` of it, so the output moves by at most
+    ``u_T * sum_j p_j |v_j| / l``, which is ``u_T * plain(q, k, |v|)``
+    exactly (the rescaling of the online softmax multiplies ``p_j`` and
+    its error alike).  The rest is :func:`low_precision_tolerance`: the
+    fp32 sums in another order, and each side rounding its output once.
+    ``eps_T`` is twice ``u_T``, kept as margin.  Not covered: a ``p_j``
+    below the type's normal range (``2^-14`` in fp16), whose rounding
+    error is up to half the smallest subnormal (``2^-25``) rather than
+    relative; it needs scores that differ by more than ``14 ln 2`` and
+    then weighs ``2^-25`` per key.
+    """
+    return (low_precision_tolerance(want, dtype)
+            + P_EPS[dtype] * abs_v_out.double())
 
 
 def flips(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor

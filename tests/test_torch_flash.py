@@ -12,8 +12,13 @@ and round once, so they differ by that fp32 bound plus one bf16 ulp of
 the result (``repro_torch.testing.low_precision_tolerance``); against
 the oracle, which rounds its probabilities to bf16 before the second
 product, ``2^-8`` abs and rel.  On the card the kernel is held to its
-plain version: ``2e-5`` of ``1 + |plain|`` in fp32, that plus two ulps
-of the result in bf16 and fp16.
+plain version: ``2e-5`` of ``1 + |plain|`` in fp32; in bf16 and fp16,
+where the tensor-core kernel rounds its probabilities once to the input
+type before ``P V``, that plus two ulps of the result plus the type's
+epsilon times the plain version on ``|v|``
+(``repro_torch.testing.flash_p_rounding_tolerance``).  Here on the CPU,
+an emulation of that kernel's numerics is held to the same bound, and
+two wrong results must fall outside it.
 
 The kernel itself runs only on a card: that test takes the
 ``requires_cuda`` fixture and skips here.
@@ -32,7 +37,8 @@ from repro_torch.kernels import flash_attn as tk
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
 from repro_torch.models.flash_xla import flash_attention_xla
-from repro_torch.testing import low_precision_tolerance
+from repro_torch.testing import (flash_p_rounding_tolerance,
+                                 low_precision_tolerance)
 
 BF16_ULP = 2.0 ** -8
 
@@ -178,19 +184,144 @@ def test_decode_attention_matches_reference(cur_len):
 
 
 # --------------------------------------------------------------------- #
+# the tensor-core kernel's numerics, emulated                           #
+# --------------------------------------------------------------------- #
+
+def _emulate_mma_kernel(q, k, v, *, causal=True, block_k=64):
+    """The bf16/fp16 kernel's arithmetic in plain PyTorch: the online
+    softmax in fp32 over 64-key tiles, ``l`` summed from the fp32
+    probabilities, the probabilities rounded once to the input type
+    before ``P V`` (fp32 sums), the output rounded once."""
+    B, Hq, S, D = q.shape
+    g = Hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(g, 1)
+    vf = v.float().repeat_interleave(g, 1)
+    m = torch.full((B, Hq, S), tk.NEG_INF)
+    l = torch.zeros((B, Hq, S))
+    acc = torch.zeros((B, Hq, S, D))
+    pos = torch.arange(S)
+    for k0 in range(0, S, block_k):
+        s = qf @ kf[:, :, k0:k0 + block_k].transpose(-1, -2) / D ** 0.5
+        if causal:
+            s = torch.where(pos[:, None] >= pos[None, k0:k0 + block_k], s,
+                            tk.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1)
+        acc = (acc * corr[..., None]
+               + p.to(q.dtype).float() @ vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def _cancelling_qkv(seed, Hq, Hkv, S, D, dtype):
+    """Small scores (nearly uniform weights) over v centred on 0 across
+    the keys, so the outputs cancel towards 0; rounded to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(1, Hq, S, D)) * 0.1
+    k = rng.normal(size=(1, Hkv, S, D)) * 0.1
+    v = rng.normal(size=(1, Hkv, S, D))
+    v -= v.mean(axis=2, keepdims=True)
+    return _t(*(a.astype(np.float32) for a in (q, k, v)), dtype=dtype)
+
+
+def _p_bound(q, k, v, want):
+    abs_v = tk.flash_attention_plain(q.float(), k.float(), v.abs().float())
+    return flash_p_rounding_tolerance(want.double(), abs_v, q.dtype)
+
+
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("D", [8, 36, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_p_rounding_emulation_within_bound(dtype, D, group):
+    """The emulated kernel, on cancelling outputs at a ragged S=200 (not a
+    multiple of the 64-key tile), is within the P-rounding bound of the
+    plain version, and rounding P does move it off the plain version."""
+    Hkv, S = 2, 200
+    q, k, v = _cancelling_qkv(D * group, Hkv * group, Hkv, S, D, dtype)
+    got = _emulate_mma_kernel(q, k, v)
+    want = tk.flash_attention_plain(q, k, v)
+    assert got.dtype == want.dtype == dtype
+    err = (got.double() - want.double()).abs()
+    assert torch.all(err <= _p_bound(q, k, v, want))
+    # the bound is needed: the fp32 bound plus two ulps alone fails here
+    assert not torch.all(err <= low_precision_tolerance(want.double(), dtype))
+
+
+@pytest.mark.parametrize("control", ["no causal mask", "KV head h % Hkv"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_p_rounding_bound_rejects_controls(dtype, control):
+    Hkv, g, S, D = 2, 5, 200, 64
+    q, k, v = _cancelling_qkv(7, Hkv * g, Hkv, S, D, dtype)
+    got = _emulate_mma_kernel(q, k, v)
+    if control == "no causal mask":
+        bad = tk.flash_attention_plain(q, k, v, causal=False)
+    else:
+        heads = torch.arange(Hkv * g) % Hkv
+        bad = tk.flash_attention_plain(q, k[:, heads], v[:, heads])
+    assert not torch.all((got.double() - bad.double()).abs()
+                         <= _p_bound(q, k, v, bad))
+
+
+def _proj_views(B, S, H, D, dtype, offset=0):
+    """A ``(B, H, S, D)`` view of a ``(B, S, H, D)`` projection, starting
+    ``offset`` elements into its storage."""
+    base = torch.zeros(B * S * H * D + offset, dtype=dtype)
+    return base[offset:].view(B, S, H, D).transpose(1, 2)
+
+
+@pytest.mark.parametrize("D,dtype,offset,want", [
+    (128, torch.bfloat16, 0, True),      # the served layout
+    (64, torch.float16, 0, True),
+    (36, torch.bfloat16, 0, False),      # rows of 72 bytes
+    (8, torch.bfloat16, 0, True),
+    (128, torch.bfloat16, 1, False),     # a base 2 bytes off
+    (128, torch.float32, 0, False),      # the fp32 kernel loads elements
+])
+def test_vector_loads_only_on_aligned_rows(D, dtype, offset, want):
+    q = _proj_views(2, 64, 4, D, dtype, offset)
+    kv = _proj_views(2, 64, 2, D, dtype)
+    assert tk.vector_loads(q, kv, kv, torch.empty_like(q)) is want
+
+
+@pytest.mark.parametrize("D,dtype,offset,want", [
+    (128, torch.bfloat16, 0, "flash_fwd_mma_kernel<bf16,16B,128>"),
+    (64, torch.float16, 0, "flash_fwd_mma_kernel<fp16,16B,64>"),
+    (36, torch.bfloat16, 0, "flash_fwd_mma_kernel<bf16,elementwise,64>"),
+    (72, torch.float16, 0, "flash_fwd_mma_kernel<fp16,16B,128>"),
+    (72, torch.float16, 1, "flash_fwd_mma_kernel<fp16,elementwise,128>"),
+    (128, torch.float32, 0, "flash_fwd_kernel<float>"),
+])
+def test_kernel_index_names_the_launched_kernel(D, dtype, offset, want):
+    q = _proj_views(1, 64, 4, D, dtype, offset)
+    assert tk.KERNELS[tk.kernel_index(q, q, q, q)] == want
+    assert len(set(tk.KERNELS)) == len(tk.KERNELS) == 9
+
+
+# --------------------------------------------------------------------- #
 # on the card                                                           #
 # --------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_kernel_matches_plain_on_card(requires_cuda, dtype):
-    for seed, (B, Hq, Hkv, S, D, causal) in enumerate((
-            (1, 2, 1, 256, 64, True), (2, 8, 2, 192, 128, True),
-            (1, 4, 4, 128, 128, False), (2, 4, 2, 12, 16, True),
-            (1, 40, 8, 320, 128, True))):
-        q, k, v = (t.to(requires_cuda) for t in _t(
-            *_qkv(seed, B, Hq, Hkv, S, D), dtype=dtype))
-        blk = min(64, S)
+    cases = [((1, 2, 1, 256, 64, True), _qkv),
+             ((2, 8, 2, 192, 128, True), _qkv),
+             ((1, 4, 4, 128, 128, False), _qkv),
+             ((2, 4, 2, 12, 16, True), _qkv),
+             ((1, 40, 8, 320, 128, True), _qkv)]
+    # the emulation's shapes: cancelling outputs at a ragged S=200
+    cases += [((1, 2 * g, 2, 200, D, True), None)
+              for D in (8, 36, 64, 128) for g in (1, 5)]
+    for seed, ((B, Hq, Hkv, S, D, causal), make) in enumerate(cases):
+        if make is None:
+            q, k, v = _cancelling_qkv(seed, Hq, Hkv, S, D, dtype)
+        else:
+            q, k, v = _t(*make(seed, B, Hq, Hkv, S, D), dtype=dtype)
+        q, k, v = (t.to(requires_cuda) for t in (q, k, v))
+        blk = min(64, S) if S % 64 == 0 or S < 64 else S
         tk.reset_launches()
         got = tk.flash_attention(q, k, v, causal=causal, block_q=blk,
                                  block_k=blk)
@@ -199,6 +330,11 @@ def test_kernel_matches_plain_on_card(requires_cuda, dtype):
         want = tk.flash_attention_plain(q, k, v, causal=causal,
                                         block_q=blk, block_k=blk)
         g, w = got.double(), want.double()
-        tol = (2e-5 * (1 + w.abs()) if dtype == torch.float32
-               else low_precision_tolerance(w, dtype))
-        assert torch.all((g - w).abs() <= tol)
+        if dtype == torch.float32:
+            tol = 2e-5 * (1 + w.abs())
+        else:
+            abs_v = tk.flash_attention_plain(
+                q.float(), k.float(), v.abs().float(), causal=causal,
+                block_q=blk, block_k=blk)
+            tol = flash_p_rounding_tolerance(w, abs_v, dtype)
+        assert torch.all((g - w).abs() <= tol), (B, Hq, Hkv, S, D, causal)
