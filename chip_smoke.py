@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # then Qwen2.5-32B serving
+    python3 chip_smoke.py --only topk    # phases 0, 1 and 6 alone
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -35,14 +36,19 @@ Phases, one line each (any failure raises and exits non-zero):
    version; then the kernel against its plain version on the trained
    factors (within tolerance) at every user bucket the serving runs
    launched (top-10 and their filtered over-fetch) and at U=64, and its
-   time;
+   time, taken three times;
 6. the top-k kernel at the Yahoo! Music catalog (624,961 items, 1,999,990
    users, k=100) on seeded factors published through ``FactorStore`` in
    fp32, bf16 and int8: for U in {1, 8, 64} users at top-10 and U=64 at
-   top-1,000, its time (CUDA events) beside its bound, the plain
-   version's and ``torch.topk(W_u @ H.T)``'s; bitwise against the plain
-   version on integer-valued factors, within tolerance on the seeded
-   ones, and a control that must be rejected (the tie rule reversed);
+   top-1,000, its plan (users per CTA, stripes, shared memory, registers
+   from ``cudaFuncGetAttributes``) and time (CUDA events) beside its
+   bound, the plain version's and ``torch.topk(W_u @ H.T)``'s, and at
+   U=64 where the device time goes (``[6.topk.split]``: pass 1, the
+   merge rounds, the decode, and pass 1 scoring alone); bitwise against
+   the plain version on integer-valued factors and on a catalog whose
+   scores rise with the item id (every item passes the threshold), with
+   that catalog's time; within tolerance on the seeded factors; and a
+   control that must be rejected (the tie rule reversed);
 7. the LM: Qwen2.5-32B at full width and depth (64 layers, bf16, seeded
    weights on the card) served through ``repro_torch.launch.serve``:
    prefill of 4 prompts of 1,024 tokens (every layer's attention through
@@ -478,19 +484,123 @@ def serve_phase(result, problem, dev):
                                ps, pi, view.k))
     serve_err = max(errs)
     W_u = view.W.index_select(0, rows)
-    k_ms = cuda_ms(lambda: ktopk.topk_scores_cuda(W_u, H, k_top=10), 20)
+    # three timings, for the spread between them
+    times = [cuda_ms(lambda: ktopk.topk_scores_cuda(W_u, H, k_top=10), 20)
+             for _ in range(3)]
+    k_ms = float(np.median(times))
     _, p_ms = timed(lambda: plain(W_u, H, k_top=10))
     lib_ms = cuda_ms(library_call(W_u, H, None, 10), 20)
     b_ms, b_by = topk_bound(W_u, H, None, 10)
     phase("5.topk", U=64, n=view.n, k_top=10, kernel_ms=f"{k_ms:.4f}",
+          kernel_ms_each=json.dumps([round(t, 4) for t in times]),
           bound_ms=f"{b_ms:.5f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
-          library_ms=f"{lib_ms:.4f}")
+          library_ms=f"{lib_ms:.4f}", **ktopk.kernel_attrs(W_u, H, 10))
     return dict(name="topk_scores_cuda[serve,fp32,U=64,k_top=10]",
                 route="cuda", source=TOPK_SRC, replaces=TOPK_REPLACES,
                 launches=total_launches, launches_on="[5.serve]",
                 max_abs_err=serve_err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms), total_launches
+
+
+def topk_split(storage, W_u, H, h_scale, k_top: int, reps: int = 5):
+    """[6.topk.split]: where one top-k call's device time goes, by kernel
+    name under the profiler over ``reps`` calls: pass 1, the merge rounds
+    (launches per call, summed time) and the decode; and the scoring
+    alone: pass 1 with its selection compiled out (``topk_score_only``,
+    one checksum per CTA), on the same inputs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import topk as ktopk
+    lib = _build.load("topk")
+    U, k = W_u.shape
+    n = H.shape[0]
+    # the profiler may drop events (a whole window's, now and then): each
+    # part is averaged over the launches it saw, the merge rounds counted
+    # per decode seen, and a window that saw none is taken again
+    for _ in range(3):
+        counts = {}
+        _, _, by_name = device_busy(lambda: [ktopk.topk_scores_cuda(
+            W_u, H, h_scale, k_top=k_top) for _ in range(reps)], counts)
+        parts = {"pass1": [0, 0.0], "merge": [0, 0.0], "decode": [0, 0.0]}
+        for name, ms in by_name.items():
+            part = ("merge" if "merge" in name else
+                    "decode" if "decode" in name else "pass1")
+            parts[part][0] += counts[name]
+            parts[part][1] += ms
+        calls = parts["decode"][0]
+        if parts["pass1"][0] and calls:
+            break
+    else:
+        raise AssertionError(f"top-k split: kernels seen {counts}")
+    p = ktopk.device_plan(W_u, H, k_top)
+    sums = torch.empty(-(-U // p.ub) * p.stripes, dtype=torch.int64,
+                       device=W_u.device)
+
+    def score_only():
+        err = lib.topk_score_only(
+            W_u.data_ptr(), H.data_ptr(),
+            None if h_scale is None else h_scale.data_ptr(), U, n, k,
+            ktopk._DTYPE_CODE[W_u.dtype], ktopk._DTYPE_CODE[H.dtype], k_top,
+            p.ub, p.stripes, sums.data_ptr(), sums.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"topk_score_only failed: code {err}")
+
+    score_only()
+    for _ in range(3):
+        score_counts = {}
+        _, score_busy, _ = device_busy(
+            lambda: [score_only() for _ in range(reps)], score_counts)
+        if score_counts:
+            break
+    else:
+        raise AssertionError("score-only: the profiler saw no kernel")
+    pass1, decode = (parts[x][1] / parts[x][0] for x in ("pass1", "decode"))
+    merge = parts["merge"][1] / calls
+    phase("6.topk.split", storage=storage, U=U, k_top=k_top,
+          total_ms=f"{pass1 + merge + decode:.4f}",
+          pass1_ms=f"{pass1:.4f}",
+          merge_rounds=f"{parts['merge'][0] / calls:g}",
+          merge_ms=f"{merge:.4f}",
+          decode_ms=f"{decode:.4f}",
+          score_only_ms=f"{score_busy / sum(score_counts.values()):.4f}")
+
+
+def topk_rising(dev):
+    """[6.topk.rising]: the worst case of the running threshold, a
+    catalog of Yahoo! Music size whose scores rise with the item id, so
+    every item passes every user's threshold: the kernel against its
+    plain version, bitwise (fp32 and int8 scores are exact; bf16 rounds
+    ids to equal, non-decreasing scores), and its time."""
+    from repro_torch.kernels import topk as ktopk
+    ids = torch.arange(YAHOO_N, device=dev, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(2)
+    # score = W[:, 0] * id: W's other columns are 0, H's random integers
+    H = torch.randint(-2, 3, (YAHOO_N, YAHOO_K), generator=g, device=dev,
+                      dtype=torch.float32)
+    H[:, 0] = ids
+    W = torch.zeros((64, YAHOO_K), device=dev)
+    W[:, 0] = torch.arange(64, device=dev) % 16 + 1
+    # int8: one integer dot per user against a rising per-item scale
+    hs = (ids + 1) / YAHOO_N
+    for storage, args in (
+            ("fp32", (W, H, None)),
+            ("bf16", (W.bfloat16(), H.bfloat16(), None)),
+            ("int8", (W, torch.ones_like(H, dtype=torch.int8), hs))):
+        dense = ktopk._tile_scores(args[0], args[1], args[2])
+        if not bool((dense[:, 1:] >= dense[:, :-1]).all()):
+            raise AssertionError(f"rising catalog {storage}: scores fall")
+        del dense
+        for k_top in (10, 1000):
+            s, i = ktopk.topk_scores_cuda(*args, k_top=k_top)
+            ps, pi = ktopk.topk_plain(*args, k_top=k_top)
+            if not (torch.equal(s, ps) and torch.equal(i, pi)):
+                raise AssertionError(f"topk rising {storage} k_top={k_top}:"
+                                     " kernel != plain")
+            k_ms = cuda_ms(lambda: ktopk.topk_scores_cuda(*args,
+                                                          k_top=k_top), 10)
+            phase("6.topk.rising", storage=storage, U=64, k_top=k_top,
+                  kernel_equals_plain=True, kernel_ms=f"{k_ms:.4f}")
 
 
 def topk_phase(dev, launches: int):
@@ -545,6 +655,7 @@ def topk_phase(dev, launches: int):
     if not rejected:
         raise AssertionError("the top-k check cannot tell the tie rule")
     del Hi, Wi, dense
+    topk_rising(dev)
 
     records = []
     for storage, view in views.items():
@@ -560,6 +671,7 @@ def topk_phase(dev, launches: int):
             ps, pi = ktopk.topk_plain(W_u, H, h_scale, k_top=k_top + 1)
             err = check_topk(f"topk {storage} U={U} k_top={k_top}", s, i,
                              ps, pi, YAHOO_K)
+            attrs = ktopk.kernel_attrs(W_u, H, k_top)
             k_ms = cuda_ms(lambda: ktopk.topk_scores_cuda(
                 W_u, H, h_scale, k_top=k_top), 10)
             _, p_ms = timed(lambda: ktopk.topk_plain(W_u, H, h_scale,
@@ -569,7 +681,9 @@ def topk_phase(dev, launches: int):
             phase("6.topk", storage=storage, U=U, k_top=k_top,
                   kernel_ms=f"{k_ms:.4f}", bound_ms=f"{b_ms:.4f}",
                   bound_by=b_by, plain_ms=f"{p_ms:.2f}",
-                  library_ms=f"{lib_ms:.4f}")
+                  library_ms=f"{lib_ms:.4f}", **attrs)
+            if U == 64:
+                topk_split(storage, W_u, H, h_scale, k_top)
             records.append(dict(
                 name=f"topk_scores_cuda[{storage},U={U},k_top={k_top}]",
                 route="cuda", source=TOPK_SRC, replaces=TOPK_REPLACES,
@@ -732,10 +846,11 @@ def check_logits(what, got, want, bound: float) -> None:
                              "clear argmax differs")
 
 
-def device_busy(fn):
+def device_busy(fn, counts=None):
     """Run ``fn`` under ``torch.profiler`` (CPU and CUDA); returns ``(wall
     ms, device busy ms, {kernel name: ms})``: busy is the union of the
-    kernels' intervals on the card, so overlapping kernels count once."""
+    kernels' intervals on the card, so overlapping kernels count once.
+    A ``counts`` dict, if given, receives each kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -750,6 +865,8 @@ def device_busy(fn):
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + (e.time_range.end - e.time_range.start) / 1e3)
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         if b > end:
@@ -958,6 +1075,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1,
                     help="Netflix scale of the main path's problem")
+    ap.add_argument("--only", choices=["topk"],
+                    help="run only phases 0, 1 and 6 (the top-k kernel at "
+                    "the Yahoo! Music catalog); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -993,6 +1113,13 @@ def main() -> int:
           libraries=",".join(x.name for x in _build.library_paths()),
           max_k=lib.nomad_sgd_max_k(),
           flash_max_d=_build.load("flash_attn").flash_attention_max_d())
+
+    if args.only == "topk":
+        kernels = topk_phase(dev, 0)
+        phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(smi, flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
 
     # -- 2. data, pack, kernels against their plain versions -------------
     m = max(500, int(2_649_429 * args.scale))

@@ -12,12 +12,14 @@ per-item ``h_scale`` multiplies the fp32 sum after the dot.  A score of
 :func:`topk_scores_cuda` launches the kernel on CUDA tensors (on the
 current stream, without synchronising) or raises; on CPU tensors, and
 only there, it runs :func:`topk_plain`.  It counts its launches in
-``topk_scores_cuda.launches``.  The kernel is bound by the bytes of
-``H`` it reads (see the source's note); the TPU kernel's ``item_tile``
-(VMEM blocking) is accepted for signature parity and read only by the
-plain version.
+``topk_scores_cuda.launches``.  :func:`plan` splits each call between
+users per CTA and stripes of the catalog, from the card's SM count (see
+the source's note); the TPU kernel's ``item_tile`` (VMEM blocking) is
+accepted for signature parity and read only by the plain version.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +30,70 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int8: 3}
 PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
          (torch.float16, torch.float16), (torch.float32, torch.int8))
+
+
+#: as ``csrc/topk.cu`` has them: items per chunk (the threads of a CTA,
+#: and one user's candidate buffer), its warps, the shared memory a block
+#: may use, and the user blocks the kernel is instantiated for
+CHUNK = 256
+WARPS = CHUNK // 32
+MAX_SMEM = 232_448
+USER_BLOCKS = (32, 16, 8, 4, 2, 1)
+
+
+class Plan(NamedTuple):
+    """How one call splits its work: ``ub`` users per CTA, the catalog's
+    ``n_chunks`` chunks of :data:`CHUNK` items cut into ``stripes`` of
+    ``cps`` chunks (the last may be shorter, or empty), each keeping a
+    running list of ``L`` keys per user in ``smem`` bytes of shared
+    memory."""
+    ub: int
+    stripes: int
+    cps: int
+    L: int
+    smem: int
+
+
+def stripe_smem(ub: int, L: int, k: int) -> int:
+    """Dynamic shared memory of one CTA (``csrc/topk.cu``'s
+    ``stripes_of``): ``W_u``'s rows padded to a multiple of 4, each
+    user's list and candidate buffer, a checksum, the counters and each
+    warp's 16-bit candidate ranks."""
+    return (ub * (-(-k // 4) * 4) * 4 + ub * (L + CHUNK) * 8 + 8 + ub * 4
+            + WARPS * CHUNK * 2)
+
+
+def stripe_shape(n: int, k_top: int, stripes: int):
+    """``(cps, L)`` for ``stripes`` stripes of an ``n``-item catalog."""
+    cps = -(-(-(-n // CHUNK)) // stripes)
+    return cps, min(k_top, cps * CHUNK)
+
+
+def plan(U: int, n: int, k: int, k_top: int, sms: int) -> Plan:
+    """The user block and stripes of one call on a card of ``sms`` SMs:
+    the largest user block (up to 32, and not above ``U`` rounded up to
+    a power of two) whose CTA fits twice in an SM's shared memory, then
+    as many stripes as make one wave of two CTAs per SM (a grid one CTA
+    larger runs a second wave for it).  Where even one user's list of
+    ``k_top`` keys does not fit, the stripes are cut short enough that it
+    does."""
+    n_chunks = -(-n // CHUNK)
+    budget = MAX_SMEM // 2
+    ub_max = min(32, 1 << (U - 1).bit_length())
+    for ub in USER_BLOCKS:
+        if ub > ub_max:
+            continue
+        stripes = max(1, 2 * sms // -(-U // ub))
+        cps, L = stripe_shape(n, k_top, stripes)
+        if stripe_smem(ub, L, k) <= budget:
+            break
+    else:
+        cps = (budget - stripe_smem(1, 0, k)) // 8 // CHUNK
+        if cps < 1:
+            raise ValueError(f"rank k={k} leaves no room for a list")
+    stripes = -(-n_chunks // cps)
+    cps, L = stripe_shape(n, k_top, stripes)
+    return Plan(ub, stripes, cps, L, stripe_smem(ub, L, k))
 
 
 def _tile_scores(W_u, tile, hs):
@@ -102,6 +168,33 @@ def _check(W_u, H, h_scale, k_top: int) -> None:
                                f"{dev}")
 
 
+def device_plan(W_u, H, k_top: int) -> Plan:
+    """:func:`plan` for these inputs on their card."""
+    sms = torch.cuda.get_device_properties(W_u.device).multi_processor_count
+    return plan(W_u.shape[0], H.shape[0], W_u.shape[1], k_top, sms)
+
+
+def kernel_attrs(W_u, H, k_top: int) -> dict:
+    """The plan of a call on these inputs and its pass-1 kernel's
+    ``{ub, stripes, cps, L, regs, static_smem, dynamic_smem,
+    local_bytes, ctas_per_sm}``, read by ``cudaFuncGetAttributes`` and
+    the occupancy calculator on their card."""
+    import ctypes
+    lib = _build.load("topk")
+    p = device_plan(W_u, H, k_top)
+    keys = ("regs", "static_smem", "dynamic_smem", "local_bytes",
+            "ctas_per_sm")
+    vals = (ctypes.c_int * len(keys))()
+    with torch.cuda.device(W_u.device):
+        err = lib.topk_kernel_attrs(
+            W_u.shape[0], H.shape[0], W_u.shape[1], _DTYPE_CODE[W_u.dtype],
+            _DTYPE_CODE[H.dtype], k_top, p.ub, p.stripes, vals)
+    if err != 0:
+        raise RuntimeError(f"topk kernel attributes: code {err}")
+    return dict(ub=p.ub, stripes=p.stripes, cps=p.cps, L=p.L,
+                **dict(zip(keys, vals)))
+
+
 def _launch(W_u, H, h_scale, k_top: int):
     lib = _build.load("topk")
     U, k = W_u.shape
@@ -109,7 +202,8 @@ def _launch(W_u, H, h_scale, k_top: int):
     for name, t in (("W_u", W_u), ("H", H), ("h_scale", h_scale)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    elems = lib.topk_scratch_elems(U, n, k_top)
+    p = device_plan(W_u, H, k_top)
+    elems = lib.topk_scratch_elems(U, n, k_top, p.stripes)
     dev = W_u.device
     bufs = [torch.empty(elems, dtype=torch.int64, device=dev)
             for _ in range(2)]
@@ -119,8 +213,8 @@ def _launch(W_u, H, h_scale, k_top: int):
         err = lib.topk_scores(
             W_u.data_ptr(), H.data_ptr(),
             None if h_scale is None else h_scale.data_ptr(), U, n, k,
-            _DTYPE_CODE[W_u.dtype], _DTYPE_CODE[H.dtype], k_top,
-            bufs[0].data_ptr(), bufs[1].data_ptr(), elems,
+            _DTYPE_CODE[W_u.dtype], _DTYPE_CODE[H.dtype], k_top, p.ub,
+            p.stripes, bufs[0].data_ptr(), bufs[1].data_ptr(), elems,
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -624,11 +624,20 @@ def test_serving_path_ids_match_reference(tmp_path, saver):
 
 @pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
 def test_kernel_matches_plain_on_card(requires_cuda, storage):
-    for seed, users, items, k_top in ((0, 1, 700, 10), (1, 9, 1300, 300),
-                                      (2, 33, 600, 600)):
-        W_u, H, hs = _case(seed, users, items, 16, storage)
+    # besides small catalogs: stripes of several chunks, so flushes meet
+    # a full list, short (20 keys, in registers) and long (50, 700);
+    # k_top above a stripe's items (300 and 257 in stripes of one chunk);
+    # ranks that are not a multiple of 4 (the scoring loop's scalar tail)
+    for seed, users, items, k_rank, k_top in (
+            (0, 1, 700, 16, 10), (1, 9, 1300, 16, 300),
+            (2, 33, 600, 16, 600), (3, 5, 200_000, 7, 50),
+            (4, 40, 300_000, 10, 700), (5, 2, 5000, 3, 257),
+            (6, 3, 150_000, 5, 20)):
+        W_u, H, hs = _case(seed, users, items, k_rank, storage)
         args = [None if x is None else x.to(requires_cuda)
                 for x in _port_inputs(W_u, H, hs, storage)]
+        p = tk.device_plan(args[0], args[1], k_top)
+        assert p.stripes > 1
         tk.reset_launches()
         s, i = tk.topk_scores_cuda(*args, k_top=k_top)
         torch.cuda.synchronize()
