@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # then Qwen2.5-32B serving
-    python3 chip_smoke.py --only topk    # phases 0, 1 and 6 alone
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -541,7 +540,7 @@ def topk_split(storage, W_u, H, h_scale, k_top: int, reps: int = 5):
             W_u.data_ptr(), H.data_ptr(),
             None if h_scale is None else h_scale.data_ptr(), U, n, k,
             ktopk._DTYPE_CODE[W_u.dtype], ktopk._DTYPE_CODE[H.dtype], k_top,
-            p.ub, p.stripes, sums.data_ptr(), sums.numel(),
+            *ktopk.plan_args(p), sums.data_ptr(), sums.numel(),
             torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"topk_score_only failed: code {err}")
@@ -1075,9 +1074,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1,
                     help="Netflix scale of the main path's problem")
-    ap.add_argument("--only", choices=["topk"],
-                    help="run only phases 0, 1 and 6 (the top-k kernel at "
-                    "the Yahoo! Music catalog); prints no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1113,13 +1109,6 @@ def main() -> int:
           libraries=",".join(x.name for x in _build.library_paths()),
           max_k=lib.nomad_sgd_max_k(),
           flash_max_d=_build.load("flash_attn").flash_attention_max_d())
-
-    if args.only == "topk":
-        kernels = topk_phase(dev, 0)
-        phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
-        print(smi, flush=True)
-        print(json.dumps({"kernels": kernels}), flush=True)
-        return 0
 
     # -- 2. data, pack, kernels against their plain versions -------------
     m = max(500, int(2_649_429 * args.scale))

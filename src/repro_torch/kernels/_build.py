@@ -42,12 +42,13 @@ SIGNATURES = {
         "nomad_sgd_max_k": ([], _i),
     },
     "topk": {
-        "topk_scores": ([_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _ll, _p,
-                         _p, _ll, _p, _p, _p], _i),
-        "topk_scratch_elems": ([_i, _ll, _i, _ll], _ll),
+        "topk_scores": ([_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _ll, _ll,
+                         _i, _ll, _p, _p, _ll, _p, _p, _p], _i),
+        "topk_scratch_elems": ([_i, _ll, _i, _i], _ll),
         "topk_score_only": ([_p, _p, _p, _i, _ll, _i, _i, _i, _i, _i, _ll,
-                             _p, _ll, _p], _i),
-        "topk_kernel_attrs": ([_i, _ll, _i, _i, _i, _i, _i, _ll, _p], _i),
+                             _ll, _i, _ll, _p, _ll, _p], _i),
+        "topk_kernel_attrs": ([_i, _ll, _i, _i, _i, _i, _i, _ll, _ll, _i,
+                               _ll, _p], _i),
     },
 }
 

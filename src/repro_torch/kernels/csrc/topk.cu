@@ -454,25 +454,26 @@ __global__ void __launch_bounds__(kMergeThreads) topk_decode_kernel(
 long long min_ll(long long a, long long b) { return a < b ? a : b; }
 long long max_ll(long long a, long long b) { return a > b ? a : b; }
 
-// The shape of pass 1 for S stripes (kernels/topk.py: stripe_shape, and
-// stripe_smem for its shared memory).
-struct Stripes {
-  long long n_chunks, cps;
-  int L, kp;
-  size_t smem;
-};
-
-Stripes stripes_of(int ub, long long n, int k, int k_top, long long S) {
-  Stripes p;
-  p.n_chunks = (n + kChunk - 1) / kChunk;
-  p.cps = (p.n_chunks + S - 1) / S;
-  p.L = (int)min_ll(k_top, p.cps * kChunk);
-  p.kp = (k + 3) & ~3;
-  p.smem = (size_t)ub * p.kp * sizeof(float)
-      + (size_t)ub * (p.L + kChunk) * sizeof(u64) + sizeof(u64)
+// Pass 1's plan comes from the Python wrapper (kernels/topk.py, plan): ub
+// users per CTA, S stripes of cps chunks, lists of L keys, smem bytes of
+// dynamic shared memory.  These check it: it must cover the catalog, keep
+// L = min(k_top, stripe items) and size the shared memory exactly as
+// topk_stripe_kernel lays it out, so a plan that drifts from the kernel
+// fails instead of launching at another occupancy.
+size_t stripe_smem(int ub, int L, int k) {
+  return (size_t)ub * ((k + 3) & ~3) * sizeof(float)
+      + (size_t)ub * (L + kChunk) * sizeof(u64) + sizeof(u64)
       + (size_t)ub * sizeof(int)
       + (size_t)kWarps * kChunk * sizeof(unsigned short);
-  return p;
+}
+
+bool valid(int U, long long n, int k, int k_top, int ub, long long S,
+           long long cps, int L, long long smem) {
+  const long long n_chunks = (n + kChunk - 1) / kChunk;
+  return U >= 1 && n >= 1 && k >= 1 && k_top >= 1 && k_top <= n
+      && n < 0x7FFFFFFFLL && ub >= 1 && S >= 1 && S <= 65535 && cps >= 1
+      && cps * S >= n_chunks && L == min_ll(k_top, cps * kChunk)
+      && smem == (long long)stripe_smem(ub, L, k) && smem <= kMaxSmem;
 }
 
 struct Launch {
@@ -482,7 +483,9 @@ struct Launch {
   int U;
   long long n;
   int k, k_top, ub;
-  long long S;
+  long long S, cps;
+  int L;
+  size_t smem;
   u64* out;
   cudaStream_t stream;
   int* attrs;        // non-null: report the kernel's attributes, no launch
@@ -490,11 +493,9 @@ struct Launch {
 
 template <typename TW, typename TH, int UB, bool kSelect>
 int launch_stripes(const Launch& a) {
-  const Stripes p = stripes_of(UB, a.n, a.k, a.k_top, a.S);
-  if (p.smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   auto kern = topk_stripe_kernel<TW, TH, UB, kSelect>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)a.smem);
   if (err != cudaSuccess) return err;
   if (a.attrs != nullptr) {
     cudaFuncAttributes fa;
@@ -502,11 +503,11 @@ int launch_stripes(const Launch& a) {
     if (err != cudaSuccess) return err;
     int ctas = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, kChunk,
-                                                        p.smem);
+                                                        a.smem);
     if (err != cudaSuccess) return err;
     a.attrs[0] = fa.numRegs;
     a.attrs[1] = (int)fa.sharedSizeBytes;
-    a.attrs[2] = (int)p.smem;
+    a.attrs[2] = (int)a.smem;
     a.attrs[3] = (int)fa.localSizeBytes;
     a.attrs[4] = ctas;
     return cudaSuccess;
@@ -514,9 +515,10 @@ int launch_stripes(const Launch& a) {
   const bool vec = a.k % 4 == 0
       && reinterpret_cast<uintptr_t>(a.H) % (4 * sizeof(TH)) == 0;
   dim3 grid((unsigned)((a.U + UB - 1) / UB), (unsigned)a.S);
-  kern<<<grid, kChunk, p.smem, a.stream>>>(
+  kern<<<grid, kChunk, a.smem, a.stream>>>(
       static_cast<const TW*>(a.Wu), static_cast<const TH*>(a.H), a.hs, a.U,
-      a.n, a.k, p.kp, p.L, p.n_chunks, p.cps, vec, a.out);
+      a.n, a.k, (a.k + 3) & ~3, a.L, (a.n + kChunk - 1) / kChunk, a.cps, vec,
+      a.out);
   return cudaGetLastError();
 }
 
@@ -547,11 +549,6 @@ int stripes(int w_dtype, int h_dtype, const Launch& a) {
   return -1;
 }
 
-bool valid(int U, long long n, int k, int k_top, int ub, long long S) {
-  return U >= 1 && n >= 1 && k >= 1 && k_top >= 1 && k_top <= n
-      && n < 0x7FFFFFFFLL && ub >= 1 && S >= 1 && S <= 65535;
-}
-
 template <typename TW>
 cudaError_t launch_decode(const u64* in, int L, int U, int k_top, long long n,
                           void* out_s, int* out_i, cudaStream_t stream) {
@@ -565,42 +562,42 @@ cudaError_t launch_decode(const u64* in, int L, int U, int k_top, long long n,
 
 }  // namespace
 
-// Scratch (in 64-bit keys) one buffer of topk_scores needs with S stripes:
-// the largest round of the tournament.
-extern "C" long long topk_scratch_elems(int U, long long n, int k_top,
-                                        long long S) {
-  long long nl = S;
-  long long L = stripes_of(1, n, 1, k_top, S).L;
-  long long most = (long long)U * nl * L;
+// Scratch (in 64-bit keys) one buffer of topk_scores needs with S stripes
+// of lists of L keys: the largest round of the tournament.
+extern "C" long long topk_scratch_elems(int U, long long S, int L,
+                                        int k_top) {
+  long long nl = S, l = L;
+  long long most = (long long)U * nl * l;
   while (nl > 1) {
     nl = (nl + 1) / 2;
-    L = min_ll(k_top, 2 * L);
-    most = max_ll(most, (long long)U * nl * L);
+    l = min_ll(k_top, 2 * l);
+    most = max_ll(most, (long long)U * nl * l);
   }
   return most;
 }
 
-// The top-k of W_u against H with ub users per CTA and S stripes (the
-// wrapper's plan).  buf0/buf1 hold topk_scratch_elems(U, n, k_top, S) keys
-// each.  Returns a cudaError_t, or -1 for an unsupported type pair, -2 for
-// short scratch.
+// The top-k of W_u against H on the wrapper's plan (ub users per CTA, S
+// stripes of cps chunks, lists of L keys, smem bytes; see valid).
+// buf0/buf1 hold topk_scratch_elems(U, S, L, k_top) keys each.  Returns a
+// cudaError_t, or -1 for an unsupported type pair, -2 for short scratch.
 extern "C" int topk_scores(const void* Wu, const void* H, const void* hs,
                            int U, long long n, int k, int w_dtype,
                            int h_dtype, int k_top, int ub, long long S,
-                           void* buf0, void* buf1, long long buf_elems,
-                           void* out_s, void* out_i, void* stream_ptr) {
+                           long long cps, int L, long long smem, void* buf0,
+                           void* buf1, long long buf_elems, void* out_s,
+                           void* out_i, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!valid(U, n, k, k_top, ub, S)) return cudaErrorInvalidValue;
-  if (topk_scratch_elems(U, n, k_top, S) > buf_elems) return -2;
+  if (!valid(U, n, k, k_top, ub, S, cps, L, smem))
+    return cudaErrorInvalidValue;
+  if (topk_scratch_elems(U, S, L, k_top) > buf_elems) return -2;
   u64* cur = static_cast<u64*>(buf0);
   u64* nxt = static_cast<u64*>(buf1);
   const Launch a{Wu, H, static_cast<const float*>(hs), U, n, k, k_top, ub,
-                 S, cur, stream, nullptr};
+                 S, cps, L, (size_t)smem, cur, stream, nullptr};
   int err = stripes<true>(w_dtype, h_dtype, a);
   if (err != cudaSuccess) return err;
 
   long long nl = S;
-  int L = stripes_of(ub, n, k, k_top, S).L;
   while (nl > 1) {
     const long long nlo = (nl + 1) / 2;
     const int Lo = (int)min_ll(k_top, 2LL * L);
@@ -634,12 +631,14 @@ extern "C" int topk_scores(const void* Wu, const void* H, const void* hs,
 extern "C" int topk_score_only(const void* Wu, const void* H, const void* hs,
                                int U, long long n, int k, int w_dtype,
                                int h_dtype, int k_top, int ub, long long S,
+                               long long cps, int L, long long smem,
                                void* out, long long out_elems,
                                void* stream_ptr) {
-  if (!valid(U, n, k, k_top, ub, S)) return cudaErrorInvalidValue;
+  if (!valid(U, n, k, k_top, ub, S, cps, L, smem))
+    return cudaErrorInvalidValue;
   if ((long long)((U + ub - 1) / ub) * S > out_elems) return -2;
   const Launch a{Wu, H, static_cast<const float*>(hs), U, n, k, k_top, ub,
-                 S, static_cast<u64*>(out),
+                 S, cps, L, (size_t)smem, static_cast<u64*>(out),
                  static_cast<cudaStream_t>(stream_ptr), nullptr};
   return stripes<false>(w_dtype, h_dtype, a);
 }
@@ -649,9 +648,11 @@ extern "C" int topk_score_only(const void* Wu, const void* H, const void* hs,
 // CTAs per SM (cudaFuncGetAttributes, cudaOccupancy...).
 extern "C" int topk_kernel_attrs(int U, long long n, int k, int w_dtype,
                                  int h_dtype, int k_top, int ub, long long S,
+                                 long long cps, int L, long long smem,
                                  int* out) {
-  if (!valid(U, n, k, k_top, ub, S)) return cudaErrorInvalidValue;
-  const Launch a{nullptr, nullptr, nullptr, U, n, k, k_top, ub, S, nullptr,
-                 nullptr, out};
+  if (!valid(U, n, k, k_top, ub, S, cps, L, smem))
+    return cudaErrorInvalidValue;
+  const Launch a{nullptr, nullptr, nullptr, U, n, k, k_top, ub, S, cps, L,
+                 (size_t)smem, nullptr, nullptr, out};
   return stripes<true>(w_dtype, h_dtype, a);
 }

@@ -19,6 +19,7 @@ accepted for signature parity and read only by the plain version.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -34,7 +35,9 @@ PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
 
 #: as ``csrc/topk.cu`` has them: items per chunk (the threads of a CTA,
 #: and one user's candidate buffer), its warps, the shared memory a block
-#: may use, and the user blocks the kernel is instantiated for
+#: may use, and the user blocks the kernel is instantiated for.  The plan
+#: is made here alone; the C side checks it (``valid``) and refuses one
+#: whose shared memory differs from its kernel's layout
 CHUNK = 256
 WARPS = CHUNK // 32
 MAX_SMEM = 232_448
@@ -56,7 +59,7 @@ class Plan(NamedTuple):
 
 def stripe_smem(ub: int, L: int, k: int) -> int:
     """Dynamic shared memory of one CTA (``csrc/topk.cu``'s
-    ``stripes_of``): ``W_u``'s rows padded to a multiple of 4, each
+    ``stripe_smem``): ``W_u``'s rows padded to a multiple of 4, each
     user's list and candidate buffer, a checksum, the counters and each
     warp's 16-bit candidate ranks."""
     return (ub * (-(-k // 4) * 4) * 4 + ub * (L + CHUNK) * 8 + 8 + ub * 4
@@ -69,6 +72,7 @@ def stripe_shape(n: int, k_top: int, stripes: int):
     return cps, min(k_top, cps * CHUNK)
 
 
+@functools.lru_cache(maxsize=1024)
 def plan(U: int, n: int, k: int, k_top: int, sms: int) -> Plan:
     """The user block and stripes of one call on a card of ``sms`` SMs:
     the largest user block (up to 32, and not above ``U`` rounded up to
@@ -76,7 +80,7 @@ def plan(U: int, n: int, k: int, k_top: int, sms: int) -> Plan:
     as many stripes as make one wave of two CTAs per SM (a grid one CTA
     larger runs a second wave for it).  Where even one user's list of
     ``k_top`` keys does not fit, the stripes are cut short enough that it
-    does."""
+    does.  Cached: a server asks it for every microbatch."""
     n_chunks = -(-n // CHUNK)
     budget = MAX_SMEM // 2
     ub_max = min(32, 1 << (U - 1).bit_length())
@@ -168,10 +172,20 @@ def _check(W_u, H, h_scale, k_top: int) -> None:
                                f"{dev}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def device_plan(W_u, H, k_top: int) -> Plan:
     """:func:`plan` for these inputs on their card."""
-    sms = torch.cuda.get_device_properties(W_u.device).multi_processor_count
-    return plan(W_u.shape[0], H.shape[0], W_u.shape[1], k_top, sms)
+    return plan(W_u.shape[0], H.shape[0], W_u.shape[1], k_top,
+                _sm_count(W_u.device))
+
+
+def plan_args(p: Plan) -> tuple:
+    """The plan as the C entry points take it: ``ub, S, cps, L, smem``."""
+    return p.ub, p.stripes, p.cps, p.L, p.smem
 
 
 def kernel_attrs(W_u, H, k_top: int) -> dict:
@@ -188,7 +202,7 @@ def kernel_attrs(W_u, H, k_top: int) -> dict:
     with torch.cuda.device(W_u.device):
         err = lib.topk_kernel_attrs(
             W_u.shape[0], H.shape[0], W_u.shape[1], _DTYPE_CODE[W_u.dtype],
-            _DTYPE_CODE[H.dtype], k_top, p.ub, p.stripes, vals)
+            _DTYPE_CODE[H.dtype], k_top, *plan_args(p), vals)
     if err != 0:
         raise RuntimeError(f"topk kernel attributes: code {err}")
     return dict(ub=p.ub, stripes=p.stripes, cps=p.cps, L=p.L,
@@ -203,7 +217,7 @@ def _launch(W_u, H, h_scale, k_top: int):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     p = device_plan(W_u, H, k_top)
-    elems = lib.topk_scratch_elems(U, n, k_top, p.stripes)
+    elems = lib.topk_scratch_elems(U, p.stripes, p.L, k_top)
     dev = W_u.device
     bufs = [torch.empty(elems, dtype=torch.int64, device=dev)
             for _ in range(2)]
@@ -213,8 +227,8 @@ def _launch(W_u, H, h_scale, k_top: int):
         err = lib.topk_scores(
             W_u.data_ptr(), H.data_ptr(),
             None if h_scale is None else h_scale.data_ptr(), U, n, k,
-            _DTYPE_CODE[W_u.dtype], _DTYPE_CODE[H.dtype], k_top, p.ub,
-            p.stripes, bufs[0].data_ptr(), bufs[1].data_ptr(), elems,
+            _DTYPE_CODE[W_u.dtype], _DTYPE_CODE[H.dtype], k_top,
+            *plan_args(p), bufs[0].data_ptr(), bufs[1].data_ptr(), elems,
             out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
