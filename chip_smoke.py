@@ -246,6 +246,35 @@ def bound(Ws, Hs, csr):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def factor_digest(W, H) -> str:
+    """sha256 of the factors' bytes, W then H: equal digests from two
+    trees in one call show their results bitwise equal."""
+    import hashlib
+    h = hashlib.sha256(np.ascontiguousarray(W).tobytes())
+    h.update(np.ascontiguousarray(H).tobytes())
+    return h.hexdigest()[:16]
+
+
+def wave_split(ks, W, H, csr, lr, lam, what: str) -> dict:
+    """[4.wave.split]: one cell's waves split by ``clock64()`` samples of
+    one warp (``nomad_sgd.wave_split``): cycles and ns per wave of each
+    segment, ns per cycle from the launch's CUDA-event time over its
+    sampled cycles."""
+    sp = ks.wave_split(W.clone(), H.clone(), csr, lr, lam)
+    ns_per_cycle = sp["ms"] * 1e6 / max(sp["cycles"], 1)
+    fields = {name: f"{sp[name + '_cycles']:.1f}" for name in ks.SPLIT}
+    us_per_wave = sp["ms"] * 1e3 / max(sp["waves"], 1)
+    phase("4.wave.split", what=what, waves=sp["waves"], trips=sp["trips"],
+          ms=f"{sp['ms']:.3f}", us_per_wave=f"{us_per_wave:.4f}",
+          ns_per_cycle=f"{ns_per_cycle:.4f}",
+          cycles_per_wave=json.dumps(fields),
+          ns_per_wave=json.dumps({name: round(sp[name + "_cycles"]
+                                              * ns_per_cycle, 1)
+                                  for name in ks.SPLIT}))
+    sp["ns_per_cycle"] = ns_per_cycle
+    return sp
+
+
 def chain(csr) -> int:
     """Dependent waves of a launch: the most waves any of its cells has."""
     return int(torch.diff(csr.cell_woff.long()).max())
@@ -1242,6 +1271,7 @@ def main() -> int:
         routes[route] = dict(launches=launched, wall_s=wall, result=res)
         phase(f"3.{route}", epochs=epochs, wall_s=f"{wall:.3f}",
               rmse=json.dumps(rm), last_finite=finite,
+              digest=factor_digest(res.W, res.H),
               max_mem_bytes=torch.cuda.max_memory_allocated(),
               launches=json.dumps(counts), want=want)
 
@@ -1317,6 +1347,12 @@ def main() -> int:
           ratings=json.dumps(torch.bincount(cell_ratings(step)[0],
                                             minlength=p).tolist()))
 
+    # where the hottest cell's waves spend their time
+    c_t = int(torch.diff(step.cell_woff.long()).argmax())
+    one = step.cells(c_t, c_t + 1)
+    W1, H1 = Ws0[c_t:c_t + 1], Hs0[c_t:c_t + 1]
+    wave_split(ks, W1, H1, one, lr, lam, f"step {s_t} cell {c_t}")
+
     # where solve's time goes: its engine's pieces, one by one
     from repro_torch.core.nomad import NomadRingEngine
     from repro_torch.core.objective import init_factors
@@ -1336,9 +1372,6 @@ def main() -> int:
     # grid route: the step, one launch for its p cells
     grid_ms, grid_plain_ms, grid_err, _ = timed_pair(step, Ws0, Hs0)
     # per-cell route: that step's longest cell, one launch for the cell
-    c_t = int(torch.diff(step.cell_woff.long()).argmax())
-    one = step.cells(c_t, c_t + 1)
-    W1, H1 = Ws0[c_t:c_t + 1], Hs0[c_t:c_t + 1]
     cell_ms, cell_plain_ms, cell_err, _ = timed_pair(one, W1, H1)
     # sequential route: the same step with every rating its own wave,
     # one launch for its p cells, as the engine builds it

@@ -39,6 +39,8 @@ SIGNATURES = {
     "nomad_sgd": {
         "nomad_sgd_waves": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f, _i, _p],
                             _i),
+        "nomad_sgd_waves_profile": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f,
+                                                _i, _p, _p], _i),
         "nomad_sgd_max_k": ([], _i),
     },
     "topk": {

@@ -62,7 +62,26 @@ __device__ __forceinline__ void store_f32(__half* p, float x) {
   *p = __float2half_rn(x);
 }
 
-template <typename T, int KPL>
+// Where a wave's time goes, sampled with clock64() by lane 0 of warp 0 of
+// the CTA a profiling launch runs (one cell): the sums over its waves of
+//   [0] the index fetch (the wave's offsets included), [1] the
+//   factor-row fetch (W and H),
+//   [2] the dot, the butterfly and the stores, [3] staging (0 here),
+//   [4] the barrier; [5] the waves, [6] the trips, [7] the clock64()
+//   cycles from the first wave's start to the last barrier's end; [8] a
+//   checksum of the sampled values, which keeps their uses in the code.
+// Each clock is read after an add that uses the values of its segment,
+// so it is taken after those values have arrived.
+constexpr int kProfileSlots = 9;
+
+__device__ __forceinline__ void wait_for(int& sink, int x) {
+  asm volatile("add.s32 %0, %0, %1;" : "+r"(sink) : "r"(x));
+}
+__device__ __forceinline__ void wait_for(int& sink, float x) {
+  wait_for(sink, __float_as_int(x));
+}
+
+template <typename T, int KPL, bool PROFILE>
 __global__ void __launch_bounds__(kThreads)
 nomad_sgd_waves_kernel(T* W, T* H,
                        const int32_t* __restrict__ rows,
@@ -71,7 +90,7 @@ nomad_sgd_waves_kernel(T* W, T* H,
                        const int32_t* __restrict__ woff,
                        const int32_t* __restrict__ cell_woff,
                        long long w_cell_stride, long long h_cell_stride,
-                       int k, float lr, float lam) {
+                       int k, float lr, float lam, long long* prof) {
   const int cell = blockIdx.x;
   T* Wc = W + cell * w_cell_stride;
   T* Hc = H + cell * h_cell_stride;
@@ -80,13 +99,29 @@ nomad_sgd_waves_kernel(T* W, T* H,
   const int n_warps = blockDim.x / kWarp;
   const int w_begin = cell_woff[cell];
   const int w_end = cell_woff[cell + 1];
+  const bool sample = PROFILE && threadIdx.x == 0;
+  long long acc[kProfileSlots] = {};
+  long long t_first = 0, c0 = 0, c1 = 0;
+  int sink = 0;
+  if (sample) t_first = clock64();
 
   for (int w = w_begin; w < w_end; ++w) {
+    if (sample) c0 = clock64();
     const int r_end = woff[w + 1];
     for (int t = woff[w] + warp; t < r_end; t += n_warps) {
-      T* wp = Wc + static_cast<long long>(rows[t]) * k;
-      T* hp = Hc + static_cast<long long>(cols[t]) * k;
+      const int row = rows[t];
+      const int col = cols[t];
       const float a = vals[t];
+      if (sample) {
+        wait_for(sink, row);
+        wait_for(sink, col);
+        wait_for(sink, a);
+        c1 = clock64();
+        acc[0] += c1 - c0;
+        c0 = c1;
+      }
+      T* wp = Wc + static_cast<long long>(row) * k;
+      T* hp = Hc + static_cast<long long>(col) * k;
       float wv[KPL];
       float hv[KPL];
       float part = 0.0f;
@@ -96,6 +131,12 @@ nomad_sgd_waves_kernel(T* W, T* H,
         wv[u] = d < k ? load_f32(wp + d) : 0.0f;
         hv[u] = d < k ? load_f32(hp + d) : 0.0f;
         part += wv[u] * hv[u];
+      }
+      if (sample) {
+        wait_for(sink, part);
+        c1 = clock64();
+        acc[1] += c1 - c0;
+        c0 = c1;
       }
 #pragma unroll
       for (int off = kWarp / 2; off > 0; off >>= 1) {
@@ -110,35 +151,54 @@ nomad_sgd_waves_kernel(T* W, T* H,
           store_f32(hp + d, hv[u] - lr * (-err * wv[u] + lam * hv[u]));
         }
       }
+      if (sample) {
+        c1 = clock64();
+        acc[2] += c1 - c0;
+        acc[6] += 1;
+        c0 = c1;
+      }
     }
+    if (sample) c0 = clock64();
     __syncthreads();
+    if (sample) {
+      c1 = clock64();
+      acc[4] += c1 - c0;
+      acc[5] += 1;
+    }
+  }
+  if (sample) {
+    acc[7] = clock64() - t_first;
+    acc[8] = sink;
+    for (int i = 0; i < kProfileSlots; ++i) prof[i] = acc[i];
   }
 }
 
-template <typename T, int KPL>
+template <typename T, int KPL, bool PROFILE>
 cudaError_t launch(void* W, void* H, const void* rows, const void* cols,
                    const void* vals, const void* woff, const void* cell_woff,
                    int n_cells, long long w_cell_stride,
                    long long h_cell_stride, int k, float lr, float lam,
-                   cudaStream_t stream) {
-  nomad_sgd_waves_kernel<T, KPL><<<n_cells, kThreads, 0, stream>>>(
+                   long long* prof, cudaStream_t stream) {
+  nomad_sgd_waves_kernel<T, KPL, PROFILE><<<n_cells, kThreads, 0, stream>>>(
       static_cast<T*>(W), static_cast<T*>(H),
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(cols),
       static_cast<const float*>(vals), static_cast<const int32_t*>(woff),
       static_cast<const int32_t*>(cell_woff), w_cell_stride, h_cell_stride,
-      k, lr, lam);
+      k, lr, lam, prof);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PROFILE>
 cudaError_t dispatch_k(void* W, void* H, const void* rows, const void* cols,
                        const void* vals, const void* woff,
                        const void* cell_woff, int n_cells,
                        long long w_cell_stride, long long h_cell_stride,
-                       int k, float lr, float lam, cudaStream_t stream) {
-#define NOMAD_LAUNCH(KPL)                                                   \
-  return launch<T, KPL>(W, H, rows, cols, vals, woff, cell_woff, n_cells,  \
-                        w_cell_stride, h_cell_stride, k, lr, lam, stream)
+                       int k, float lr, float lam, long long* prof,
+                       cudaStream_t stream) {
+#define NOMAD_LAUNCH(KPL)                                                  \
+  return launch<T, KPL, PROFILE>(W, H, rows, cols, vals, woff, cell_woff, \
+                                 n_cells, w_cell_stride, h_cell_stride, k, \
+                                 lr, lam, prof, stream)
   if (k <= 1 * kWarp) NOMAD_LAUNCH(1);
   if (k <= 2 * kWarp) NOMAD_LAUNCH(2);
   if (k <= 4 * kWarp) NOMAD_LAUNCH(4);
@@ -153,6 +213,34 @@ cudaError_t dispatch_k(void* W, void* H, const void* rows, const void* cols,
 // Largest k the kernel takes (32 values per lane).
 extern "C" int nomad_sgd_max_k() { return 32 * kWarp; }
 
+template <bool PROFILE>
+int dispatch(void* W, void* H, const void* rows, const void* cols,
+             const void* vals, const void* woff, const void* cell_woff,
+             int n_cells, long long w_cell_stride, long long h_cell_stride,
+             int k, float lr, float lam, int dtype, long long* prof,
+             void* stream) {
+  if (n_cells < 1 || k < 1 || k > 32 * kWarp) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(dispatch_k<float, PROFILE>(
+          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
+          h_cell_stride, k, lr, lam, prof, s));
+    case 1:
+      return static_cast<int>(dispatch_k<__nv_bfloat16, PROFILE>(
+          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
+          h_cell_stride, k, lr, lam, prof, s));
+    case 2:
+      return static_cast<int>(dispatch_k<__half, PROFILE>(
+          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
+          h_cell_stride, k, lr, lam, prof, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Applies the waves of n_cells cells in place on W (n_cells, m_tile, k)
 // and H (n_cells, n_tile, k); w_cell_stride = m_tile * k and
 // h_cell_stride = n_tile * k elements.  dtype: 0 float, 1 bfloat16,
@@ -164,24 +252,20 @@ extern "C" int nomad_sgd_waves(void* W, void* H, const void* rows,
                                int n_cells, long long w_cell_stride,
                                long long h_cell_stride, int k, float lr,
                                float lam, int dtype, void* stream) {
-  if (n_cells < 1 || k < 1 || k > 32 * kWarp) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(dispatch_k<float>(
-          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
-          h_cell_stride, k, lr, lam, s));
-    case 1:
-      return static_cast<int>(dispatch_k<__nv_bfloat16>(
-          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
-          h_cell_stride, k, lr, lam, s));
-    case 2:
-      return static_cast<int>(dispatch_k<__half>(
-          W, H, rows, cols, vals, woff, cell_woff, n_cells, w_cell_stride,
-          h_cell_stride, k, lr, lam, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(W, H, rows, cols, vals, woff, cell_woff, n_cells,
+                         w_cell_stride, h_cell_stride, k, lr, lam, dtype,
+                         nullptr, stream);
+}
+
+// The same launch, compiled with the clock64() sampling of one warp (see
+// kProfileSlots): a timing entry point that no wrapper of the engine
+// calls.  prof: kProfileSlots int64 on the card, written by block 0.
+extern "C" int nomad_sgd_waves_profile(
+    void* W, void* H, const void* rows, const void* cols, const void* vals,
+    const void* woff, const void* cell_woff, int n_cells,
+    long long w_cell_stride, long long h_cell_stride, int k, float lr,
+    float lam, int dtype, void* prof, void* stream) {
+  return dispatch<true>(W, H, rows, cols, vals, woff, cell_woff, n_cells,
+                        w_cell_stride, h_cell_stride, k, lr, lam, dtype,
+                        static_cast<long long*>(prof), stream);
 }

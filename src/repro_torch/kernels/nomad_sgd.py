@@ -191,6 +191,47 @@ def _launch(Ws, Hs, csr: WaveCSR, lr: float, lam: float) -> None:
         raise RuntimeError(f"nomad_sgd_waves launch failed: cudaError {err}")
 
 
+#: the segments of a wave that ``nomad_sgd_waves_profile`` samples, in
+#: the order of its output slots
+SPLIT = ("index", "rows", "update", "stage", "barrier")
+
+
+def wave_split(Ws, Hs, csr: WaveCSR, lr, lam, *, accum_fp32: bool = False):
+    """Where one cell's waves spend their time on the card: one launch of
+    the kernel's clock-sampling build (``nomad_sgd_waves_profile``) on the
+    one cell of ``csr``, in place, lane 0 of warp 0 summing
+    ``clock64()`` cycles per segment of :data:`SPLIT`.  A timing tool:
+    no engine path calls it, and it counts no launch.  Returns the
+    cycles per wave of each segment, the waves and trips, the total
+    cycles, and the launch's milliseconds by CUDA events (which convert
+    cycles to time)."""
+    _check(Ws, Hs, csr, accum_fp32)
+    if Ws.device.type != "cuda" or csr.n_cells != 1:
+        raise ValueError("wave_split profiles one cell on a CUDA device")
+    lib = _build.load("nomad_sgd")
+    prof = torch.zeros(9, dtype=torch.int64, device=Ws.device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(Ws.device):
+        start.record()
+        err = lib.nomad_sgd_waves_profile(
+            Ws.data_ptr(), Hs.data_ptr(), csr.rows.data_ptr(),
+            csr.cols.data_ptr(), csr.vals.data_ptr(), csr.woff.data_ptr(),
+            csr.cell_woff.data_ptr(), 1, Ws.stride(0), Hs.stride(0),
+            Ws.shape[2], float(lr), float(lam), _DTYPE_CODE[Ws.dtype],
+            prof.data_ptr(), torch.cuda.current_stream(Ws.device).cuda_stream)
+        stop.record()
+    if err != 0:
+        raise RuntimeError(f"nomad_sgd_waves_profile failed: cudaError {err}")
+    torch.cuda.synchronize(Ws.device)
+    acc = prof.tolist()
+    waves = max(acc[5], 1)
+    out = {f"{name}_cycles": acc[i] / waves for i, name in enumerate(SPLIT)}
+    out.update(waves=acc[5], trips=acc[6], cycles=acc[7],
+               ms=start.elapsed_time(stop))
+    return out
+
+
 def _apply(wrapper, Ws, Hs, csr: WaveCSR, lr, lam, accum_fp32: bool):
     """Apply ``csr`` to ``Ws``/``Hs`` in place: the kernel on CUDA
     tensors (counted on ``wrapper.launches``), the plain version on CPU
