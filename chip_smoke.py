@@ -20,11 +20,19 @@ Phases, one line each (any failure raises and exits non-zero):
    for 3 epochs (one kernel launch per schedule step), then one epoch
    of each other route (``wave_pallas`` per cell, and ``pallas``: every
    rating its own wave, one launch per step), each with the launch
-   counts zeroed before and read after; and a small problem solved on
-   the card against the plain versions on the CPU;
+   counts zeroed before and read after, and a sha256 digest of its
+   factors (equal digests from two trees in one call: bitwise equal
+   results); and a small problem solved on the card against the plain
+   versions on the CPU;
 4. timing with CUDA events on the main path's real step layout, for
-   each route the launch it makes, beside its byte bound, chain length
-   and the plain version's time on the same inputs; and
+   each route the launch it makes, beside its byte bound, chain length,
+   chain bound and the plain version's time on the same inputs, with the
+   kernel's plan (``variant``) on every line; where the hottest cell's
+   waves spend their time (``[4.wave.split]``, ``clock64()`` samples of
+   the kernel's profile build) with H in global memory beside the ring
+   and as the plan lays it out, each bitwise the launch's result; the variant for an H block
+   too large for shared memory (``[4.hglobal]``, 2,222 item rows, the
+   plan must keep H in global memory) against its plain version; and
    ``nomad_sgd_block`` on a whole cell, bitwise equal to the sequential
    route's launch;
 5. serving: the main path's result saved with ``save_fit_result``,
@@ -255,24 +263,77 @@ def factor_digest(W, H) -> str:
     return h.hexdigest()[:16]
 
 
-def wave_split(ks, W, H, csr, lr, lam, what: str) -> dict:
-    """[4.wave.split]: one cell's waves split by ``clock64()`` samples of
-    one warp (``nomad_sgd.wave_split``): cycles and ns per wave of each
-    segment, ns per cycle from the launch's CUDA-event time over its
-    sampled cycles."""
-    sp = ks.wave_split(W.clone(), H.clone(), csr, lr, lam)
+#: the segments of ``nomad_sgd.wave_split``: warp 0's index fetch, row
+#: fetch, butterfly, update and wait to the barrier's end; the stager
+#: warp's staging, copy wait and wait to the barrier's end
+SPLIT_NAMES = ("index", "rows", "butterfly", "update", "barrier", "stage",
+               "wait", "stager_barrier")
+
+
+def wave_split(ks, W, H, csr, lr, lam, plan, what: str) -> dict:
+    """[4.wave.split]: one cell's waves under ``plan``, split by
+    ``clock64()`` samples of lane 0 of warp 0 and of the stager warp
+    (``nomad_sgd.wave_split``): cycles and ns per wave of each segment,
+    ns per cycle from the launch's CUDA-event time over its sampled
+    cycles.  Fails unless the result is bitwise the kernel's under the
+    launch's own plan."""
+    want = ks.nomad_sgd_waves_csr(W.clone(), H.clone(), csr, lr, lam)
+    got = (W.clone(), H.clone())
+    sp = ks.wave_split(*got, csr, lr, lam, plan)
+    check_bitwise(f"{plan.describe()} == launch plan W", got[0], want[0])
+    check_bitwise(f"{plan.describe()} == launch plan H", got[1], want[1])
     ns_per_cycle = sp["ms"] * 1e6 / max(sp["cycles"], 1)
-    fields = {name: f"{sp[name + '_cycles']:.1f}" for name in ks.SPLIT}
     us_per_wave = sp["ms"] * 1e3 / max(sp["waves"], 1)
-    phase("4.wave.split", what=what, waves=sp["waves"], trips=sp["trips"],
-          ms=f"{sp['ms']:.3f}", us_per_wave=f"{us_per_wave:.4f}",
+    phase("4.wave.split", what=what, variant=plan.describe(),
+          waves=sp["waves"], trips=sp["trips"], ms=f"{sp['ms']:.3f}",
+          us_per_wave=f"{us_per_wave:.4f}",
           ns_per_cycle=f"{ns_per_cycle:.4f}",
-          cycles_per_wave=json.dumps(fields),
+          cycles_per_wave=json.dumps({name: round(sp[name + "_cycles"], 1)
+                                      for name in SPLIT_NAMES}),
           ns_per_wave=json.dumps({name: round(sp[name + "_cycles"]
                                               * ns_per_cycle, 1)
-                                  for name in ks.SPLIT}))
+                                  for name in SPLIT_NAMES}))
     sp["ns_per_cycle"] = ns_per_cycle
     return sp
+
+
+def h_global_check(ks, dev, m_tile: int, k: int, lr, lam) -> None:
+    """[4.hglobal]: the variant for an H block too large for shared
+    memory, on one synthetic cell of full Netflix's ``n_local`` (2,222
+    item rows), ``m_tile`` user rows and rank ``k``: ratings from a seed
+    (users uniform, items Zipf(1.3), as skewed as real ratings), packed
+    into waves on the host, factors from a seed on the card.  Its plan
+    must keep H in global memory; the kernel against its plain version
+    within ``check_close``; its time."""
+    from repro_torch.core.partition import pack_cell_waves
+    n_tile, nnz = 2222, 137_000
+    rng = np.random.default_rng(18)
+    r = rng.integers(0, m_tile, nnz)
+    c = np.minimum(rng.zipf(1.3, nnz) - 1, n_tile - 1)
+    v = rng.normal(size=nnz).astype(np.float32)
+    _, *pad, _ = pack_cell_waves(r, c, v)
+    csr = ks.WaveCSR.from_padded(*(torch.from_numpy(a)[None].to(dev)
+                                   for a in pad))
+    g = torch.Generator(device=dev).manual_seed(18)
+    W0 = torch.rand((1, m_tile, k), generator=g, device=dev) / k ** 0.5
+    H0 = torch.rand((1, n_tile, k), generator=g, device=dev) / k ** 0.5
+    plan = ks.launch_plan(W0, H0)
+    if plan.resident:
+        raise AssertionError(f"n_tile={n_tile}: plan {plan.describe()} "
+                             "keeps H resident")
+    Wk, Hk = ks.nomad_sgd_waves_csr(W0.clone(), H0.clone(), csr, lr, lam)
+    (Wp, Hp), p_ms = timed(lambda: ks.block_sgd_waves_csr(
+        W0.clone(), H0.clone(), csr, lr, lam))
+    upd = max_row_updates(csr, m_tile, n_tile)
+    for x, got, want in (("W", Wk, Wp), ("H", Hk, Hp)):
+        check_close(f"{x} kernel vs plain, n_tile={n_tile} "
+                    f"({plan.describe()})", got, want, upd)
+    k_ms = cuda_ms(lambda: ks.nomad_sgd_waves_csr(W0.clone(), H0.clone(),
+                                                  csr, lr, lam), 3)
+    phase("4.hglobal", n_tile=n_tile, m_tile=m_tile, ratings=nnz,
+          chain=chain(csr), kernel_ms=f"{k_ms:.3f}",
+          us_per_wave=f"{k_ms * 1e3 / chain(csr):.4f}",
+          plain_ms=f"{p_ms:.1f}", variant=plan.describe())
 
 
 def chain(csr) -> int:
@@ -1138,6 +1199,16 @@ def main() -> int:
           libraries=",".join(x.name for x in _build.library_paths()),
           max_k=lib.nomad_sgd_max_k(),
           flash_max_d=_build.load("flash_attn").flash_attention_max_d())
+    # the wave kernel's plan and its C layout agree
+    for n_t, kk, elem in ((228, 100, 4), (228, 100, 2), (2222, 100, 4),
+                          (228, ks.MAX_K, 4), (1, 1, 2)):
+        pl = ks.plan(n_t, kk, elem)
+        c_smem = lib.nomad_sgd_smem(n_t, kk, elem, int(pl.resident), pl.R)
+        if c_smem != pl.smem or lib.nomad_sgd_max_k() != ks.MAX_K:
+            raise AssertionError(f"plan {pl} for ({n_t}, {kk}, {elem}): C "
+                                 f"layout {c_smem} bytes")
+    phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
+          full_netflix=ks.plan(2222, 100, 4).describe())
 
     # -- 2. data, pack, kernels against their plain versions -------------
     m = max(500, int(2_649_429 * args.scale))
@@ -1302,6 +1373,34 @@ def main() -> int:
     csr = wave_csr(br).to(dev)
     steps = [csr.cells(s * p, (s + 1) * p) for s in range(n_steps)]
     chains = [chain(c) for c in steps]
+    plan = ks.launch_plan(Ws0, Hs0)
+    variant = plan.describe()
+    # the step with the longest chain, and its longest cell
+    s_t = max(range(n_steps), key=chains.__getitem__)
+    step = steps[s_t]
+    c_t = int(torch.diff(step.cell_woff.long()).argmax())
+    one = step.cells(c_t, c_t + 1)
+    W1, H1 = Ws0[c_t:c_t + 1], Hs0[c_t:c_t + 1]
+    # where that cell's waves spend their time: with H in global memory
+    # beside the ring (the variant for a larger H block), and as the plan
+    # lays it out
+    h_global = ks.Plan(False, plan.R, plan.copy_bytes,
+                       ks.plan_smem(br.n_local, k, 4, False, plan.R))
+    if h_global != plan:
+        wave_split(ks, W1, H1, one, lr, lam, h_global,
+                   f"step {s_t} cell {c_t}")
+    split = wave_split(ks, W1, H1, one, lr, lam, plan,
+                       f"step {s_t} cell {c_t}")
+    # the chain bound: each dependent wave at least a shared-memory row
+    # round trip, the butterfly and a barrier, as warp 0 measured them
+    floor_ns = (split["rows_cycles"] + split["butterfly_cycles"]
+                + split["barrier_cycles"]) * split["ns_per_cycle"]
+    phase("4.floor", variant=variant, floor_ns_per_wave=f"{floor_ns:.1f}",
+          of="rows + butterfly + barrier of the split above")
+
+    def chain_ms(c) -> float:
+        return chain(c) * floor_ns * 1e-6
+
     Ws, Hs = Ws0.clone(), Hs0.clone()
     step_ms = []
     for s, c in enumerate(steps):
@@ -1309,8 +1408,9 @@ def main() -> int:
         step_ms.append(t)
         b_ms, b_by = bound(Ws, Hs, c)
         phase("4.step", step=s, kernel_ms=f"{t:.3f}", bound_ms=f"{b_ms:.4f}",
-              bound_by=b_by, chain=chains[s], ratings=cell_ratings(c)[1]
-              .numel())
+              bound_by=b_by, chain=chains[s],
+              chain_bound_ms=f"{chain_ms(c):.3f}",
+              ratings=cell_ratings(c)[1].numel(), variant=variant)
 
     def timed_pair(csr_t, W0, H0):
         """One launch of ``nomad_sgd_waves_csr`` on ``csr_t`` from
@@ -1334,24 +1434,20 @@ def main() -> int:
                                                         ("H", Hk, Hp)))
         return k_ms, p_ms, err, (Wk, Hk)
 
-    # the step with the longest chain, all p cells in one launch
-    s_t = max(range(n_steps), key=chains.__getitem__)
-    step = steps[s_t]
-    # each of its cells alone: does a step cost its slowest cell?
+    # each cell of the hottest step alone: does a step cost its slowest
+    # cell?
     alone = [cuda_ms(lambda: ks.nomad_sgd_waves_csr(
         Ws[c:c + 1], Hs[c:c + 1], step.cells(c, c + 1), lr, lam), 1)
         for c in range(p)]
     phase("4.cells", step=s_t, alone_ms=json.dumps([round(t, 3)
                                                     for t in alone]),
           chains=json.dumps(torch.diff(step.cell_woff.long()).tolist()),
+          chain_bound_ms=json.dumps([round(chain_ms(step.cells(c, c + 1)),
+                                           3) for c in range(p)]),
           ratings=json.dumps(torch.bincount(cell_ratings(step)[0],
-                                            minlength=p).tolist()))
-
-    # where the hottest cell's waves spend their time
-    c_t = int(torch.diff(step.cell_woff.long()).argmax())
-    one = step.cells(c_t, c_t + 1)
-    W1, H1 = Ws0[c_t:c_t + 1], Hs0[c_t:c_t + 1]
-    wave_split(ks, W1, H1, one, lr, lam, f"step {s_t} cell {c_t}")
+                                            minlength=p).tolist()),
+          variant=variant)
+    h_global_check(ks, dev, br.m_local, k, lr, lam)
 
     # where solve's time goes: its engine's pieces, one by one
     from repro_torch.core.nomad import NomadRingEngine
@@ -1367,7 +1463,7 @@ def main() -> int:
     _, factors_ms = timed(eng.factors)
     phase("4.split", epochs=EPOCHS, engine_ms=f"{engine_ms:.1f}",
           init_factors_ms=f"{init_ms:.1f}", train_ms=f"{train_ms:.1f}",
-          factors_ms=f"{factors_ms:.1f}")
+          factors_ms=f"{factors_ms:.1f}", variant=variant)
 
     # grid route: the step, one launch for its p cells
     grid_ms, grid_plain_ms, grid_err, _ = timed_pair(step, Ws0, Hs0)
@@ -1401,8 +1497,13 @@ def main() -> int:
           seq_kernel_ms=f"{seq_ms:.3f}", seq_plain_ms=f"{seq_plain_ms:.1f}",
           block_cell_ratings=r1.numel(), block_host_ms=f"{block_ms:.1f}",
           epoch_kernel_ms=f"{epoch_kernel_ms:.2f}", epoch_chain=sum(chains),
+          step_chain_bound_ms=f"{chain_ms(step):.3f}",
+          cell_chain_bound_ms=f"{chain_ms(one):.3f}",
+          seq_chain_bound_ms=f"{chain_ms(seq):.3f}",
+          epoch_chain_bound_ms=f"{sum(map(chain_ms, steps)):.2f}",
           kernel_updates_per_s=f"{problem.nnz / epoch_kernel_ms * 1e3:.4g}",
-          solve_s_per_epoch=f"{routes['grid']['wall_s'] / EPOCHS:.3f}")
+          solve_s_per_epoch=f"{routes['grid']['wall_s'] / EPOCHS:.3f}",
+          variant=variant)
 
     kernels = []
     for route, k_ms, p_ms, err, (b_ms, b_by) in (
@@ -1416,7 +1517,8 @@ def main() -> int:
             name=f"nomad_sgd_waves_csr[{route}]", route="cuda",
             source=KERNEL_SRC, replaces=REPLACES[route],
             launches=routes[route]["launches"], max_abs_err=err, ms=k_ms,
-            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            variant=variant))
     record, serve_launches = serve_phase(routes["grid"]["result"], problem,
                                          dev)
     kernels.append(record)

@@ -37,10 +37,12 @@ SIGNATURES = {
         "flash_attention_kernel_attrs": ([_i, _p], _i),
     },
     "nomad_sgd": {
-        "nomad_sgd_waves": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f, _i, _p],
-                            _i),
-        "nomad_sgd_waves_profile": ([_p] * 7 + [_i, _ll, _ll, _i, _f, _f,
-                                                _i, _p, _p], _i),
+        "nomad_sgd_waves": ([_p] * 8 + [_i, _ll, _ll, _i, _i, _f, _f, _i,
+                                        _i, _i, _i, _ll, _p], _i),
+        "nomad_sgd_waves_profile": ([_p] * 8 + [_i, _ll, _ll, _i, _i, _f,
+                                                _f, _i, _i, _i, _ll, _p,
+                                                _p], _i),
+        "nomad_sgd_smem": ([_i] * 5, _ll),
         "nomad_sgd_max_k": ([], _i),
     },
     "topk": {

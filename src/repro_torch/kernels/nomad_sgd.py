@@ -26,13 +26,21 @@ runs :func:`block_sgd_waves_csr`, the plain PyTorch version of the same
 CSR update.  Each wrapper counts its kernel launches in its ``launches``
 attribute, a plain integer.
 
-The TPU kernels' ``chunk``/``wave_chunk`` knobs (VMEM blocking) are
-accepted for signature parity and not read: a CTA walks its cell's waves
-in one loop, with no resident tiles.
+The kernel keeps each cell's H block resident in shared memory, and a
+stager warp stages the W rows, indices and wave offsets of the ratings
+two blocks of waves ahead into rings through ``cp.async``, beside the
+other warps' updates (``csrc/nomad_sgd.cu`` describes the design); a
+repeated W row is forwarded exactly through :attr:`WaveCSR.prev`.
+:func:`plan` picks the ring's size, the copy width and whether H fits,
+and the C side refuses a plan that differs from its layout.  The TPU
+kernels' ``chunk``/``wave_chunk`` knobs (VMEM blocking) are accepted for
+signature parity and not read.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,6 +48,25 @@ from . import _build
 from . import ref as _ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def same_row_prev(rows, woff, cell_woff) -> torch.Tensor:
+    """For each rating, the position of the last rating before it of the
+    same cell with the same W row, or -1 (int32, on ``rows``' device):
+    a stable sort by (cell, row), then a shift.  Positions are absolute
+    in the flat lists; ratings outside the cells get -1."""
+    n = rows.numel()
+    dev = rows.device
+    bounds = woff.long()[cell_woff.long()]
+    pos = torch.arange(n, device=dev)
+    cell = torch.searchsorted(bounds, pos, right=True)
+    inside = (pos >= bounds[0]) & (pos < bounds[-1])
+    key = torch.where(inside, (cell << 32) | rows.long(), -1 - pos)
+    order = torch.sort(key, stable=True).indices
+    same = key[order[1:]] == key[order[:-1]]
+    prev = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    prev[order[1:][same]] = order[:-1][same]
+    return prev.int()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,21 +78,35 @@ class WaveCSR:
     ``woff[w] .. woff[w+1]`` are the ratings of wave ``w`` and
     ``cell_woff[c] .. cell_woff[c+1]`` the waves of cell ``c``.  Offsets
     are absolute, so :meth:`cells` selects a run of cells without
-    copying the rating arrays.
+    copying the rating arrays.  ``prev`` (int32, :func:`same_row_prev`)
+    links each rating to the last earlier one of its cell with the same
+    W row: the kernel forwards that row.  It is built by :meth:`links`,
+    once and on the device the ratings are on, when the kernel first
+    needs it.
     """
     rows: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
     woff: torch.Tensor
     cell_woff: torch.Tensor
+    prev: Optional[torch.Tensor] = None
+
+    def links(self) -> torch.Tensor:
+        """``prev``, built on first use."""
+        if self.prev is None:
+            object.__setattr__(self, "prev", same_row_prev(
+                self.rows, self.woff, self.cell_woff))
+        return self.prev
 
     @property
     def n_cells(self) -> int:
         return self.cell_woff.shape[0] - 1
 
     def cells(self, lo: int, hi: int) -> "WaveCSR":
-        """Cells ``lo .. hi-1`` (views, no copy)."""
-        return dataclasses.replace(self, cell_woff=self.cell_woff[lo:hi + 1])
+        """Cells ``lo .. hi-1`` (views, no copy; the links are built once,
+        on the whole)."""
+        return dataclasses.replace(self, prev=self.links(),
+                                   cell_woff=self.cell_woff[lo:hi + 1])
 
     def arrays(self):
         """``(rows, cols, vals, woff, cell_woff)``, the tensors
@@ -73,7 +114,9 @@ class WaveCSR:
         return self.rows, self.cols, self.vals, self.woff, self.cell_woff
 
     def to(self, device) -> "WaveCSR":
-        return WaveCSR(*(t.to(device) for t in self.arrays()))
+        return WaveCSR(*(t.to(device) for t in self.arrays()),
+                       prev=None if self.prev is None
+                       else self.prev.to(device))
 
     @classmethod
     def from_padded(cls, rows, cols, vals, mask) -> "WaveCSR":
@@ -133,6 +176,9 @@ def block_sgd_waves_csr(Ws, Hs, csr: WaveCSR, lr, lam,
     return Ws, Hs
 
 
+_CSR_NAMES = ("rows", "cols", "vals", "woff", "cell_woff")
+
+
 def _check(Ws, Hs, csr: WaveCSR, accum_fp32: bool) -> None:
     if Ws.dim() != 3 or Hs.dim() != 3:
         raise ValueError(f"Ws/Hs must be (cells, rows, k), got "
@@ -159,75 +205,171 @@ def _check(Ws, Hs, csr: WaveCSR, accum_fp32: bool) -> None:
                             f"{t.dtype}")
     if not csr.rows.shape == csr.cols.shape == csr.vals.shape:
         raise ValueError("rows/cols/vals length mismatch")
+    if csr.prev is not None and not (
+            csr.prev.dtype == torch.int32 and csr.prev.shape == csr.rows.shape
+            and csr.prev.device == csr.rows.device
+            and csr.prev.is_contiguous()):
+        raise ValueError("prev must be contiguous int32 like rows")
     dev = Ws.device
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
-    for name, t in (("Hs", Hs), *zip(
-            ("rows", "cols", "vals", "woff", "cell_woff"),
-            csr.arrays())):
+    for name, t in (("Hs", Hs), *zip(_CSR_NAMES, csr.arrays())):
         if t.device != dev:
             raise RuntimeError(f"{name} is on {t.device}, Ws on {dev}")
-    for name, t in (("Ws", Ws), ("Hs", Hs), *zip(
-            ("rows", "cols", "vals", "woff", "cell_woff"),
-            csr.arrays())):
+    for name, t in (("Ws", Ws), ("Hs", Hs), *zip(_CSR_NAMES, csr.arrays())):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+#: as ``csrc/nomad_sgd.cu`` has them: the shared memory a block may use,
+#: the largest rank, the ring sizes the plan tries (powers of two, the
+#: largest first), the least ring beside a resident H block, the wave
+#: offsets staged ahead
+MAX_SMEM = 232_448
+MAX_K = 1024
+RINGS = (256, 128, 64, 32, 16, 8)
+RESIDENT_MIN_RING = 64
+WAVE_RING = 256
+#: waves per block: the stager warp stages while the other warps run a
+#: block, for the blocks after it
+BLOCK = 8
+
+class Plan(NamedTuple):
+    """How one launch lays out a CTA's shared memory: the H block
+    ``resident`` or not, a ring of ``R`` W-row slots (and ``2R`` index
+    entries), W rows copied ``copy_bytes`` at a time, ``smem`` bytes in
+    all."""
+    resident: bool
+    R: int
+    copy_bytes: int
+    smem: int
+
+    def describe(self) -> str:
+        return (f"H_{'resident' if self.resident else 'global'} R={self.R} "
+                f"copy={self.copy_bytes}B smem={self.smem}")
+
+
+def index_ring(R: int) -> int:
+    """Index entries staged beside ``R`` W-row slots
+    (``csrc/nomad_sgd.cu``'s ``index_ring``)."""
+    return 2 * R
+
+
+def plan_smem(n_tile: int, k: int, elem: int, resident: bool,
+              R: int) -> int:
+    """``csrc/nomad_sgd.cu``'s ``layout(...).total``: the H block (if
+    resident) and ``R`` W-row slots, each rounded up to 16 bytes, 8 bytes
+    of slot state per slot and 16 bytes per index entry (``2R``)."""
+    row = -(-k * elem // 16) * 16
+    h = -(-n_tile * k * elem // 16) * 16 if resident else 0
+    return h + R * row + 12 * R + 16 * index_ring(R) + 4 * WAVE_RING
+
+
+def copy_width(k: int, elem: int, align: int) -> int:
+    """Bytes per copy of a W row: the largest of 16, 8 and 4 that divides
+    the row and the rows' alignment ``align``, else 2 (16-bit rows of odd
+    length, copied without ``cp.async``)."""
+    for c in (16, 8, 4):
+        if (k * elem) % c == 0 and align % c == 0:
+            return c
+    return 2
+
+
+@functools.lru_cache(maxsize=256)
+def plan(n_tile: int, k: int, elem: int, align: int = 16) -> Plan:
+    """The layout of a launch over cells of ``n_tile`` H rows of rank
+    ``k`` in ``elem``-byte storage, W rows aligned to ``align`` bytes: H
+    resident iff it fits beside a ring of at least
+    :data:`RESIDENT_MIN_RING` slots, then the largest ring of
+    :data:`RINGS` that fits in :data:`MAX_SMEM`.  Raises if none fits."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+    cw = copy_width(k, elem, align)
+    for resident in (True, False):
+        for R in RINGS:
+            if resident and R < RESIDENT_MIN_RING:
+                break
+            smem = plan_smem(n_tile, k, elem, resident, R)
+            if smem <= MAX_SMEM:
+                return Plan(resident, R, cw, smem)
+    raise ValueError(f"no ring fits k={k} in {MAX_SMEM} bytes")
+
+
+def launch_plan(Ws, Hs) -> Plan:
+    """:func:`plan` for factor blocks ``Ws``/``Hs``, their alignment
+    taken from ``Ws``' address and cell stride."""
+    elem = Ws.element_size()
+    bits = Ws.data_ptr() | (Ws.stride(0) * elem) | 16
+    return plan(int(Hs.shape[1]), int(Ws.shape[2]), elem, bits & -bits)
+
+
 def _launch(Ws, Hs, csr: WaveCSR, lr: float, lam: float) -> None:
     lib = _build.load("nomad_sgd")
-    k = Ws.shape[2]
-    if k > lib.nomad_sgd_max_k():
-        raise ValueError(f"k={k} exceeds the kernel's "
-                         f"{lib.nomad_sgd_max_k()}")
+    pl = launch_plan(Ws, Hs)
     with torch.cuda.device(Ws.device):
         err = lib.nomad_sgd_waves(
-            Ws.data_ptr(), Hs.data_ptr(), csr.rows.data_ptr(),
-            csr.cols.data_ptr(), csr.vals.data_ptr(), csr.woff.data_ptr(),
-            csr.cell_woff.data_ptr(), csr.n_cells, Ws.stride(0),
-            Hs.stride(0), k, float(lr), float(lam), _DTYPE_CODE[Ws.dtype],
+            Ws.data_ptr(), Hs.data_ptr(), *(t.data_ptr() for t in (
+                csr.rows, csr.cols, csr.vals, csr.links(), csr.woff,
+                csr.cell_woff)),
+            csr.n_cells, Ws.stride(0), Hs.stride(0), Hs.shape[1],
+            Ws.shape[2], float(lr), float(lam), _DTYPE_CODE[Ws.dtype],
+            int(pl.resident), pl.R, pl.copy_bytes, pl.smem,
             torch.cuda.current_stream(Ws.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"nomad_sgd_waves launch failed: cudaError {err}")
+        raise RuntimeError(f"nomad_sgd_waves launch failed ({pl.describe()})"
+                           f": cudaError {err}")
 
 
 #: the segments of a wave that ``nomad_sgd_waves_profile`` samples, in
 #: the order of its output slots
-SPLIT = ("index", "rows", "update", "stage", "barrier")
+SPLIT = ("index", "rows", "update", "stage", "wait", "barrier")
+#: the slots of the stager warp's wait at the barrier and of warp 0's
+#: butterfly
+STAGER_BARRIER, BUTTERFLY = 10, 11
 
 
-def wave_split(Ws, Hs, csr: WaveCSR, lr, lam, *, accum_fp32: bool = False):
+def wave_split(Ws, Hs, csr: WaveCSR, lr, lam, pl: Plan):
     """Where one cell's waves spend their time on the card: one launch of
-    the kernel's clock-sampling build (``nomad_sgd_waves_profile``) on the
-    one cell of ``csr``, in place, lane 0 of warp 0 summing
-    ``clock64()`` cycles per segment of :data:`SPLIT`.  A timing tool:
-    no engine path calls it, and it counts no launch.  Returns the
-    cycles per wave of each segment, the waves and trips, the total
-    cycles, and the launch's milliseconds by CUDA events (which convert
-    cycles to time)."""
-    _check(Ws, Hs, csr, accum_fp32)
-    if Ws.device.type != "cuda" or csr.n_cells != 1:
-        raise ValueError("wave_split profiles one cell on a CUDA device")
+    the kernel's clock-sampling build (``nomad_sgd_waves_profile``, fp32)
+    under the plan ``pl`` on the one cell of ``csr``, in place.  Lane 0
+    of warp 0 sums ``clock64()`` cycles over its waves for the index
+    fetch, the row fetch, the butterfly, the update and the barrier; lane
+    0 of the stager warp for its staging, its copy wait and its barrier
+    (:data:`SPLIT`, ``butterfly``, ``stager_barrier``; all per wave).  A
+    timing tool: no engine path calls it, and it
+    counts no launch.  Returns the cycles per wave of each segment, the
+    waves and trips, the total cycles, and the launch's milliseconds by
+    CUDA events (which convert cycles to time)."""
+    _check(Ws, Hs, csr, False)
+    if Ws.device.type != "cuda" or csr.n_cells != 1 \
+            or Ws.dtype != torch.float32:
+        raise ValueError("wave_split profiles one fp32 cell on a CUDA "
+                         "device")
     lib = _build.load("nomad_sgd")
-    prof = torch.zeros(9, dtype=torch.int64, device=Ws.device)
+    prof = torch.zeros(12, dtype=torch.int64, device=Ws.device)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     with torch.cuda.device(Ws.device):
         start.record()
         err = lib.nomad_sgd_waves_profile(
-            Ws.data_ptr(), Hs.data_ptr(), csr.rows.data_ptr(),
-            csr.cols.data_ptr(), csr.vals.data_ptr(), csr.woff.data_ptr(),
-            csr.cell_woff.data_ptr(), 1, Ws.stride(0), Hs.stride(0),
-            Ws.shape[2], float(lr), float(lam), _DTYPE_CODE[Ws.dtype],
-            prof.data_ptr(), torch.cuda.current_stream(Ws.device).cuda_stream)
+            Ws.data_ptr(), Hs.data_ptr(), *(t.data_ptr() for t in (
+                csr.rows, csr.cols, csr.vals, csr.links(), csr.woff,
+                csr.cell_woff)),
+            1, Ws.stride(0), Hs.stride(0), Hs.shape[1], Ws.shape[2],
+            float(lr), float(lam), int(pl.resident), pl.R, pl.copy_bytes,
+            pl.smem, prof.data_ptr(),
+            torch.cuda.current_stream(Ws.device).cuda_stream)
         stop.record()
     if err != 0:
-        raise RuntimeError(f"nomad_sgd_waves_profile failed: cudaError {err}")
+        raise RuntimeError(f"nomad_sgd_waves_profile failed "
+                           f"({pl.describe()}): cudaError {err}")
     torch.cuda.synchronize(Ws.device)
     acc = prof.tolist()
-    waves = max(acc[5], 1)
+    waves = max(acc[6], 1)
     out = {f"{name}_cycles": acc[i] / waves for i, name in enumerate(SPLIT)}
-    out.update(waves=acc[5], trips=acc[6], cycles=acc[7],
+    out.update(waves=acc[6], trips=acc[7], cycles=acc[8],
+               stager_barrier_cycles=acc[STAGER_BARRIER] / waves,
+               butterfly_cycles=acc[BUTTERFLY] / waves,
                ms=start.elapsed_time(stop))
     return out
 
