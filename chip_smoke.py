@@ -30,9 +30,10 @@ Phases, one line each (any failure raises and exits non-zero):
    kernel's plan (``variant``) on every line; where the hottest cell's
    waves spend their time (``[4.wave.split]``, ``clock64()`` samples of
    the kernel's profile build) with H in global memory beside the ring
-   and as the plan lays it out, each bitwise the launch's result; the variant for an H block
-   too large for shared memory (``[4.hglobal]``, 2,222 item rows, the
-   plan must keep H in global memory) against its plain version; and
+   and as the plan lays it out, each bitwise the launch's result; the
+   variant for an H block too large for shared memory (``[4.hglobal]``,
+   2,222 item rows, the plan must keep H in global memory) against its
+   plain version; and
    ``nomad_sgd_block`` on a whole cell, bitwise equal to the sequential
    route's launch;
 5. serving: the main path's result saved with ``save_fit_result``,

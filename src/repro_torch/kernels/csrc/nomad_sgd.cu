@@ -234,15 +234,16 @@ nomad_sgd_waves_kernel(const Args<T> a) {
   const int row_bytes = pinned(static_cast<int>(L.row_bytes));
   T* Hs = reinterpret_cast<T*>(smem);
   T* Hb = RESIDENT ? Hs : Hc;
-  unsigned char* wslot = smem + pinned(static_cast<int>(L.w_off));
-  int* sfwd = reinterpret_cast<int*>(smem + pinned(static_cast<int>(L.fwd_off)));
-  int* smode = reinterpret_cast<int*>(smem + pinned(static_cast<int>(L.mode_off)));
-  int* shold = reinterpret_cast<int*>(smem + pinned(static_cast<int>(L.hold_off)));
-  int* irow = reinterpret_cast<int*>(smem + pinned(static_cast<int>(L.idx_off)));
+  auto at = [&](long long off) { return smem + pinned(static_cast<int>(off)); };
+  unsigned char* wslot = at(L.w_off);
+  int* sfwd = reinterpret_cast<int*>(at(L.fwd_off));
+  int* smode = reinterpret_cast<int*>(at(L.mode_off));
+  int* shold = reinterpret_cast<int*>(at(L.hold_off));
+  int* irow = reinterpret_cast<int*>(at(L.idx_off));
   int* icol = irow + RI;
   float* ival = reinterpret_cast<float*>(icol + RI);
   int* iprev = reinterpret_cast<int*>(ival + RI);
-  int* soff = reinterpret_cast<int*>(smem + pinned(static_cast<int>(L.woff_off)));
+  int* soff = reinterpret_cast<int*>(at(L.woff_off));
   const int cw = a.copy_bytes;
   const int chunks = k * static_cast<int>(sizeof(T)) / cw;
 

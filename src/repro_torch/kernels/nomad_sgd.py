@@ -176,9 +176,6 @@ def block_sgd_waves_csr(Ws, Hs, csr: WaveCSR, lr, lam,
     return Ws, Hs
 
 
-_CSR_NAMES = ("rows", "cols", "vals", "woff", "cell_woff")
-
-
 def _check(Ws, Hs, csr: WaveCSR, accum_fp32: bool) -> None:
     if Ws.dim() != 3 or Hs.dim() != 3:
         raise ValueError(f"Ws/Hs must be (cells, rows, k), got "
@@ -213,10 +210,14 @@ def _check(Ws, Hs, csr: WaveCSR, accum_fp32: bool) -> None:
     dev = Ws.device
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
-    for name, t in (("Hs", Hs), *zip(_CSR_NAMES, csr.arrays())):
+    for name, t in (("Hs", Hs), *zip(
+            ("rows", "cols", "vals", "woff", "cell_woff"),
+            csr.arrays())):
         if t.device != dev:
             raise RuntimeError(f"{name} is on {t.device}, Ws on {dev}")
-    for name, t in (("Ws", Ws), ("Hs", Hs), *zip(_CSR_NAMES, csr.arrays())):
+    for name, t in (("Ws", Ws), ("Hs", Hs), *zip(
+            ("rows", "cols", "vals", "woff", "cell_woff"),
+            csr.arrays())):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -233,6 +234,7 @@ WAVE_RING = 256
 #: waves per block: the stager warp stages while the other warps run a
 #: block, for the blocks after it
 BLOCK = 8
+
 
 class Plan(NamedTuple):
     """How one launch lays out a CTA's shared memory: the H block
@@ -258,8 +260,10 @@ def index_ring(R: int) -> int:
 def plan_smem(n_tile: int, k: int, elem: int, resident: bool,
               R: int) -> int:
     """``csrc/nomad_sgd.cu``'s ``layout(...).total``: the H block (if
-    resident) and ``R`` W-row slots, each rounded up to 16 bytes, 8 bytes
-    of slot state per slot and 16 bytes per index entry (``2R``)."""
+    resident) and ``R`` W-row slots, each rounded up to 16 bytes, 12
+    bytes of slot state per slot, 16 bytes per index entry
+    (:func:`index_ring`) and the ring of :data:`WAVE_RING` wave
+    offsets."""
     row = -(-k * elem // 16) * 16
     h = -(-n_tile * k * elem // 16) * 16 if resident else 0
     return h + R * row + 12 * R + 16 * index_ring(R) + 4 * WAVE_RING
