@@ -337,6 +337,21 @@ def h_global_check(ks, dev, m_tile: int, k: int, lr, lam) -> None:
           plain_ms=f"{p_ms:.1f}", variant=plan.describe())
 
 
+def dependency_path(br, csr) -> tuple:
+    """``(sum of step maxima, longest dependency path)`` of one epoch, in
+    waves: the step loop costs each step its longest cell; a kernel that
+    started each cell once its W shard's and its H block's previous cells
+    were done would cost the longest path through those dependencies."""
+    p, n_steps = br.p, br.n_steps
+    chains = torch.diff(csr.cell_woff.long()).view(n_steps, p).tolist()
+    done_w, done_h = [0] * p, [0] * p
+    for s in range(n_steps):
+        for q in range(p):
+            b = br.block_at(q, s)
+            done_w[q] = done_h[b] = max(done_w[q], done_h[b]) + chains[s][q]
+    return sum(max(c) for c in chains), max(done_w)
+
+
 def chain(csr) -> int:
     """Dependent waves of a launch: the most waves any of its cells has."""
     return int(torch.diff(csr.cell_woff.long()).max())
@@ -1504,6 +1519,18 @@ def main() -> int:
           epoch_chain_bound_ms=f"{sum(map(chain_ms, steps)):.2f}",
           kernel_updates_per_s=f"{problem.nnz / epoch_kernel_ms * 1e3:.4g}",
           solve_s_per_epoch=f"{routes['grid']['wall_s'] / EPOCHS:.3f}",
+          variant=variant)
+
+    # a persistent kernel that passes H blocks between cells as they
+    # finish (ROADMAP R2b) against the step loop, at the hottest cell's
+    # measured cost per wave
+    step_waves, path_waves = dependency_path(br, csr)
+    us_wave = alone[c_t] * 1e3 / chain(one)
+    phase("4.r2b", step_max_sum_waves=step_waves,
+          longest_path_waves=path_waves,
+          us_per_wave=f"{us_wave:.4f}",
+          step_loop_ms=f"{step_waves * us_wave * 1e-3:.2f}",
+          longest_path_ms=f"{path_waves * us_wave * 1e-3:.2f}",
           variant=variant)
 
     kernels = []
