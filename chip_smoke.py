@@ -75,7 +75,26 @@ Phases, one line each (any failure raises and exits non-zero):
    ``repro_torch.testing.flash_p_rounding_tolerance``) and in bf16 at
    (S, D) = (200, 64) and (1024, 36), two controls it must reject in
    each (no causal mask; KV head ``h % Hkv``), and at the served shape
-   its time beside its bound, the plain version's and SDPA's.
+   its time beside its bound, the plain version's and SDPA's;
+8. streaming, elasticity and integrity at the main path's full width,
+   warm from phase 3's result (its pack a cache hit): a
+   ``StreamingSession`` absorbs three arrival batches (each 1 % new
+   ratings, 1 % new users and items, a 5 % held-out share), one epoch
+   each (``[8.stream]``: repack, grow and epoch seconds, the layout and
+   the kernel's plan, RMSE and digest per round), equal to the same
+   chain through ``partial_fit``; a worker leaves and one joins
+   (``[8.elastic]``: re-pack and migrate seconds), and after every grow
+   and migrate the wave kernel runs the new layout's hottest step (256
+   waves) against its plain version, with a control it must reject; a
+   killed worker recovers from the session's checkpoints onto the
+   digest of a graceful twin, once more with the newest checkpoint
+   bit-flipped (quarantined) (``[8.kill]``); ``solve(faults=)`` cut
+   after 2 epochs and resumed equals phase 3's run (``[8.faults]``); a
+   ``FactorStore`` attached to the session serves 64 queries (16 new
+   users) after every round, every microbatch through the CUDA top-k
+   kernel and none through its plain version, one version per round
+   (``[8.swap]``).  Each path is driven with the launch counts zeroed
+   before and read after.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -1176,6 +1195,310 @@ def lm_phase(dev):
     return launches
 
 
+#: [8.*]'s arrival batches: new ratings as a share of the training set,
+#: new users and items as a share of m and n, held-out share of a batch
+ARRIVALS, ARRIVE_SHARE, ARRIVE_TEST = 3, 0.01, 0.05
+#: [8.swap]: queries after each round, of which new users
+SWAP_QUERIES, SWAP_NEW = 64, 16
+
+
+def layout_check(ks, ref, eng, lr, lam, what: str) -> str:
+    """After a grow or a migrate: the wave kernel on the new layout's
+    hottest step (the longest wave chain), cut to its first 256 waves as
+    in phase 2, from the live factors, held against ``ref.block_sgd_waves``
+    with ``check_close``; the starting factors (no update) are a control
+    the check must reject.  Returns the plan of the engine's launches."""
+    br, dev = eng.br, eng.Ws.device
+    s = int((br.wave_cnt > 0).sum(-1).max(0).argmax())
+    pad = [torch.from_numpy(np.ascontiguousarray(a[:, s, :256])).to(dev)
+           for a in (br.wave_rows, br.wave_cols, br.wave_vals,
+                     br.wave_mask)]
+    held = torch.from_numpy(eng.sched.table[s].astype(np.int64)).to(dev)
+    Ws, Hs = eng.Ws, eng.Hs.index_select(0, held)
+    Wg, Hg = ks.nomad_sgd_waves_grid(Ws, Hs, *pad, lr, lam)
+    plain = [ref.block_sgd_waves(Ws[c], Hs[c], *(a[c] for a in pad), lr,
+                                 lam) for c in range(br.p)]
+    n_upd = max_row_updates(ks.WaveCSR.from_padded(*pad), br.m_local,
+                            br.n_local)
+    want_W = torch.stack([w for w, _ in plain])
+    for x, got, want in (("W", Wg, want_W),
+                         ("H", Hg, torch.stack([h for _, h in plain]))):
+        check_close(f"{what} step {s} {x} p={br.p} n_local={br.n_local}",
+                    got, want, n_upd)
+    bound_ = 16 * EPS_FP32 * max(float(n_upd), 1.0) ** 0.5
+    err = rel_err(Ws, want_W)
+    phase("control", what=f"{what} no update", max_rel_err=f"{err:.3e}",
+          bound=f"{bound_:.3e}", rejected=err > bound_)
+    if not err > bound_:
+        raise AssertionError(f"{what}: the check cannot tell a launch that "
+                             "did nothing from the plain version")
+    return ks.launch_plan(eng.Ws, eng.Hs).describe()
+
+
+def arrival_batches(result, m: int, n: int, nnz: int, k: int):
+    """[8.stream]'s arrival batches, drawn from a seeded numpy generator:
+    each 1 % new ratings, 1 % new users and items, and a 5 % held-out
+    share, valued by phase 3's trained factors (new users and items get
+    seeded ones) plus noise, so the stream stays a low-rank problem."""
+    rng = np.random.default_rng(8)
+    m_new, n_new = round(m * ARRIVE_SHARE), round(n * ARRIVE_SHARE)
+    count = round(nnz * ARRIVE_SHARE)
+    Wt = np.concatenate([result.W, rng.standard_normal(
+        (ARRIVALS * m_new, k)).astype(np.float32) / k ** 0.5])
+    Ht = np.concatenate([result.H, rng.standard_normal(
+        (ARRIVALS * n_new, k)).astype(np.float32) / k ** 0.5])
+    out = []
+    for t in range(ARRIVALS):
+        hi_m, hi_n = m + (t + 1) * m_new, n + (t + 1) * n_new
+
+        def draw(c):
+            r, cc = rng.integers(0, hi_m, c), rng.integers(0, hi_n, c)
+            v = (np.einsum("ij,ij->i", Wt[r], Ht[cc])
+                 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+            return r, cc, v
+
+        rows, cols, vals = draw(count)
+        out.append(dict(rows=rows, cols=cols, vals=vals, m_new=m_new,
+                        n_new=n_new, test=draw(round(count * ARRIVE_TEST))))
+    return out
+
+
+def stream_phase(api, ks, ref, problem, config, warm, dev):
+    """[8.*]: streaming, elasticity and integrity on the card, warm from
+    phase 3's result at its full width.  Returns the wave kernel's and
+    the top-k kernel's launches on these paths."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import topk as ktopk
+    from repro_torch.runtime.chaos import bitflip_checkpoint
+    from repro_torch.serve import FactorStore, RecServer, ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg1 = dataclasses.replace(config, epochs=1)
+    lr, lam = float(np.float32(config.make_stepsize()(warm.epochs_done))), \
+        config.lam
+    batches = arrival_batches(warm, problem.m, problem.n, problem.nnz,
+                              config.k)
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_",
+                                 dir=ROOT / "build"))
+    launches = {"wave": 0, "topk": 0}
+
+    def run(fn, epochs_of):
+        """``fn()`` with the wave kernel's count zeroed before and read
+        after; it must be one launch per schedule step of every epoch,
+        and no other wrapper (``epochs_of(result)`` gives the epochs and
+        steps it ran)."""
+        ks.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in ks.WRAPPERS}
+        want = epochs_of(out)
+        if ks.nomad_sgd_waves_csr.launches != want \
+                or sum(counts.values()) != want:
+            raise AssertionError(f"launches {counts}, want {want} on "
+                                 "nomad_sgd_waves_csr")
+        launches["wave"] += want
+        return out, want
+
+    # [8.swap]'s store and server, attached to session A
+    store = FactorStore(dev)
+    store.publish_result(warm)
+    sess = api.StreamingSession(
+        problem, cfg1, warm_start=warm, device=dev,
+        faults=api.FaultPolicy(checkpoint_dir=str(ckpt), keep=2))
+    store.attach(sess)
+    srv = RecServer(store, ServeConfig(top_k=10, max_batch=64))
+    plain, calls = ktopk.topk_plain, [0]
+    qrng = np.random.default_rng(88)
+
+    def counted_plain(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    def swap_check(tag, m_before, version_before):
+        """64 queries (16 of them new users) against the round's version:
+        every microbatch through the kernel, none through the plain
+        version, answers within check_topk of the plain version on the
+        round's factors."""
+        view = store.view()
+        if view.version != version_before + 1:
+            raise AssertionError(f"{tag}: version {view.version} after "
+                                 f"{version_before}")
+        fresh = (qrng.choice(np.arange(m_before, view.m), SWAP_NEW,
+                             replace=False) if view.m > m_before
+                 else np.zeros(0, np.int64))
+        users = np.concatenate([fresh, qrng.choice(
+            m_before, SWAP_QUERIES - len(fresh), replace=False)])
+        ktopk.reset_launches()
+        calls[0] = 0
+        b0 = srv.n_batches
+        ktopk.topk_plain = counted_plain
+        try:
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                recs = list(pool.map(lambda u: srv.recommend([u]), users))
+        finally:
+            ktopk.topk_plain = plain
+        n_launch = ktopk.topk_scores_cuda.launches
+        batches_ = srv.n_batches - b0
+        launches["topk"] += n_launch
+        if {r.version for r in recs} != {view.version}:
+            raise AssertionError(f"{tag}: answers from versions "
+                                 f"{sorted({r.version for r in recs})}")
+        W_u = view.W.index_select(0, torch.from_numpy(users).to(dev))
+        ps, pi = plain(W_u, view.H, k_top=11)
+        s = torch.from_numpy(np.concatenate([r.scores for r in recs])).to(dev)
+        i = torch.from_numpy(np.concatenate([r.items for r in recs])).to(dev)
+        check_topk(f"{tag} served v{view.version}", s, i.to(pi.dtype), ps,
+                   pi, view.k)
+        phase("8.swap", round=tag, version=view.version, m=view.m, n=view.n,
+              queries=len(users), new_users=len(fresh),
+              microbatches=batches_, topk_launches=n_launch,
+              plain_calls=calls[0])
+        if n_launch < batches_ or calls[0] != 0:
+            raise AssertionError(f"{tag}: {n_launch} launches for "
+                                 f"{batches_} microbatches, {calls[0]} "
+                                 "plain calls")
+
+    def epochs_steps(res):
+        return int(res.trace_epochs.size) * sess._eng.br.n_steps
+
+    # -- [8.stream]: three arrivals, one epoch each ----------------------
+    digests = []
+    with srv:
+        for t, b in enumerate(batches):
+            m_before, v0 = sess.problem.m, store.version
+            res, n_l = run(lambda: sess.arrive(**b), epochs_steps)
+            eng = sess._eng
+            tm = sess.timings
+            digests.append(factor_digest(res.W, res.H))
+            phase("8.stream", round=t + 1, m=eng.br.m, n=eng.br.n,
+                  nnz=sess.problem.nnz, m_local=eng.br.m_local,
+                  n_local=eng.br.n_local,
+                  repack_delta_s=f"{tm['repack_delta']:.3f}",
+                  grow_s=f"{tm['grow']:.3f}", epoch_s=f"{tm['train']:.3f}",
+                  checkpoint_s=f"{tm['checkpoint']:.3f}",
+                  rmse=f"{float(res.trace_rmse[-1]):.6f}",
+                  launches=n_l, digest=digests[-1],
+                  plan=ks.launch_plan(eng.Ws, eng.Hs).describe())
+            swap_check(f"arrive{t + 1}", m_before, v0)
+            layout_check(ks, ref, eng, lr, lam, f"grow {t + 1}")
+
+        # the same chain through partial_fit calls, a session of its own
+        chain, pr = warm, problem
+        t0 = time.perf_counter()
+        for b in batches:
+            chain, _ = run(lambda: api.partial_fit(
+                chain, pr.extend(**b), cfg1, device=dev),
+                lambda r: r.extras["problem"].packed(
+                    config.p, waves=True).n_steps)
+            pr = chain.extras["problem"]
+        chain_digest = factor_digest(chain.W, chain.H)
+        phase("8.stream", chain="partial_fit", rounds=len(batches),
+              seconds=f"{time.perf_counter() - t0:.2f}",
+              digest=chain_digest, session_digest=digests[-1],
+              equal=chain_digest == digests[-1])
+        if chain_digest != digests[-1]:
+            raise AssertionError("the partial_fit chain and the session "
+                                 "differ")
+
+        # -- [8.elastic]: a worker leaves, one joins ----------------------
+        for what, kw in (("leave", dict(leave=(3,))), ("join",
+                                                       dict(join=1))):
+            tr = sess.resize(**kw)
+            eng = sess._eng
+            tm = sess.timings
+            plan_ = layout_check(ks, ref, eng, lr, lam, f"migrate {what}")
+            m_before, v0 = sess.problem.m, store.version
+            res, n_l = run(lambda: sess.fit(), epochs_steps)
+            phase("8.elastic", op=what, p=f"{tr.p_old}->{tr.p_new}",
+                  moved_rows=len(tr.moved_rows),
+                  moved_cols=len(tr.moved_cols),
+                  repack_transition_s=f"{tm['repack_transition']:.3f}",
+                  migrate_s=f"{tm['migrate']:.3f}",
+                  epoch_s=f"{tm['train']:.3f}", n_steps=eng.br.n_steps,
+                  m_local=eng.br.m_local, n_local=eng.br.n_local,
+                  rmse=f"{float(res.trace_rmse[-1]):.6f}", launches=n_l,
+                  digest=factor_digest(res.W, res.H), plan=plan_)
+            swap_check(f"{what}", m_before, v0)
+    sess.unsubscribe(store.publish_result)
+
+    # -- [8.kill]: kill recovery against a graceful twin -----------------
+    # the twin: a session warm from the partial_fit chain's result and its
+    # pinned problem, through the same worker-set changes
+    twin = api.StreamingSession(pr, cfg1, warm_start=chain, device=dev)
+    twin.resize(leave=(3,))
+    twin.fit()
+    twin.resize(join=1)
+    twin_res = twin.fit()
+    if factor_digest(twin_res.W, twin_res.H) != factor_digest(
+            sess.result.W, sess.result.H):
+        raise AssertionError("the twin session differs before the kill")
+    for worker, flip in ((5, False), (0, True)):
+        if flip:
+            # one more round each, then the newest checkpoint corrupted
+            sess.fit()
+            twin.fit()
+            flipped = bitflip_checkpoint(str(ckpt), seed=8)
+        t0 = time.perf_counter()
+        sess.kill(worker)
+        kill_s = time.perf_counter() - t0
+        twin.resize(leave=(worker,))
+        got = factor_digest(*sess._eng.factors())
+        want = factor_digest(*twin._eng.factors())
+        tm = sess.timings
+        quarantined = (flip and (ckpt / f"step_{flipped:08d}.corrupt")
+                       .is_dir())
+        phase("8.kill", worker=worker, p=sess.config.p,
+              bitflipped_newest=flip,
+              **({"quarantined_step": flipped, "quarantined": quarantined}
+                 if flip else {}),
+              checkpoint_save_s=f"{tm['checkpoint']:.3f}",
+              restore_s=f"{tm['restore']:.3f}",
+              replay_s=f"{tm['replay']:.3f}",
+              repack_transition_s=f"{tm['repack_transition']:.3f}",
+              migrate_s=f"{tm['migrate']:.3f}", kill_s=f"{kill_s:.3f}",
+              digest=got, twin_digest=want, equal=got == want)
+        if got != want or (flip and not quarantined):
+            raise AssertionError(f"kill({worker}): recovery {got} against "
+                                 f"the twin's {want}, quarantined "
+                                 f"{quarantined}")
+    del twin, sess, chain, pr
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- [8.faults]: crash-resume equals the uninterrupted run -----------
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_",
+                                 dir=ROOT / "build"))
+    policy = api.FaultPolicy(checkpoint_dir=str(ckpt), checkpoint_every=1)
+    n_steps = problem.packed(config.p, waves=True).n_steps
+    t0 = time.perf_counter()
+    _, n1 = run(lambda: api.solve(problem, dataclasses.replace(
+        config, epochs=2), faults=policy, device=dev), lambda r: 2 * n_steps)
+    part1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, n2 = run(lambda: api.solve(problem, config, faults=policy,
+                                    device=dev),
+                  lambda r: (config.epochs - 2) * n_steps)
+    part2_s = time.perf_counter() - t0
+    got, want = factor_digest(res.W, res.H), factor_digest(warm.W, warm.H)
+    same_trace = np.array_equal(res.trace_rmse, warm.trace_rmse)
+    phase("8.faults", epochs=f"2+{config.epochs - 2}",
+          part1_s=f"{part1_s:.3f}", part2_s=f"{part2_s:.3f}",
+          launches=n1 + n2, digest=got, uninterrupted_digest=want,
+          equal=got == want, trace_equal=same_trace)
+    if got != want or not same_trace:
+        raise AssertionError("crash-resume differs from the uninterrupted "
+                             "run")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    import resource
+    rss_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    phase("8.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          wave_launches=launches["wave"], topk_launches=launches["topk"],
+          host_peak_rss_gb=f"{rss_gb:.1f}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=0.1,
@@ -1555,6 +1878,16 @@ def main() -> int:
     flash_launches = lm_phase(dev)
     torch.cuda.empty_cache()
     kernels.extend(flash_kernel_checks(dev, flash_launches))
+    torch.cuda.empty_cache()
+    stream = stream_phase(api, ks, ref, problem, config,
+                          routes["grid"]["result"], dev)
+    for rec in kernels:
+        if rec["name"] == "nomad_sgd_waves_csr[grid]":
+            rec["launches"] += stream["wave"]
+            rec["launches_on"] = "[3.grid] and [8.*]"
+        elif rec["name"].startswith("topk_scores_cuda"):
+            rec["launches"] += stream["topk"]
+            rec["launches_on"] = "[5.serve] and [8.swap]"
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

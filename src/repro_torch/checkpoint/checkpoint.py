@@ -28,9 +28,10 @@ timings, and the exact solver config (``KernelPolicy``, the step-size
 run bitwise.  A bf16 result's factors (the port keeps them as their fp32
 carrier) are saved with the ``"bfloat16"`` sidecar, so the JAX package
 restores them as bf16; a bf16 checkpoint restores here as the fp32
-carrier, bit for bit.  Config fields of the JAX package's runtime types
-(``TransportConfig``, ``LinkEvent``, ``DegradedLink``) are not ported
-yet and raise ``NotImplementedError`` on restore.
+carrier, bit for bit.  Config fields of the runtime types
+(``TransportConfig``, ``LinkEvent``, ``DegradedLink``) encode and decode
+as the JAX package's do; a config of a solver the port lacks (such as
+``AsyncSimConfig``) raises "unknown config".
 """
 from __future__ import annotations
 
@@ -44,10 +45,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-
-#: the JAX package's config field types the port has not ported yet
-_NOT_PORTED = ("TransportConfig", "LinkEvent", "DegradedLink")
-
 
 class CorruptCheckpointError(RuntimeError):
     """An explicitly-requested checkpoint step failed integrity
@@ -315,10 +312,20 @@ def _encode_value(v):
     from ..core.schedule import OwnershipSchedule
     from ..core.stepsize import PowerSchedule
     from ..kernels.policy import KernelPolicy
+    from ..runtime.chaos import DegradedLink, LinkEvent
+    from ..runtime.transport import TransportConfig
     if isinstance(v, PowerSchedule):
         return {"__type__": "PowerSchedule", **dataclasses.asdict(v)}
     if isinstance(v, KernelPolicy):
         return {"__type__": "KernelPolicy", **dataclasses.asdict(v)}
+    if isinstance(v, TransportConfig):
+        return {"__type__": "TransportConfig", **dataclasses.asdict(v)}
+    if isinstance(v, LinkEvent):
+        return {"__type__": "LinkEvent", **dataclasses.asdict(v)}
+    if isinstance(v, DegradedLink):
+        return {"__type__": "DegradedLink",
+                "events": [_encode_value(e) for e in v.events],
+                "delay_factor": v.delay_factor, **v.rates}
     if isinstance(v, OwnershipSchedule):
         return {"__type__": "OwnershipSchedule", "p": int(v.p),
                 "name": v.name,
@@ -343,17 +350,26 @@ def _decode_value(v):
     from ..core.schedule import OwnershipSchedule
     from ..core.stepsize import PowerSchedule
     from ..kernels.policy import KernelPolicy
+    from ..runtime.chaos import DegradedLink, LinkEvent
+    from ..runtime.transport import TransportConfig
     t = v["__type__"]
     if t == "PowerSchedule":
         return PowerSchedule(alpha=v["alpha"], beta=v["beta"])
     if t == "KernelPolicy":
         return KernelPolicy(**{k: x for k, x in v.items()
                                if k != "__type__"})
-    if t in _NOT_PORTED:
-        raise NotImplementedError(
-            f"checkpoint config holds a {t}, a runtime type that is not "
-            "ported yet: ROADMAP.md Queue 1 item 6 "
-            "[stream/elastic/integrity]")
+    if t == "TransportConfig":
+        return TransportConfig(**{k: x for k, x in v.items()
+                                  if k != "__type__"})
+    if t == "LinkEvent":
+        return LinkEvent(**{k: x for k, x in v.items()
+                            if k != "__type__"})
+    if t == "DegradedLink":
+        return DegradedLink(
+            [_decode_value(e) for e in v["events"]],
+            drop=v["drop"], dup=v["dup"], reorder=v["reorder"],
+            corrupt=v["corrupt"], delay=v["delay"],
+            delay_factor=v["delay_factor"])
     if t == "OwnershipSchedule":
         return OwnershipSchedule(
             p=v["p"], table=np.asarray(v["table"], dtype=np.int32),

@@ -277,6 +277,72 @@ class NomadRingEngine:
             cells = wave_csr(br, sequential=impl == "pallas").to(dev)
             self._data = (cells, self._perm_src)
 
+    def grow(self, br_new: part.BlockedRatings, *, seed: int = 0,
+             W_new=None, H_new=None):
+        """Swap in an extended packing (from ``partition.repack_delta``)
+        and grow the factor shards for the new rows/items.
+
+        Existing W/H entries are preserved bit for bit (gathered off the
+        old shards and re-scattered into the new layout); rows for the
+        ``br_new.m - br.m`` new users and ``br_new.n - br.n`` new items
+        come from ``objective.grow_factors`` (or the explicit
+        ``W_new``/``H_new``, each overriding only its own side).
+        ``epoch_idx`` is untouched, so the step-size schedule resumes
+        where the previous arrival batch left it.
+        """
+        br_old = self.br
+        if br_new.m < br_old.m or br_new.n < br_old.n:
+            raise ValueError(
+                f"grow() cannot shrink: ({br_new.m}, {br_new.n}) < "
+                f"({br_old.m}, {br_old.n})")
+        if not (np.array_equal(br_new.row_owner[: br_old.m],
+                               br_old.row_owner)
+                and np.array_equal(br_new.col_block[: br_old.n],
+                                   br_old.col_block)):
+            raise ValueError(
+                "grow() needs a sticky extension of the current partition "
+                "(existing row/col assignments unchanged); use "
+                "partition.repack_delta")
+        from .objective import grow_factors
+        W, H = self.factors()
+        m_new = br_new.m - br_old.m
+        n_new = br_new.n - br_old.n
+        W2, H2 = grow_factors(W, H, m_new, n_new, seed=seed)
+        if W_new is not None:
+            W2 = np.concatenate([W, self._new_rows("W_new", W_new, m_new)])
+        if H_new is not None:
+            H2 = np.concatenate([H, self._new_rows("H_new", H_new, n_new)])
+        self._load_pack(br_new)
+        self.init_factors(W2, H2)
+
+    def _new_rows(self, name: str, rows, count: int) -> np.ndarray:
+        rows = np.asarray(rows, np.float32)
+        if rows.shape != (count, self.k):
+            raise ValueError(f"{name} must have shape ({count}, {self.k}), "
+                             f"got {rows.shape}")
+        return rows
+
+    def migrate(self, br_new: part.BlockedRatings, *, mesh="keep"):
+        """Swap in a re-packing for a *different worker set* (from
+        ``partition.repack_transition``): the engine half of an elastic
+        resize or a failure recovery.  The global factors are gathered
+        off the old shards and re-scattered into the new layout, so every
+        row's and item's W/H values are preserved bit for bit; only their
+        shard placement changes.  ``epoch_idx`` is untouched: the
+        step-size schedule continues across the transition.  ``mesh``
+        other than ``"keep"`` or ``None`` (SPMD) is not ported yet."""
+        if not (mesh is None or (isinstance(mesh, str) and mesh == "keep")):
+            raise NotImplementedError(
+                "mesh= (SPMD over several devices) is not ported yet: "
+                "ROADMAP.md Queue 1 item 9 [spmd]")
+        if (br_new.m, br_new.n) != (self.br.m, self.br.n):
+            raise ValueError(
+                f"migrate() cannot change the problem shape: "
+                f"({br_new.m}, {br_new.n}) != ({self.br.m}, {self.br.n})")
+        W, H = self.factors()
+        self._load_pack(br_new)
+        self.init_factors(W, H)
+
     def init_factors(self, W0, H0):
         """Shard and load global ``(m, k)``/``(n, k)`` factors."""
         self.last_finite = True     # fresh factors, fresh sentinel

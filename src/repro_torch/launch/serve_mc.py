@@ -3,19 +3,20 @@
 Boots a :class:`repro_torch.serve.RecServer` from the newest verified
 *committed* ``save_fit_result`` checkpoint (or trains a demo problem
 first), then drives a client load against it and reports queries/s with
-p50/p99 latency.  Runs on the card (``--device`` defaults to ``cuda``);
-``--impl auto`` (the default) scores with the CUDA top-k kernel there.
+p50/p99 latency — optionally while a concurrent
+:class:`repro_torch.api.StreamingSession` keeps publishing fresh factor
+versions into the live store (``--hot-swap ROUNDS``, the hot-swap path).
+Runs on the card (``--device`` defaults to ``cuda``); ``--impl auto``
+(the default) scores with the CUDA top-k kernel there.
 
     python -m repro_torch.launch.serve_mc --demo --smoke
+    python -m repro_torch.launch.serve_mc --demo --smoke --hot-swap 2
     python -m repro_torch.launch.serve_mc --ckpt-dir ckpt --queries 2000
-
-``--hot-swap`` needs the port's ``StreamingSession``, which is not
-ported yet (ROADMAP.md Queue 1 item 6): it exits with an error saying
-so.
 """
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
@@ -69,6 +70,28 @@ def _train_demo(args) -> Tuple[object, object]:
     return problem, result
 
 
+def _hot_swap_loop(store, problem, result, rounds: int, device,
+                   seed: int = 1):
+    """The streaming-update thread: a StreamingSession over the trained
+    problem on ``device``, publishing every round's factors to the live
+    store (``store.attach``)."""
+    from .. import api
+    sess = api.StreamingSession(problem, result.config, warm_start=result,
+                                device=device)
+    store.attach(sess)
+    rng = np.random.default_rng(seed)
+    for r in range(rounds):
+        cnt = max(16, problem.nnz // 100)
+        m_new, n_new = rng.integers(1, 4), rng.integers(0, 2)
+        m, n = sess.problem.m + m_new, sess.problem.n + n_new
+        sess.arrive(rows=rng.integers(0, m, cnt),
+                    cols=rng.integers(0, n, cnt),
+                    vals=rng.normal(size=cnt).astype(np.float32),
+                    m_new=int(m_new), n_new=int(n_new), epochs=1)
+        print(f"  hot-swap round {r + 1}/{rounds}: published version "
+              f"{store.version} (m={m}, n={n})", flush=True)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Serve matrix-completion top-k recommendations")
@@ -101,8 +124,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--hot-swap", type=int, default=0, metavar="ROUNDS",
-                    help="concurrent partial_fit rounds while serving "
-                         "(not ported yet)")
+                    help="run this many concurrent streaming rounds "
+                         "while serving (requires --demo)")
     return ap
 
 
@@ -116,14 +139,15 @@ def main(argv: Optional[Sequence[str]] = None):
         args.epochs, args.queries = 1, 200
     if not args.demo and not args.ckpt_dir:
         ap.error("pass --ckpt-dir (boot) and/or --demo (train first)")
-    if args.hot_swap:
-        ap.error("--hot-swap needs StreamingSession, which is not ported "
-                 "yet: ROADMAP.md Queue 1 item 6 [stream/elastic/integrity]")
+    if args.hot_swap and not args.demo:
+        ap.error("--hot-swap needs --demo (the updater trains on the "
+                 "demo problem)")
 
     from ..serve import FactorStore, RecServer, ServeConfig
 
+    problem = result = None
     if args.demo:
-        _, result = _train_demo(args)
+        problem, result = _train_demo(args)
         store = FactorStore.from_fit_result(result, args.device)
     else:
         store = FactorStore.from_checkpoint(args.ckpt_dir,
@@ -135,12 +159,29 @@ def main(argv: Optional[Sequence[str]] = None):
                       max_wait_ms=args.max_wait_ms,
                       item_tile=args.item_tile, kernel=args.impl)
     server = RecServer(store, cfg)
+    v0 = store.version
+    swapper, failure = None, []
+    if args.hot_swap:
+        def swap():
+            try:
+                _hot_swap_loop(store, problem, result, args.hot_swap,
+                               args.device)
+            except Exception as exc:     # re-raised on the main thread
+                failure.append(exc)
+        swapper = threading.Thread(target=swap, daemon=True)
     with server:
         server.recommend([0])           # build the kernel, warm the caches
+        if swapper is not None:
+            swapper.start()
         qps, p50, p99 = run_load(server, store.view().m, args.queries,
                                  clients=args.clients)
+        if swapper is not None:
+            swapper.join()              # every round publishes
+    if failure:
+        raise failure[0]
     print(f"{args.queries} queries (top-{cfg.top_k}, "
-          f"{server.n_batches} microbatches, 0 hot-swaps, "
+          f"{server.n_batches} microbatches, {store.version - v0} "
+          "hot-swaps, "
           f"scorer {cfg.kernel.serve_impl(store.device)} on "
           f"{store.device}): {qps:.0f} q/s, p50 {p50:.2f} ms, "
           f"p99 {p99:.2f} ms")

@@ -19,8 +19,9 @@ The protocol, as in the JAX package:
 Boot paths: :meth:`FactorStore.from_fit_result` and
 :meth:`FactorStore.from_checkpoint` (the newest *verified committed*
 ``save_fit_result`` step).  :meth:`FactorStore.attach` subscribes to a
-session with ``subscribe(callback)``; the port's own
-``StreamingSession`` is not ported yet (ROADMAP.md Queue 1 item 6).
+:class:`repro_torch.api.StreamingSession` (or anything with
+``subscribe(callback)``): every training round goes live as the next
+version (``launch.serve_mc --hot-swap``).
 
 The store lives on one device: ``device=None`` means ``"cuda"``.
 """

@@ -174,12 +174,15 @@ def test_refuses_what_is_not_ported(tiny_mc_problem):
     cfg = tapi.NomadConfig(k=8, p=2, epochs=1)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tapi.solve(tp, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tapi.solve(tp, cfg, faults=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tapi.partial_fit(None, None, cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tapi.StreamingSession(tp, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        tapi.StreamingSession(tp, cfg, mesh=object(), device="cpu")
+    # streaming runs NOMAD only; the baselines' continuations are item 8
+    res = tapi.solve(tp, cfg, device="cpu")
+    other = tapi.SolverConfig(k=8, epochs=1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tapi.partial_fit(res, tp.extend(m_new=1), other, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        tapi.StreamingSession(tp, other, device="cpu")
 
 
 def test_solve_defaults_to_cuda(tiny_mc_problem):
@@ -197,7 +200,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.serve, repro_torch.checkpoint, "
             "repro_torch.launch.serve_mc, repro_torch.kernels.topk, "
             "repro_torch.launch.serve, repro_torch.models.transformer, "
-            "repro_torch.configs, repro_torch.kernels.flash_attn\n"
+            "repro_torch.configs, repro_torch.kernels.flash_attn, "
+            "repro_torch.runtime, repro_torch.data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -247,9 +247,23 @@ def test_bitflipped_newest_step_is_quarantined_and_never_boots(tmp_path):
 
 
 def test_config_codecs_refuse_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tck.checkpoint._decode_value({"__type__": "TransportConfig",
-                                      "max_retries": 7})
+    # the runtime types round-trip, and decode what the reference wrote
+    from repro.checkpoint import checkpoint as rck
+    from repro.runtime import chaos as rchaos
+    from repro.runtime.transport import TransportConfig as RTransport
+    from repro_torch.runtime import chaos as tchaos
+    from repro_torch.runtime.transport import TransportConfig
+    enc = rck._encode_value(RTransport(max_retries=7))
+    got = tck.checkpoint._decode_value(enc)
+    assert isinstance(got, TransportConfig) and got.max_retries == 7
+    assert tck.checkpoint._encode_value(got) == enc
+    link = tchaos.DegradedLink([tchaos.LinkEvent("drop", t1=5.0)],
+                               dup=0.25, delay_factor=3.0)
+    enc = tck.checkpoint._encode_value(link)
+    assert enc == rck._encode_value(rchaos.DegradedLink(
+        [rchaos.LinkEvent("drop", t1=5.0)], dup=0.25, delay_factor=3.0))
+    back = tck.checkpoint._decode_value(enc)
+    assert back.rates == link.rates and back.events == link.events
     with pytest.raises(ValueError, match="unknown config"):
         tck.checkpoint._decode_config({"__config__": "AsyncSimConfig",
                                        "fields": {}})

@@ -580,8 +580,22 @@ def test_serve_mc_demo_then_checkpoint_boot(tmp_path, capsys):
     rec = booted.score(np.arange(view.m))
     es, ei = tserve.topk_dense_oracle(view.W, view.H, 5)
     np.testing.assert_array_equal(rec.items, ei)
+    # two hot-swap rounds from a streaming session while serving: one
+    # version per round, and the last version's answers exact
+    swapped = serve_mc.main(["--demo", "--smoke", "--device", CPU,
+                             "--top-k", "5", "--hot-swap", "2"])
+    out = capsys.readouterr().out
+    versions = [int(line.split("published version ")[1].split()[0])
+                for line in out.splitlines() if "hot-swap round" in line]
+    assert versions == [1, 2] and "2 hot-swaps" in out
+    view = swapped.store.view()
+    assert view.version == 2 and swapped.n_queries == 201
+    rec = swapped.score(np.arange(view.m))
+    assert rec.version == 2
+    es, ei = tserve.topk_dense_oracle(view.W, view.H, 5)
+    np.testing.assert_array_equal(rec.items, ei)
     with pytest.raises(SystemExit):
-        serve_mc.main(["--demo", "--smoke", "--device", CPU,
+        serve_mc.main(["--smoke", "--device", CPU, "--ckpt-dir", d,
                        "--hot-swap", "2"])
 
 
