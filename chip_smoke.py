@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
-                                     # then Qwen2.5-32B serving
+                                     # Qwen2.5-32B serving; streaming; then
+                                     # the full Netflix size
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -11,7 +12,8 @@ Phases, one line each (any failure raises and exits non-zero):
 1. build: compiles ``src/repro_torch/kernels/csrc/*.cu`` (one nvcc per
    source, in parallel, sm_90a) and prints the build seconds;
 2. data + pack of the main path's problem, then every kernel wrapper
-   against its plain PyTorch version on cells cut from that pack, at
+   against its plain PyTorch version on cells cut from that pack (a
+   window of its padded wave layout, ``partition.padded_waves``), at
    k=100, in fp32 and in bf16 with fp32 accumulation (bf16 also held to
    ``repro_torch.testing.assert_rare_flips``, with two controls that it
    must reject: the plain version accumulating in bf16, and no update at
@@ -94,7 +96,26 @@ Phases, one line each (any failure raises and exits non-zero):
    users) after every round, every microbatch through the CUDA top-k
    kernel and none through its plain version, one version per round
    (``[8.swap]``).  Each path is driven with the launch counts zeroed
-   before and read after.
+   before and read after;
+9. the main path at the paper's full Netflix size (``[9.netflix]``):
+   ``MCProblem.synthetic(2,649,429, 17,770, 99,072,112, k=100, seed=0)``
+   with 10 % held out, through ``api.solve`` (k=100, p=8, the ring,
+   ``kernel="wave_pallas"``, fp32, the paper's Netflix step sizes, 3
+   epochs): generation and pack seconds, host and card peak memory, the
+   padded wave layout never built, the plan (H in global memory: 2,222
+   item rows do not fit in shared memory), 8 launches per epoch and no
+   plain call, a descending RMSE trace; the engine's pieces, each step's
+   time (CUDA events) beside its byte bound and its chain bound (chain x
+   ``[4.floor]``'s ns per wave), seconds per epoch and updates per
+   second; the kernel against its plain version on the hottest cell's
+   first waves (at most 100,000 ratings, a window of the padded layout)
+   with a no-update control.  Then ``[9.sim]``: the discrete-event
+   simulator (``AsyncSimConfig(p=8, emit_schedule=True)``) on a small
+   problem on the host, its ``update_log`` replayed bitwise by
+   ``serial.replay_np``, and its schedule through the wave kernel on the
+   card (``n_steps`` launches per epoch, 0 plain), held against
+   ``serial.replay_torch`` of ``schedule_order()`` on the card at
+   ``rtol=2e-5, atol=2e-6``, with a shuffled order as a control.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -107,6 +128,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -290,7 +312,8 @@ SPLIT_NAMES = ("index", "rows", "butterfly", "update", "barrier", "stage",
                "wait", "stager_barrier")
 
 
-def wave_split(ks, W, H, csr, lr, lam, plan, what: str) -> dict:
+def wave_split(ks, W, H, csr, lr, lam, plan, what: str,
+               tag: str = "4.wave.split") -> dict:
     """[4.wave.split]: one cell's waves under ``plan``, split by
     ``clock64()`` samples of lane 0 of warp 0 and of the stager warp
     (``nomad_sgd.wave_split``): cycles and ns per wave of each segment,
@@ -304,7 +327,7 @@ def wave_split(ks, W, H, csr, lr, lam, plan, what: str) -> dict:
     check_bitwise(f"{plan.describe()} == launch plan H", got[1], want[1])
     ns_per_cycle = sp["ms"] * 1e6 / max(sp["cycles"], 1)
     us_per_wave = sp["ms"] * 1e3 / max(sp["waves"], 1)
-    phase("4.wave.split", what=what, variant=plan.describe(),
+    phase(tag, what=what, variant=plan.describe(),
           waves=sp["waves"], trips=sp["trips"], ms=f"{sp['ms']:.3f}",
           us_per_wave=f"{us_per_wave:.4f}",
           ns_per_cycle=f"{ns_per_cycle:.4f}",
@@ -1208,11 +1231,11 @@ def layout_check(ks, ref, eng, lr, lam, what: str) -> str:
     in phase 2, from the live factors, held against ``ref.block_sgd_waves``
     with ``check_close``; the starting factors (no update) are a control
     the check must reject.  Returns the plan of the engine's launches."""
+    from repro_torch.core.partition import padded_waves
     br, dev = eng.br, eng.Ws.device
     s = int((br.wave_cnt > 0).sum(-1).max(0).argmax())
-    pad = [torch.from_numpy(np.ascontiguousarray(a[:, s, :256])).to(dev)
-           for a in (br.wave_rows, br.wave_cols, br.wave_vals,
-                     br.wave_mask)]
+    pad = [torch.from_numpy(a).to(dev)
+           for a in padded_waves(br, s, slice(0, 256))[:4]]
     held = torch.from_numpy(eng.sched.table[s].astype(np.int64)).to(dev)
     Ws, Hs = eng.Ws, eng.Hs.index_select(0, held)
     Wg, Hg = ks.nomad_sgd_waves_grid(Ws, Hs, *pad, lr, lam)
@@ -1499,55 +1522,390 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
     return launches
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=float, default=0.1,
-                    help="Netflix scale of the main path's problem")
-    args = ap.parse_args()
+#: [9.netflix]: the paper's Netflix (its Table 2) with its
+#: hyperparameters (``configs/nomad_mf.py``), synthetic from seed 0, 10 %
+#: held out; epochs of ``solve``
+NETFLIX_EPOCHS = 3
+#: [9.netflix]'s kernel check: the hottest cell's first waves, up to this
+#: many ratings
+CHECK_RATINGS = 100_000
+#: [9.sim]: the simulator's problem (users, items, ratings, rank), its
+#: workers, and the epochs its schedule runs on the card
+SIM_M, SIM_N, SIM_NNZ, SIM_K, SIM_P, SIM_EPOCHS = 2000, 500, 40_000, 16, 8, 2
+#: the reference tests' tolerance of an engine against the serial replay
+REPLAY_RTOL, REPLAY_ATOL = 2e-5, 2e-6
+#: bytes of one padded wave slot: row, col, value, mask, global id
+SLOT_BYTES = 4 + 4 + 4 + 1 + 8
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this "
-              "script runs on an NVIDIA card only", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import api
-    from repro_torch.core.nomad import wave_csr
+
+def _rss_kb() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return 0
+
+
+class HostPeak:
+    """Peak resident memory of this process from construction on, the
+    largest of samples taken every 20 ms (the kernel's high-water mark
+    covers the whole process and cannot always be reset)."""
+
+    def __init__(self):
+        self.peak_kb = _rss_kb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak_kb = max(self.peak_kb, _rss_kb())
+
+    def gb(self) -> str:
+        return f"{max(self.peak_kb, _rss_kb()) * 1024 / 1e9:.2f}"
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def count_plain(ks):
+    """Count the calls of the wave kernel's plain version (the wrappers'
+    CPU path) until the returned ``restore()``; returns ``(calls,
+    restore)`` with ``calls[0]`` the count."""
+    plain, calls = ks.block_sgd_waves_csr, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    ks.block_sgd_waves_csr = counted
+
+    def restore():
+        ks.block_sgd_waves_csr = plain
+    return calls, restore
+
+
+def netflix_phase(api, ks, ref, dev, floor_ns):
+    """[9.netflix]: the main path at the paper's full Netflix size —
+    ``MCProblem.synthetic(2,649,429, 17,770, 99,072,112, k=100, seed=0)``
+    through ``api.solve`` with k=100, p=8, the ring schedule,
+    ``kernel="wave_pallas"``, fp32, 3 epochs — with its generation and
+    pack seconds, host and card peak memory, the padded wave layout never
+    built, the plan (H in global memory), launches (8 per epoch, 0 plain
+    calls), a descending RMSE trace; then the engine's pieces, each step's
+    time by CUDA events beside its byte bound and its chain bounds (chain
+    x ``floor_ns``, ``[4.floor]``'s ns per wave of the H-resident plan,
+    and chain x the H-global plan's own floor from ``[9.wave.split]``),
+    and the kernel against its plain version on the hottest
+    cell's first waves, read through ``partition.padded_waves``, with a
+    no-update control.  Returns the kernel record."""
+    from repro_torch.configs.nomad_mf import NETFLIX
+    from repro_torch.core.nomad import NomadRingEngine
+    from repro_torch.core.partition import padded_waves
     from repro_torch.core.stepsize import PowerSchedule
-    from repro_torch.kernels import _build, nomad_sgd as ks, ref
-    from repro_torch.kernels.policy import KernelPolicy
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    # -- 0. device ------------------------------------------------------
-    smi = nvidia_smi()
-    nvcc_ver = subprocess.run([_build.nvcc_path(), "--version"],
-                              capture_output=True, text=True,
-                              timeout=60).stdout.strip().splitlines()[-1]
-    print(smi, flush=True)
-    phase("0.device", name=torch.cuda.get_device_name(0),
-          count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, nvcc=repr(nvcc_ver))
-
-    # -- 1. build -------------------------------------------------------
+    t_phase = time.perf_counter()
+    peak = HostPeak()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lib = _build.load("nomad_sgd")
-    phase("1.build", seconds=f"{time.perf_counter() - t0:.2f}",
-          libraries=",".join(x.name for x in _build.library_paths()),
-          max_k=lib.nomad_sgd_max_k(),
-          flash_max_d=_build.load("flash_attn").flash_attention_max_d())
-    # the wave kernel's plan and its C layout agree
-    for n_t, kk, elem in ((228, 100, 4), (228, 100, 2), (2222, 100, 4),
-                          (228, ks.MAX_K, 4), (1, 1, 2)):
-        pl = ks.plan(n_t, kk, elem)
-        c_smem = lib.nomad_sgd_smem(n_t, kk, elem, int(pl.resident), pl.R)
-        if c_smem != pl.smem or lib.nomad_sgd_max_k() != ks.MAX_K:
-            raise AssertionError(f"plan {pl} for ({n_t}, {kk}, {elem}): C "
-                                 f"layout {c_smem} bytes")
-    phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
-          full_netflix=ks.plan(2222, 100, 4).describe())
+    problem = api.MCProblem.synthetic(NETFLIX.m, NETFLIX.n, NETFLIX.nnz,
+                                      k=NETFLIX.k, seed=0)
+    gen_s = time.perf_counter() - t0
+    n_test = len(problem.test[0])
+    phase("9.data", m=problem.m, n=problem.n, ratings=problem.nnz + n_test,
+          train=problem.nnz, test=n_test, requested=NETFLIX.nnz,
+          gen_s=f"{gen_s:.2f}", host_peak_rss_gb=peak.gb())
+    k, p = NETFLIX.k, 8
+    config = api.NomadConfig(
+        k=k, p=p, lam=NETFLIX.lam,
+        stepsize=PowerSchedule(NETFLIX.alpha, NETFLIX.beta),
+        kernel="wave_pallas", epochs=NETFLIX_EPOCHS)
+    t0 = time.perf_counter()
+    br = problem.packed(p, balanced=config.balanced, waves=True,
+                        sub_blocks=1, schedule=config.schedule,
+                        schedule_seed=config.schedule_seed)
+    pack_s = time.perf_counter() - t0
+    built = br.__dict__.get("_padded_waves") is not None
+    slots = br.p * br.n_steps * br.n_waves * br.wave_width
+    plan = ks.plan(br.n_local, k, 4)
+    waves_per = (br.wave_cnt > 0).sum(-1)                  # (p, n_steps)
+    s_hot = int(waves_per.max(0).argmax())
+    q_hot = int(waves_per[:, s_hot].argmax())
+    phase("9.pack", pack_s=f"{pack_s:.2f}", p=p, n_steps=br.n_steps,
+          m_local=br.m_local, n_local=br.n_local, max_nnz=br.max_nnz,
+          n_waves=br.n_waves, wave_width=br.wave_width,
+          padded_built=built, padded_slots=slots,
+          padded_bytes=slots * SLOT_BYTES, variant=plan.describe(),
+          hot_step=s_hot, hot_cell=q_hot,
+          hot_step_waves=json.dumps(waves_per[:, s_hot].tolist()),
+          hot_step_ratings=json.dumps(br.nnz_cell[:, s_hot].tolist()),
+          host_peak_rss_gb=peak.gb())
+    if built or plan.resident:
+        raise AssertionError(f"padded layout built {built}, plan "
+                             f"{plan.describe()} (want H_global)")
+
+    # the main path: launches counted, plain calls counted
+    calls, restore = count_plain(ks)
+    ks.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = api.solve(problem, config, device=dev)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = {w.__name__: w.launches for w in ks.WRAPPERS}
+    launched = ks.nomad_sgd_waves_csr.launches
+    want = NETFLIX_EPOCHS * br.n_steps
+    card_peak = torch.cuda.max_memory_allocated()
+    rm = [float(x) for x in res.rmse]
+    phase("9.solve", epochs=NETFLIX_EPOCHS, wall_s=f"{solve_s:.2f}",
+          rmse=json.dumps(rm), last_finite=res.extras["divergence"]["finite"],
+          digest=factor_digest(res.W, res.H),
+          launches=json.dumps(counts), want=want, plain_calls=calls[0],
+          card_peak_bytes=card_peak, host_peak_rss_gb=peak.gb())
+    if launched != want or sum(counts.values()) != want or calls[0]:
+        raise AssertionError(f"launches {counts}, plain calls {calls[0]}, "
+                             f"want {want} launches")
+    if not (len(rm) == NETFLIX_EPOCHS and all(
+            b < a for a, b in zip([float("inf")] + rm, rm))):
+        raise AssertionError(f"RMSE trace {rm} not strictly descending")
+    if not (res.extras["divergence"]["finite"]
+            and res.W.shape == (problem.m, k)
+            and res.H.shape == (problem.n, k)
+            and bool(np.isfinite(res.W).all())
+            and bool(np.isfinite(res.H).all())):
+        raise AssertionError("non-finite or misshapen factors")
+
+    # where solve's time goes: its engine's pieces, on the trained factors
+    eng, engine_ms = timed(lambda: NomadRingEngine(
+        br=br, k=k, lam=config.lam, stepsize=config.make_stepsize(),
+        policy=config.kernel, device=dev))
+    _, init_ms = timed(lambda: eng.init_factors(res.W, res.H))
+    live = ks.launch_plan(eng.Ws, eng.Hs)
+    variant = live.describe()
+    if live.resident:
+        raise AssertionError(f"launch plan {variant} keeps H resident")
+    eng.epoch_idx = NETFLIX_EPOCHS
+    lr = float(np.float32(config.make_stepsize()(NETFLIX_EPOCHS)))
+    lam = config.lam
+
+    # the kernel against its plain version: the hottest cell's first
+    # waves, from the trained factors (every H block home)
+    cum = np.cumsum(br.wave_cnt[q_hot, s_hot])
+    w_cut = max(1, int(np.searchsorted(cum, CHECK_RATINGS, side="right")))
+    pad = [torch.from_numpy(a).to(dev) for a in padded_waves(
+        br, s_hot, slice(0, w_cut), workers=q_hot)[:4]]
+    csr = ks.WaveCSR.from_padded(*(a[None] for a in pad))
+    csr.check_bounds(br.m_local, br.n_local)
+    b_hot = br.block_at(q_hot, s_hot)
+    W1 = eng.Ws[q_hot:q_hot + 1].clone()
+    H1 = eng.Hs[b_hot:b_hot + 1].clone()
+    # where those waves spend their time under the H-global plan, and
+    # that plan's own floor (a row fetch, the butterfly, a barrier)
+    sp = wave_split(ks, W1, H1, csr, lr, lam, ks.launch_plan(W1, H1),
+                    f"full Netflix step {s_hot} cell {q_hot}",
+                    tag="9.wave.split")
+    global_floor_ns = ((sp["rows_cycles"] + sp["butterfly_cycles"]
+                        + sp["barrier_cycles"]) * sp["ns_per_cycle"])
+    Wk, Hk = ks.nomad_sgd_waves_csr(W1.clone(), H1.clone(), csr, lr, lam)
+    Wt, Ht = W1.clone(), H1.clone()
+    k_ms = cuda_ms(lambda: ks.nomad_sgd_waves_csr(Wt, Ht, csr, lr, lam), 3)
+    (Wp, Hp), p_ms = timed(lambda: ref.block_sgd_waves(
+        W1[0].clone(), H1[0].clone(), *pad, lr, lam))
+    n_cut = int(pad[3].sum())
+    upd = max_row_updates(csr, br.m_local, br.n_local)
+    what = (f"full Netflix step {s_hot} cell {q_hot} first {w_cut} waves "
+            f"({variant})")
+    err = max(check_close(f"W kernel vs plain, {what}", Wk[0], Wp, upd),
+              check_close(f"H kernel vs plain, {what}", Hk[0], Hp, upd))
+    bound_ = 16 * EPS_FP32 * max(float(upd), 1.0) ** 0.5
+    ctrl = rel_err(W1[0], Wp)
+    phase("control", what=f"{what} no update", max_rel_err=f"{ctrl:.3e}",
+          bound=f"{bound_:.3e}", rejected=ctrl > bound_)
+    if not ctrl > bound_:
+        raise AssertionError("the check cannot tell a launch that did "
+                             "nothing from the plain version")
+    b_ms, b_by = bound(W1, H1, csr)
+    del Wk, Hk, Wt, Ht, Wp, Hp
+
+    # one epoch as solve runs it, then one with each step's launch
+    # between CUDA events
+    _, epoch_ms = timed(lambda: eng.train(1))
+    cells, perm = eng._data
+    Ws, Hs = eng.Ws, eng.Hs
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(br.n_steps)]
+    steps = [cells.cells(s * p, (s + 1) * p) for s in range(br.n_steps)]
+    for s, c in enumerate(steps):
+        events[s][0].record()
+        ks.nomad_sgd_waves_csr(Ws, Hs, c, lr, lam)
+        events[s][1].record()
+        Hs = Hs.index_select(0, perm[s])
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    for s, c in enumerate(steps):
+        sb_ms, sb_by = bound(Ws, Hs, c)
+        phase("9.step", step=s, kernel_ms=f"{step_ms[s]:.3f}",
+              bound_ms=f"{sb_ms:.4f}", bound_by=sb_by, chain=chain(c),
+              chain_bound_ms=f"{chain(c) * floor_ns * 1e-6:.3f}",
+              h_global_chain_bound_ms=(
+                  f"{chain(c) * global_floor_ns * 1e-6:.3f}"),
+              ratings=cell_ratings(c)[1].numel(), variant=variant)
+    _, factors_ms = timed(eng.factors)
+    epoch_chain = sum(chain(c) for c in steps)
+    phase("9.split", engine_ms=f"{engine_ms:.1f}",
+          init_factors_ms=f"{init_ms:.1f}", epoch_ms=f"{epoch_ms:.1f}",
+          factors_ms=f"{factors_ms:.1f}",
+          epoch_kernel_ms=f"{sum(step_ms):.2f}", epoch_chain=epoch_chain,
+          epoch_chain_bound_ms=f"{epoch_chain * floor_ns * 1e-6:.2f}",
+          updates_per_s=f"{problem.nnz / epoch_ms * 1e3:.4g}",
+          solve_s_per_epoch=f"{solve_s / NETFLIX_EPOCHS:.3f}",
+          floor_ns_per_wave=f"{floor_ns:.1f}",
+          h_global_floor_ns_per_wave=f"{global_floor_ns:.1f}",
+          variant=variant)
+    card_peak = max(card_peak, torch.cuda.max_memory_allocated())
+    peak.close()
+    phase("9.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          host_peak_rss_gb=peak.gb(), rss_sampled_every_s=0.02,
+          card_peak_bytes=card_peak, padded_built=br.__dict__.get(
+              "_padded_waves") is not None)
+    return dict(
+        name="nomad_sgd_waves_csr[grid,full_netflix]", route="cuda",
+        source=KERNEL_SRC, replaces=REPLACES["grid"], launches=launched,
+        launches_on="[9.solve]", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, variant=variant,
+        work=f"step {s_hot} cell {q_hot}, first {w_cut} waves, {n_cut} "
+        "ratings", step_ms_max=max(step_ms),
+        step_chain_bound_ms=max(chain(c) for c in steps) * floor_ns * 1e-6)
+
+
+def log_order(update_log, stepsize):
+    """The simulator's ``update_log`` in execution order (start time, then
+    log position), with each update's step size (its rating's count of
+    earlier updates)."""
+    idx = sorted(range(len(update_log)), key=lambda t: (update_log[t][0], t))
+    order = np.array([update_log[t][1] for t in idx], dtype=np.int64)
+    seen, lrs = {}, np.empty(len(order))
+    for t, g in enumerate(order.tolist()):
+        c = seen.get(g, 0)
+        lrs[t] = stepsize(c)
+        seen[g] = c + 1
+    return order, lrs
+
+
+def sim_phase(api, ks, dev) -> int:
+    """[9.sim]: ``solve(AsyncSimConfig(p=8, emit_schedule=True))`` on a
+    small problem on the host, its ``update_log`` replayed with
+    ``serial.replay_np`` (bitwise its factors), then its schedule through
+    ``solve(NomadConfig(schedule=..., kernel="wave_pallas"))`` on the card
+    (``n_steps`` launches per epoch, 0 plain calls), held against
+    ``serial.replay_torch`` of ``schedule_order()`` on the card within
+    the reference tests' tolerance; a replay of a shuffled order is a
+    control it must reject.  Returns the wave kernel's launches."""
+    from repro_torch.core import serial
+    from repro_torch.core.objective import init_factors_np
+    from repro_torch.core.stepsize import PowerSchedule
+
+    t_phase = time.perf_counter()
+    small = api.MCProblem.synthetic(SIM_M, SIM_N, SIM_NNZ, k=SIM_K, seed=9,
+                                    noise=0.1)
+    lam, stepsize = 0.05, PowerSchedule(0.05, 0.1)
+    t0 = time.perf_counter()
+    sim = api.solve(small, api.AsyncSimConfig(
+        k=SIM_K, p=SIM_P, lam=lam, stepsize=stepsize,
+        epochs=float(SIM_EPOCHS), seed=9, emit_schedule=True), device=dev)
+    sim_s = time.perf_counter() - t0
+    W0, H0 = init_factors_np(9, small.m, small.n, SIM_K)
+    order, lrs = log_order(sim.extras["update_log"], stepsize)
+    Wr, Hr = serial.replay_np(W0, H0, small.rows, small.cols, small.vals,
+                              order, lrs, lam)
+    replay_equal = bool(np.array_equal(Wr, sim.W)
+                        and np.array_equal(Hr, sim.H))
+    sched = sim.extras["schedule"]
+    phase("9.sim", m=small.m, n=small.n, nnz=small.nnz, p=SIM_P,
+          sim_s=f"{sim_s:.2f}", updates=sim.extras["n_updates"],
+          virtual_time=f"{sim.virtual_time:.6g}",
+          throughput=f"{sim.extras['throughput']:.6g}",
+          rmse=f"{float(sim.rmse[-1]):.6f}", n_steps=sched.n_steps,
+          update_log_replay_bitwise=replay_equal)
+    if not replay_equal:
+        raise AssertionError("the simulator's update_log does not replay "
+                             "to its factors")
+
+    # its schedule through the engine on the card, from seeded factors
+    rng = np.random.default_rng(9)
+    Wi = rng.uniform(0, SIM_K ** -0.5, (small.m, SIM_K)).astype(np.float32)
+    Hi = rng.uniform(0, SIM_K ** -0.5, (small.n, SIM_K)).astype(np.float32)
+    warm = api.FitResult(W=Wi, H=Hi, trace_epochs=np.zeros(0),
+                         trace_rmse=np.zeros(0), epochs_done=0)
+    cfg = api.NomadConfig(k=SIM_K, p=SIM_P, lam=lam, stepsize=stepsize,
+                          epochs=SIM_EPOCHS, schedule=sched,
+                          kernel="wave_pallas")
+    calls, restore = count_plain(ks)
+    ks.reset_launches()
+    try:
+        res = api.solve(small, cfg, warm_start=warm, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    counts = {w.__name__: w.launches for w in ks.WRAPPERS}
+    want = SIM_EPOCHS * sched.n_steps
+    if (ks.nomad_sgd_waves_csr.launches != want
+            or sum(counts.values()) != want or calls[0]):
+        raise AssertionError(f"launches {counts}, plain calls {calls[0]}, "
+                             f"want {want}")
+    order = small.packed(SIM_P, waves=True, schedule=sched).schedule_order()
+
+    def replay(o):
+        W, H = torch.from_numpy(Wi), torch.from_numpy(Hi)
+        for e in range(SIM_EPOCHS):
+            W, H = serial.replay_torch(W, H, small.rows, small.cols,
+                                       small.vals, o, stepsize(e), lam,
+                                       device=dev)
+        return W, H
+
+    def within(got, want_):
+        return (bool(torch.allclose(got, want_, rtol=REPLAY_RTOL,
+                                    atol=REPLAY_ATOL)),
+                float((got - want_).abs().max()))
+
+    t0 = time.perf_counter()
+    Wr, Hr = replay(order)
+    replay_s = time.perf_counter() - t0
+    Wg = torch.from_numpy(res.W).to(dev)
+    Hg = torch.from_numpy(res.H).to(dev)
+    (okW, eW), (okH, eH) = within(Wg, Wr), within(Hg, Hr)
+    phase("check", what="[9.sim] engine on the card vs replay_torch of "
+          "schedule_order()", within=okW and okH,
+          max_abs_err=f"{max(eW, eH):.3e}", rtol=REPLAY_RTOL,
+          atol=REPLAY_ATOL, replay_s=f"{replay_s:.2f}")
+    if not (okW and okH):
+        raise AssertionError("the simulator's schedule on the card is not "
+                             "its serial order")
+    Wc, Hc = replay(np.random.default_rng(9).permutation(order))
+    (cW, eW), (cH, eH) = within(Wg, Wc), within(Hg, Hc)
+    phase("control", what="[9.sim] replay of a shuffled order",
+          max_abs_err=f"{max(eW, eH):.3e}", rejected=not (cW and cH))
+    if cW and cH:
+        raise AssertionError("the replay check cannot tell a shuffled "
+                             "order from the schedule's")
+    phase("9.sim", schedule="on the card", epochs=SIM_EPOCHS,
+          launches=json.dumps(counts), want=want, plain_calls=calls[0],
+          rmse=json.dumps([float(x) for x in res.rmse]),
+          seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return want
+
+
+def main_path(args, api, ks, ref, dev):
+    """Phases 2-8 at Netflix x ``args.scale``.  Returns the kernel
+    records, phase 2's errors and ``[4.floor]``'s ns per wave."""
+    from repro_torch.core.nomad import wave_csr
+    from repro_torch.core.partition import padded_waves
+    from repro_torch.core.stepsize import PowerSchedule
+    from repro_torch.kernels.policy import KernelPolicy
 
     # -- 2. data, pack, kernels against their plain versions -------------
     m = max(500, int(2_649_429 * args.scale))
@@ -1579,8 +1937,8 @@ def main() -> int:
     waves_per = (br.wave_cnt > 0).sum(-1)               # (p, n_steps)
     s_hot = int(waves_per.max(0).argmax())
     cut_w = 256
-    pad = [torch.from_numpy(a[:, s_hot, :cut_w]).to(dev)
-           for a in (br.wave_rows, br.wave_cols, br.wave_vals, br.wave_mask)]
+    pad = [torch.from_numpy(a).to(dev)
+           for a in padded_waves(br, s_hot, slice(0, cut_w))[:4]]
     cnt_cut = br.wave_cnt[:, s_hot, :cut_w].sum(-1)     # ratings per cell
     c_hot = int(cnt_cut.argmax())
     flat = [torch.from_numpy(a[c_hot, s_hot, :cnt_cut[c_hot]]).to(dev)
@@ -1888,6 +2246,65 @@ def main() -> int:
         elif rec["name"].startswith("topk_scores_cuda"):
             rec["launches"] += stream["topk"]
             rec["launches_on"] = "[5.serve] and [8.swap]"
+    return kernels, errs, floor_ns
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=float, default=0.1,
+                    help="Netflix scale of phases 2-8's problem")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this "
+              "script runs on an NVIDIA card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import api
+    from repro_torch.kernels import _build, nomad_sgd as ks, ref
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 0. device ------------------------------------------------------
+    smi = nvidia_smi()
+    nvcc_ver = subprocess.run([_build.nvcc_path(), "--version"],
+                              capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()[-1]
+    print(smi, flush=True)
+    phase("0.device", name=torch.cuda.get_device_name(0),
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda, nvcc=repr(nvcc_ver))
+
+    # -- 1. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    lib = _build.load("nomad_sgd")
+    phase("1.build", seconds=f"{time.perf_counter() - t0:.2f}",
+          libraries=",".join(x.name for x in _build.library_paths()),
+          max_k=lib.nomad_sgd_max_k(),
+          flash_max_d=_build.load("flash_attn").flash_attention_max_d())
+    # the wave kernel's plan and its C layout agree
+    for n_t, kk, elem in ((228, 100, 4), (228, 100, 2), (2222, 100, 4),
+                          (228, ks.MAX_K, 4), (1, 1, 2)):
+        pl = ks.plan(n_t, kk, elem)
+        c_smem = lib.nomad_sgd_smem(n_t, kk, elem, int(pl.resident), pl.R)
+        if c_smem != pl.smem or lib.nomad_sgd_max_k() != ks.MAX_K:
+            raise AssertionError(f"plan {pl} for ({n_t}, {kk}, {elem}): C "
+                                 f"layout {c_smem} bytes")
+    phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
+          full_netflix=ks.plan(2222, 100, 4).describe())
+
+    kernels, errs, floor_ns = main_path(args, api, ks, ref, dev)
+    # -- 9. full Netflix on the main path; the simulator's schedule ------
+    torch.cuda.empty_cache()
+    kernels.append(netflix_phase(api, ks, ref, dev, floor_ns))
+    sim_launches = sim_phase(api, ks, dev)
+    for rec in kernels:
+        if rec["name"] == "nomad_sgd_waves_csr[grid]":
+            rec["launches"] += sim_launches
+            rec["launches_on"] = "[3.grid], [8.*] and [9.sim]"
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

@@ -9,6 +9,10 @@ The port's subset of the JAX package's API, same names and fields:
 * :class:`SolverConfig` / :class:`NomadConfig` — frozen hyperparameter
                           records; invalid combinations fail at
                           construction.
+* :class:`AsyncSimConfig` — the discrete-event simulator of Algorithm 1
+                          (host, float64); ``emit_schedule`` compiles
+                          its run into an ``OwnershipSchedule`` the
+                          engine replays.
 * :class:`FitResult`    — factors, per-epoch trace as arrays, wall time,
                           and the exact config; pass one back as
                           ``warm_start=`` to resume.
@@ -32,7 +36,8 @@ and :class:`StreamingSession` take ``device=`` the same way.
 
 Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
 (SPMD, ROADMAP.md Queue 1 item 9) and streaming with a solver other than
-NOMAD (the baselines, Queue 1 item 8).
+NOMAD; the baselines (DSGD, CCD++, ALS, Hogwild) have no config here yet
+(Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -50,11 +55,14 @@ from .core import partition as part
 from .core.schedule import (OwnershipSchedule, SCHEDULE_NAMES,
                             TransitionSchedule, compile_transition)
 from .core.stepsize import PowerSchedule
+from .core.topology import NetworkModel
 from .kernels.policy import KernelPolicy
+from .runtime.chaos import DegradedLink
+from .runtime.transport import TransportConfig
 
 __all__ = [
     "MCProblem", "ProblemDelta", "SolverConfig", "NomadConfig",
-    "FitResult", "KernelPolicy", "OwnershipSchedule", "TransitionSchedule",
+    "AsyncSimConfig", "FitResult", "KernelPolicy", "OwnershipSchedule", "TransitionSchedule",
     "FaultPolicy", "DivergencePolicy", "DivergenceError", "solve",
     "register_solver", "solver_names", "config_for", "partial_fit",
     "register_partial_fit", "supports_partial_fit",
@@ -367,6 +375,9 @@ class SolverConfig:
     #: ownership-transfer schedule spec
     schedule: Any = None
 
+    #: epoch-based solvers require integral epochs; only the simulator
+    #: (virtual time) can stop mid-epoch
+    _fractional_epochs = False
     #: NomadConfig flips this: its ``schedule`` field selects the
     #: OwnershipSchedule instead of erroring on leftover values
     _schedule_is_ownership = False
@@ -376,10 +387,11 @@ class SolverConfig:
             raise ValueError(f"k must be >= 1, got {self.k}")
         if self.epochs < 0:
             raise ValueError(f"epochs must be >= 0, got {self.epochs}")
-        if self.epochs != int(self.epochs):
+        if not self._fractional_epochs and self.epochs != int(self.epochs):
             raise ValueError(
                 f"epochs must be integral for {type(self).__name__}, got "
-                f"{self.epochs}")
+                f"{self.epochs} (fractional epochs exist only for "
+                "AsyncSimConfig)")
         if isinstance(self.schedule, PowerSchedule):
             # the warning points at the caller: above this frame sit one
             # super().__post_init__ frame per overriding subclass, then
@@ -475,6 +487,136 @@ class NomadConfig(SolverConfig):
                                dtype_policy=self.dtype_policy))
         object.__setattr__(self, "sub_blocks", self.kernel.sub_blocks)
         object.__setattr__(self, "dtype_policy", self.kernel.dtype_policy)
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncSimConfig(SolverConfig):
+    """Discrete-event simulator of Algorithm 1 (virtual time, real
+    float64 numerics).  ``mode`` selects NOMAD, bulk-synchronous DSGD, or
+    DSGD++ with communication overlap; ``epochs`` may be fractional."""
+    p: int = 4
+    a: float = 1.0                 # per-rating processing cost (x k)
+    c: float = 20.0                # per-item communication latency (x k)
+    mode: str = "nomad"            # 'nomad' | 'dsgd' | 'dsgd++'
+    _fractional_epochs = True
+    load_balance: bool = False
+    speed: Optional[Tuple[float, ...]] = None
+    failures: Tuple[Tuple[float, int], ...] = ()
+    #: worker rejoin events ``((virtual_time, worker), ...)`` — the dual
+    #: of ``failures``: a previously-failed worker comes back, steals a
+    #: balanced share of rows, and re-enters the routing pool (the full
+    #: elastic lifecycle; NOMAD mode only)
+    rejoins: Tuple[Tuple[float, int], ...] = ()
+    record_every: float = 0.5
+    #: rating-arrival events ``((virtual_time, (rating ids...)), ...)``:
+    #: the listed training ratings stay invisible until their batch's
+    #: virtual time (streaming workload; NOMAD mode only)
+    arrivals: Tuple[Tuple[float, Tuple[int, ...]], ...] = ()
+    #: compile the simulated run's ownership transfers into a replayable
+    #: ``OwnershipSchedule`` (``FitResult.extras["schedule"]``; NOMAD
+    #: mode only) — feed it back as ``NomadConfig(schedule=...)`` to
+    #: replay the predicted routing on the real engine
+    emit_schedule: bool = False
+    #: physical network model (DESIGN.md §12): ``None`` keeps the flat
+    #: §3.2 ``c * k`` pricing bitwise; a
+    #: :class:`~repro_torch.core.topology.NetworkModel` (e.g.
+    #: :class:`~repro_torch.core.topology.HierarchicalMesh`) prices every item
+    #: transfer by placement, with link contention in virtual time —
+    #: for NOMAD every ``"arrive"`` hop, for DSGD/DSGD++ the per-sub-
+    #: epoch block-shipment barrier
+    topology: Optional[NetworkModel] = None
+    #: integrity transport (DESIGN.md §14): ``None`` ships nomadic items
+    #: over the historical perfect channel (the zero-cost path — results
+    #: stay bitwise).  A :class:`~repro_torch.runtime.transport.TransportConfig`
+    #: seals every ownership transfer in a sequence-numbered CRC32
+    #: envelope; counters land in ``FitResult.extras["transport"]``.
+    #: Without ``link_faults`` results are *still* bitwise-identical to
+    #: ``transport=None`` — asserted in tests/test_transport.py.
+    transport: Optional[TransportConfig] = None
+    #: :class:`~repro_torch.runtime.chaos.DegradedLink` message-fault model
+    #: (drop / duplicate / reorder / corrupt / delay, scripted windows +
+    #: seeded background rates; NOMAD mode only).  Implies ``transport``:
+    #: the full at-least-once machinery runs — acknowledgement hops,
+    #: exponential-backoff retransmits, receiver-side dedup — and every
+    #: fault script still yields an exactly-serializable history.
+    link_faults: Optional[DegradedLink] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.p < 1:
+            raise ValueError(f"p must be >= 1, got {self.p}")
+        if self.transport is not None and not isinstance(
+                self.transport, TransportConfig):
+            raise TypeError(
+                f"transport must be a TransportConfig, got "
+                f"{type(self.transport).__name__}")
+        if self.link_faults is not None:
+            if not isinstance(self.link_faults, DegradedLink):
+                raise TypeError(
+                    f"link_faults must be a DegradedLink, got "
+                    f"{type(self.link_faults).__name__}")
+            if self.mode != "nomad":
+                raise ValueError(
+                    "link_faults are only simulated for mode='nomad' "
+                    "(the bulk-synchronous baselines ship whole blocks "
+                    "at barriers)")
+        if self.topology is not None:
+            if not isinstance(self.topology, NetworkModel):
+                raise TypeError(
+                    f"topology must be a NetworkModel, got "
+                    f"{type(self.topology).__name__}")
+            t_p = getattr(self.topology, "p", None)
+            if t_p is not None and t_p != self.p:
+                raise ValueError(
+                    f"topology is for p={t_p}, but config has p={self.p}")
+        if self.emit_schedule and self.mode != "nomad":
+            raise ValueError(
+                "emit_schedule requires mode='nomad' (the bulk-"
+                "synchronous baselines already execute a fixed schedule)")
+        if self.mode not in ("nomad", "dsgd", "dsgd++"):
+            raise ValueError(
+                f"mode={self.mode!r} not in ('nomad', 'dsgd', 'dsgd++')")
+        if self.speed is not None:
+            object.__setattr__(self, "speed", tuple(float(s)
+                                                    for s in self.speed))
+            if len(self.speed) != self.p:
+                raise ValueError(
+                    f"speed has {len(self.speed)} entries for p={self.p}")
+        if self.rejoins:
+            if self.mode != "nomad":
+                raise ValueError(
+                    "rejoins are only simulated for mode='nomad' (the "
+                    "bulk-synchronous baselines have no elastic "
+                    "lifecycle)")
+            object.__setattr__(self, "rejoins", tuple(
+                (float(t), int(q)) for t, q in self.rejoins))
+            if any(t < 0 for t, _ in self.rejoins):
+                raise ValueError("rejoin times must be >= 0")
+            if any(q < 0 or q >= self.p for _, q in self.rejoins):
+                raise ValueError(f"rejoin workers must lie in [0, {self.p})")
+        if self.arrivals:
+            if self.mode != "nomad":
+                raise ValueError(
+                    "arrivals are only simulated for mode='nomad' (the "
+                    "bulk-synchronous baselines re-pack per epoch)")
+            object.__setattr__(self, "arrivals", tuple(
+                (float(t), tuple(int(g) for g in ids))
+                for t, ids in self.arrivals))
+            if any(t < 0 for t, _ in self.arrivals):
+                raise ValueError("arrival times must be >= 0")
+
+    def to_sim_config(self):
+        from .core.async_sim import SimConfig
+        return SimConfig(
+            p=self.p, k=self.k, lam=self.lam,
+            schedule=self.make_stepsize(), a=self.a, c=self.c,
+            epochs=float(self.epochs), load_balance=self.load_balance,
+            speed=(None if self.speed is None
+                   else np.asarray(self.speed, dtype=np.float64)),
+            failures=self.failures, rejoins=self.rejoins, seed=self.seed,
+            record_every=self.record_every, arrivals=self.arrivals,
+            topology=self.topology, transport=self.transport,
+            link_faults=self.link_faults)
 
 
 # ---------------------------------------------------------------------- #
@@ -762,7 +904,12 @@ def _solve_faulted(problem: MCProblem, config: SolverConfig, *,
     good state with a backed-off step size."""
     from .checkpoint.checkpoint import (gc_checkpoints, restore_fit_result,
                                         save_fit_result)
-    total = int(config.epochs)
+    total = config.epochs
+    if total != int(total):
+        raise ValueError(
+            f"faults= requires integral epochs, got {total} (the "
+            "simulator has its own failure model: AsyncSimConfig.failures)")
+    total = int(total)
     if total == 0:
         return solve(problem, config, warm_start=warm_start,
                      verbose=verbose, device=device)
@@ -1049,6 +1196,60 @@ def _partial_fit_nomad(result: FitResult, delta: ProblemDelta,
     # partial_fit chain on one serial order, and incremental
     res.extras["problem"] = _sticky_extended_problem(delta, br, config)
     return res
+
+
+@register_solver("async_sim", AsyncSimConfig)
+def _solve_async_sim(problem: MCProblem, config: AsyncSimConfig, *,
+                     warm_start=None, verbose=False,
+                     device=None) -> FitResult:
+    """The discrete-event simulator (float64 numpy on the host, bitwise
+    the JAX package's for the same inputs and seed); ``device`` is not
+    read.  With ``emit_schedule`` the simulated ownership transfers come
+    back as ``extras["schedule"]``, an ``OwnershipSchedule`` that
+    ``NomadConfig(schedule=...)`` replays on the card."""
+    from .core.async_sim import NomadSimulator, simulate_dsgd
+    from .core.objective import init_factors_np
+    W0, H0, start = _warm_factors(warm_start, dtype=np.float64)
+    if W0 is None:
+        W0, H0 = init_factors_np(config.seed, problem.m, problem.n,
+                                 config.k)
+    cfg = config.to_sim_config()
+    if config.mode == "nomad":
+        res = NomadSimulator(cfg, problem.m, problem.n, problem.rows,
+                             problem.cols, problem.vals, W0, H0,
+                             test=problem.test).run()
+    else:
+        res = simulate_dsgd(cfg, problem.m, problem.n, problem.rows,
+                            problem.cols, problem.vals, W0, H0,
+                            test=problem.test,
+                            overlap=config.mode == "dsgd++")
+    nnz = max(1, problem.nnz)
+    epochs = np.asarray([start + upd / nnz for _, upd, _ in res.trace],
+                        dtype=np.float64)
+    rmses = np.asarray([r for _, _, r in res.trace], dtype=np.float64)
+    extras = {"n_updates": res.n_updates,
+              "throughput": res.throughput,
+              "busy_time": res.busy_time,
+              "trace_virtual_time": np.asarray(
+                  [t for t, _, _ in res.trace], dtype=np.float64),
+              "update_log": res.update_log}
+    if res.transport is not None:
+        extras["transport"] = res.transport
+    if config.emit_schedule:
+        # compile the simulated ownership transfers into a schedule the
+        # real engine replays.  The item blocks are the nnz-balanced
+        # assignment pack(balanced=True) computes for this problem, so a
+        # plain NomadConfig(schedule=extras["schedule"]) replay lines the
+        # blocks up with the compiled visits automatically.
+        from .core.partition import balanced_assign
+        col_cnt = np.bincount(problem.cols, minlength=problem.n)
+        col_block = balanced_assign(col_cnt, config.p)
+        extras["schedule"] = OwnershipSchedule.from_sim_log(
+            res, col_block, p=config.p)
+    return FitResult(
+        W=res.W, H=res.H, trace_epochs=epochs, trace_rmse=rmses,
+        epochs_done=float(start) + res.n_updates / nnz,
+        virtual_time=res.sim_time, extras=extras)
 
 
 # ---------------------------------------------------------------------- #

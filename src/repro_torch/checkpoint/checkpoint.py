@@ -30,8 +30,9 @@ carrier) are saved with the ``"bfloat16"`` sidecar, so the JAX package
 restores them as bf16; a bf16 checkpoint restores here as the fp32
 carrier, bit for bit.  Config fields of the runtime types
 (``TransportConfig``, ``LinkEvent``, ``DegradedLink``) encode and decode
-as the JAX package's do; a config of a solver the port lacks (such as
-``AsyncSimConfig``) raises "unknown config".
+as the JAX package's do, and so do ``NomadConfig`` and
+``AsyncSimConfig``; a config of a solver the port lacks (such as
+``DsgdConfig``) raises "unknown config".
 """
 from __future__ import annotations
 
@@ -396,8 +397,8 @@ def _decode_config(d):
                            and issubclass(cls, api.SolverConfig)):
         raise ValueError(
             f"checkpoint names unknown config {d['__config__']!r} (the "
-            "port has NomadConfig only; ROADMAP.md Queue 1 lists the "
-            "solvers still to port)")
+            "port has NomadConfig and AsyncSimConfig; ROADMAP.md Queue 1 "
+            "lists the solvers still to port)")
     return cls(**{k: _decode_value(v) for k, v in d["fields"].items()})
 
 

@@ -151,17 +151,29 @@ def _steps_epoch_body(Ws, Hs, data, lr, lam, policy: KernelPolicy,
                              entry)
 
 
+#: held-out ratings per gather of :func:`_sharded_rmse_body`: two fp32
+#: ``(chunk, k)`` gathers, 800 MB at k=100 (the paper's full Netflix
+#: holds out ~9.9 M ratings, 8 GB of gathers in one piece)
+RMSE_CHUNK = 1 << 20
+
+
 def _sharded_rmse_body(Ws, Hs, ridx, cidx, vals):
     """Test RMSE straight off the (p, m_local, k)/(p, n_local, k) factor
     shards.  ``ridx``/``cidx`` are flat shard indices
     (owner * local_size + local), so the gather reads exactly the values
-    the unsharded matrices hold.  Evaluated in fp32 whatever the
-    storage."""
+    the unsharded matrices hold.  Evaluated in fp32 whatever the storage,
+    :data:`RMSE_CHUNK` ratings at a time (one sum of squares per chunk,
+    added in order)."""
     k = Ws.shape[-1]
-    wi = Ws.reshape(-1, k)[ridx].to(torch.float32)
-    hj = Hs.reshape(-1, k)[cidx].to(torch.float32)
-    pred = torch.sum(wi * hj, dim=-1)
-    return torch.sqrt(torch.mean((vals.to(torch.float32) - pred) ** 2))
+    W, H = Ws.reshape(-1, k), Hs.reshape(-1, k)
+    sse = torch.zeros((), dtype=torch.float32, device=Ws.device)
+    for lo in range(0, max(vals.numel(), 1), RMSE_CHUNK):
+        hi = lo + RMSE_CHUNK
+        wi = W[ridx[lo:hi]].to(torch.float32)
+        hj = H[cidx[lo:hi]].to(torch.float32)
+        pred = torch.sum(wi * hj, dim=-1)
+        sse = sse + torch.sum((vals[lo:hi].to(torch.float32) - pred) ** 2)
+    return torch.sqrt(sse / vals.numel())
 
 
 def _fused_driver(epoch_body):

@@ -209,6 +209,40 @@ def pack_cell_waves(
     return order, wrows, wcols, wvals, wmask, wgid
 
 
+#: the padded wave arrays of a wave packing, in :func:`padded_waves`' order
+PADDED_WAVES = ("wave_rows", "wave_cols", "wave_vals", "wave_mask",
+                "wave_gid")
+
+
+class _PaddedWave:
+    """A padded wave array of :class:`BlockedRatings`, built with the
+    other four from the flat lists and ``wave_cnt`` when first read and
+    kept from then on (``None`` for a packing without waves).  It cannot
+    be assigned: the flat lists are the one copy of the ratings."""
+
+    def __set_name__(self, owner, name):
+        self.index = PADDED_WAVES.index(name)
+
+    def __get__(self, br, owner=None):
+        if br is None or br.wave_cnt is None:
+            return None
+        built = br.__dict__.get("_padded_waves")
+        if built is None:
+            built = br.__dict__["_padded_waves"] = padded_waves(br)
+        return built[self.index]
+
+    def __set__(self, br, value):
+        # the dataclass __init__ passes the field default, this object
+        if not (value is None or value is self):
+            raise AttributeError("the padded wave arrays are built from "
+                                 "the flat lists; they cannot be set")
+
+
+def _padded_field():
+    return dataclasses.field(default=_PaddedWave(), repr=False,
+                             compare=False)
+
+
 @dataclasses.dataclass
 class BlockedRatings:
     """Ratings packed for the SPMD engine.  All arrays are numpy.
@@ -284,13 +318,18 @@ class BlockedRatings:
     # wave_rows[q, s, w] no local row index repeats, likewise columns.
     # The sequential arrays above are stored wave-major, so executing the
     # waves in order is the SAME serial linearization as rows/cols/....
+    # Only wave_cnt is stored: the five padded arrays are built from the
+    # flat lists and wave_cnt when first read (padded_waves), since at
+    # full Netflix they would be ~10^10 slots, nearly all padding.
     n_waves: int = 0          # padded wave count per cell
     wave_width: int = 0       # padded ratings per wave
-    wave_rows: np.ndarray = None   # (p, n_steps, n_waves, wave_width) int32
-    wave_cols: np.ndarray = None   # (p, n_steps, n_waves, wave_width) int32
-    wave_vals: np.ndarray = None   # (p, n_steps, n_waves, wave_width) f32
-    wave_mask: np.ndarray = None   # (p, n_steps, n_waves, wave_width) bool
-    wave_gid: np.ndarray = None    # (p, n_steps, n_waves, wave_width) int64
+    # each (p, n_steps, n_waves, wave_width): int32, int32, f32, bool,
+    # int64 (-1 pad)
+    wave_rows: np.ndarray = _padded_field()
+    wave_cols: np.ndarray = _padded_field()
+    wave_vals: np.ndarray = _padded_field()
+    wave_mask: np.ndarray = _padded_field()
+    wave_gid: np.ndarray = _padded_field()
     wave_cnt: np.ndarray = None    # (p, n_steps, n_waves) real wave sizes
 
     # --- sub-block pre-partition (SPMD pipelining); sub_blocks > 1 only ---
@@ -304,6 +343,47 @@ class BlockedRatings:
     sub_vals: np.ndarray = None    # (p, n_steps, sub_blocks, sub_max) f32
     sub_mask: np.ndarray = None    # (p, n_steps, sub_blocks, sub_max) bool
     sub_nnz: np.ndarray = None     # (p, n_steps, sub_blocks) real counts
+
+
+def padded_waves(br: BlockedRatings, steps: Union[int, slice] = slice(None),
+                 waves: slice = slice(None), *,
+                 workers: Union[int, slice] = slice(None)
+                 ) -> Tuple[np.ndarray, ...]:
+    """The padded wave layout of ``br`` — ``(wave_rows, wave_cols,
+    wave_vals, wave_mask, wave_gid)`` — or a window of it, built from the
+    flat wave-major lists and ``wave_cnt``.
+
+    The result is ``a[workers, steps, waves]`` of each whole-layout array
+    ``a`` (shape ``(p, n_steps, n_waves, wave_width)``), byte for byte
+    what the JAX package's ``pack`` stores, but only the window is built:
+    wave ``w`` of cell ``(q, s)`` is the ``wave_cnt[q, s, w]`` ratings of
+    the flat lists after those of its earlier waves, in lanes ``0 ..
+    wave_cnt - 1``; the other lanes are padding (0, masked, gid -1)."""
+    if br.wave_cnt is None:
+        raise ValueError("padded_waves needs a packing with waves=True")
+    if not isinstance(waves, slice):
+        raise TypeError(f"waves must be a slice, got {type(waves).__name__}")
+    cells = br.wave_cnt[workers, steps]
+    cnt = cells[..., waves]
+    # each wave's first rating in its cell's flat lists
+    start = (np.cumsum(cells, axis=-1) - cells)[..., waves]
+    mask = np.arange(br.wave_width) < cnt[..., None]
+    at = np.nonzero(mask)
+    # the (worker, step, position) in the flat lists of each rating
+    cell, d = [], 0
+    for axis, sel in ((br.p, workers), (br.n_steps, steps)):
+        of = np.arange(axis)[sel]
+        if np.ndim(of):
+            of, d = of[at[d]], d + 1
+        cell.append(of)
+    cell.append(start[at[:-1]] + at[-1])
+    out = []
+    for flat, fill in ((br.rows, 0), (br.cols, 0), (br.vals, 0),
+                       (br.mask, False), (br.gid, -1)):
+        a = np.full(mask.shape, fill, dtype=flat.dtype)
+        a[at] = flat[tuple(cell)]
+        out.append(a)
+    return tuple(out)
 
 
 def _localize(row_owner: np.ndarray, col_block: np.ndarray, m: int, n: int,
@@ -409,11 +489,6 @@ def _fill_layouts(cell_info, vals_f, *, p, m, n, m_local, n_local,
     nnz_cell = np.zeros((p, n_steps), dtype=np.int64)
 
     if waves:
-        WR = np.zeros((p, n_steps, n_waves, wave_width), dtype=np.int32)
-        WC = np.zeros((p, n_steps, n_waves, wave_width), dtype=np.int32)
-        WV = np.zeros((p, n_steps, n_waves, wave_width), dtype=np.float32)
-        WM = np.zeros((p, n_steps, n_waves, wave_width), dtype=bool)
-        WG = np.full((p, n_steps, n_waves, wave_width), -1, dtype=np.int64)
         Wcnt = np.zeros((p, n_steps, n_waves), dtype=np.int64)
     if sub_blocks > 1:
         SR = np.zeros((p, n_steps, sub_blocks, sub_max), dtype=np.int32)
@@ -435,16 +510,9 @@ def _fill_layouts(cell_info, vals_f, *, p, m, n, m_local, n_local,
             if cnt == 0:
                 continue
             if waves:
-                wcnt = np.bincount(wave, minlength=n_waves)
-                # ratings are wave-major, so slots are consecutive
-                woff = np.concatenate([[0], np.cumsum(wcnt)])
-                slot = np.arange(cnt) - woff[wave]
-                WR[q, s, wave, slot] = rloc
-                WC[q, s, wave, slot] = cloc
-                WV[q, s, wave, slot] = vals_f[ids]
-                WM[q, s, wave, slot] = True
-                WG[q, s, wave, slot] = ids
-                Wcnt[q, s] = wcnt
+                # ratings are wave-major: wave w is the next wcnt[w] of
+                # the flat lists, which is all padded_waves needs
+                Wcnt[q, s] = np.bincount(wave, minlength=n_waves)
             if sub_blocks > 1:
                 for sbi in range(sub_blocks):
                     seg = np.flatnonzero(sid == sbi)
@@ -467,8 +535,6 @@ def _fill_layouts(cell_info, vals_f, *, p, m, n, m_local, n_local,
     if waves:
         br.n_waves = n_waves
         br.wave_width = wave_width
-        br.wave_rows, br.wave_cols = WR, WC
-        br.wave_vals, br.wave_mask, br.wave_gid = WV, WM, WG
         br.wave_cnt = Wcnt
     br.sub_blocks = sub_blocks
     br.sub_starts = sub_starts
@@ -498,7 +564,8 @@ def pack(
 
     ``waves=True`` additionally emits the conflict-free wave layout (and
     stores the sequential arrays wave-major so both executions share one
-    serial ordering).  ``sub_blocks > 1`` pre-partitions every cell by
+    serial ordering): ``wave_cnt``, from which :func:`padded_waves`
+    builds the padded arrays, whole or a window, when they are read.  ``sub_blocks > 1`` pre-partitions every cell by
     item sub-block for the SPMD pipelined engine; the cell-level order
     becomes sub-block-major with waves colored per sub-block, which is
     exactly the order the pipelined engine executes.
@@ -622,7 +689,7 @@ def repack_delta(
             "shift when n_local grows, which would reorder every cell); "
             "re-pack from scratch for the pipelined SPMD layout")
     p = br.p
-    waves = br.wave_rows is not None
+    waves = br.wave_cnt is not None
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     new_rows = np.asarray(new_rows, dtype=np.int64)
@@ -753,7 +820,7 @@ def repack_transition(
                          "base assignment than this packing's")
     p_new = tr.p_new
     m, n = br.m, br.n
-    waves = br.wave_rows is not None
+    waves = br.wave_cnt is not None
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     vals_f = np.asarray(vals, dtype=np.float32)

@@ -230,7 +230,7 @@ class KernelPolicy:
         """Validate that a ``BlockedRatings`` carries the layouts this
         policy executes (wave layout present, sub-block pre-partition
         matching).  Raises ``ValueError`` with an actionable message."""
-        if self.wave and br.wave_rows is None:
+        if self.wave and br.wave_cnt is None:
             raise ValueError(
                 f"impl={self.impl!r} needs the wave layout; call "
                 "partition.pack(..., waves=True) or "

@@ -24,8 +24,7 @@ assumption:
   adversarial fault script cannot starve an item out of circulation.
 
 The event mechanics (timers, acknowledgement hops, fault injection)
-live with the host — the JAX package's ``core.async_sim.NomadSimulator``
-(not ported yet: ROADMAP.md Queue 1 item 7)
+live with the host — ``repro_torch.core.async_sim.NomadSimulator``
 prices every transmission and acknowledgement through its ``ship()``
 closure and draws faults from a
 :class:`~repro_torch.runtime.chaos.DegradedLink` — so this module stays pure

@@ -201,7 +201,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.serve_mc, repro_torch.kernels.topk, "
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.configs, repro_torch.kernels.flash_attn, "
-            "repro_torch.runtime, repro_torch.data\n"
+            "repro_torch.runtime, repro_torch.data, "
+            "repro_torch.core.serial, repro_torch.core.async_sim\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"
