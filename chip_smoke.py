@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving; streaming; then
-                                     # the full Netflix size
+                                     # the full Netflix size: NOMAD, then
+                                     # the paper's baselines
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -116,6 +117,20 @@ Phases, one line each (any failure raises and exits non-zero):
    card (``n_steps`` launches per epoch, 0 plain), held against
    ``serial.replay_torch`` of ``schedule_order()`` on the card at
    ``rtol=2e-5, atol=2e-6``, with a shuffled order as a control.
+10. the paper's baselines at full Netflix on phase 9's problem (its wave
+   pack released first): DSGD through ``api.solve`` with phase 9's
+   settings (``DsgdConfig(k=100, p=8)``, 3 epochs; ``[10.dsgd]``): pack
+   seconds (no coloring), solve seconds, 8 launches an epoch of the
+   kernel's sequential route and no plain call, factors whose digest
+   must equal ``[9.solve]``'s, a descending trace; each sub-epoch's
+   launch by CUDA events beside its byte and chain bounds; the kernel
+   against its plain version on the first 50,000 ratings of the hottest
+   sub-epoch's largest cell, with a no-update control.  Then CCD++ (2
+   epochs, ``inner=3``, eq. (1) read after each), ALS (2 epochs) and
+   Hogwild (1 epoch, minibatches of 256), cold from seed 0: seconds per
+   epoch, card and host peaks, the RMSE trace against the initial
+   factors', all-finite factors; and ``[10.als.resume]``: on phase 2's
+   problem, 1 + 1 ALS epochs through ``warm_start`` equal 2, bitwise.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -1599,7 +1614,9 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
     and chain x the H-global plan's own floor from ``[9.wave.split]``),
     and the kernel against its plain version on the hottest
     cell's first waves, read through ``partition.padded_waves``, with a
-    no-update control.  Returns the kernel record."""
+    no-update control.  Returns the kernel record, the problem (its wave
+    pack released), ``[9.solve]``'s digest and the H-global plan's ns per
+    wave."""
     from repro_torch.configs.nomad_mf import NETFLIX
     from repro_torch.core.nomad import NomadRingEngine
     from repro_torch.core.partition import padded_waves
@@ -1660,9 +1677,10 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
     want = NETFLIX_EPOCHS * br.n_steps
     card_peak = torch.cuda.max_memory_allocated()
     rm = [float(x) for x in res.rmse]
+    digest = factor_digest(res.W, res.H)
     phase("9.solve", epochs=NETFLIX_EPOCHS, wall_s=f"{solve_s:.2f}",
           rmse=json.dumps(rm), last_finite=res.extras["divergence"]["finite"],
-          digest=factor_digest(res.W, res.H),
+          digest=digest,
           launches=json.dumps(counts), want=want, plain_calls=calls[0],
           card_peak_bytes=card_peak, host_peak_rss_gb=peak.gb())
     if launched != want or sum(counts.values()) != want or calls[0]:
@@ -1772,7 +1790,8 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
           host_peak_rss_gb=peak.gb(), rss_sampled_every_s=0.02,
           card_peak_bytes=card_peak, padded_built=br.__dict__.get(
               "_padded_waves") is not None)
-    return dict(
+    problem._pack_cache.clear()
+    record = dict(
         name="nomad_sgd_waves_csr[grid,full_netflix]", route="cuda",
         source=KERNEL_SRC, replaces=REPLACES["grid"], launches=launched,
         launches_on="[9.solve]", max_abs_err=err, ms=k_ms, plain_ms=p_ms,
@@ -1780,6 +1799,300 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
         work=f"step {s_hot} cell {q_hot}, first {w_cut} waves, {n_cut} "
         "ratings", step_ms_max=max(step_ms),
         step_chain_bound_ms=max(chain(c) for c in steps) * floor_ns * 1e-6)
+    return record, problem, digest, global_floor_ns
+
+
+#: [10.dsgd]'s kernel check: the hottest sub-epoch's largest cell's
+#: first ratings, each its own wave (the plain version takes ~0.2 ms a
+#: rating on the card)
+DSGD_CHECK_RATINGS = 50_000
+#: [10.*]: CCD++'s epochs (each one solve, warm from the last) and inner
+#: sweeps, ALS's epochs, Hogwild's epochs and minibatch
+CCD_EPOCHS, CCD_INNER, ALS_EPOCHS, HOG_EPOCHS, HOG_BATCH = 2, 3, 2, 1, 256
+
+
+def objective_chunked(W, H, rows, cols, vals, lam) -> float:
+    """eq. (1) over the ratings, 2**20 at a time on the card (fp32 terms,
+    summed in fp64)."""
+    tot = 0.0
+    for lo in range(0, vals.numel(), 1 << 20):
+        hi = lo + (1 << 20)
+        wi, hj = W[rows[lo:hi]], H[cols[lo:hi]]
+        err = vals[lo:hi] - torch.sum(wi * hj, dim=-1)
+        reg = torch.sum(wi * wi, dim=-1) + torch.sum(hj * hj, dim=-1)
+        tot += float(torch.sum(err * err + lam * reg, dtype=torch.float64))
+    return 0.5 * tot
+
+
+def dsgd_phase(api, ks, dev, problem, want_digest, floor_ns,
+               global_floor_ns):
+    """[10.pack], [10.dsgd], [10.step], [10.split]: DSGD at the paper's
+    full Netflix on phase 9's problem, through ``api.solve`` with phase
+    9's settings.  Fails unless its factors' digest is ``[9.solve]``'s,
+    it launched the kernel 8 times an epoch and never its plain version,
+    and its trace strictly descends.  Then each sub-epoch's launch by
+    CUDA events beside its bounds, and the kernel against its plain
+    version on a window of the hottest sub-epoch's largest cell, with a
+    no-update control.  Returns the kernel record."""
+    from repro_torch.configs.nomad_mf import NETFLIX
+    from repro_torch.convert import factors_from_reference
+    from repro_torch.core.nomad import wave_csr
+    from repro_torch.core.stepsize import PowerSchedule
+
+    peak = HostPeak()
+    torch.cuda.reset_peak_memory_stats()
+    k, p = NETFLIX.k, 8
+    config = api.DsgdConfig(
+        k=k, p=p, lam=NETFLIX.lam,
+        stepsize=PowerSchedule(NETFLIX.alpha, NETFLIX.beta),
+        epochs=NETFLIX_EPOCHS)
+    t0 = time.perf_counter()
+    br = problem.packed(p, balanced=True, waves=False)
+    pack_s = time.perf_counter() - t0
+    s_hot = int(br.nnz_cell.max(0).argmax())
+    q_hot = int(br.nnz_cell[:, s_hot].argmax())
+    phase("10.pack", pack_s=f"{pack_s:.2f}", p=p, n_steps=br.n_steps,
+          m_local=br.m_local, n_local=br.n_local, max_nnz=br.max_nnz,
+          waves=br.wave_cnt is not None, hot_step=s_hot, hot_cell=q_hot,
+          host_peak_rss_gb=peak.gb())
+
+    calls, restore = count_plain(ks)
+    ks.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = api.solve(problem, config, device=dev)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+    finally:
+        restore()
+    counts = {w.__name__: w.launches for w in ks.WRAPPERS}
+    launched = ks.nomad_sgd_waves_csr.launches
+    want = NETFLIX_EPOCHS * p
+    card_peak = torch.cuda.max_memory_allocated()
+    rm = [float(x) for x in res.rmse]
+    digest = factor_digest(res.W, res.H)
+    phase("10.dsgd", epochs=NETFLIX_EPOCHS, wall_s=f"{solve_s:.2f}",
+          s_per_epoch=f"{solve_s / NETFLIX_EPOCHS:.3f}", rmse=json.dumps(rm),
+          digest=digest, want_digest=want_digest,
+          equal=digest == want_digest, launches=json.dumps(counts),
+          want=want, plain_calls=calls[0], card_peak_bytes=card_peak,
+          host_peak_rss_gb=peak.gb())
+    if digest != want_digest:
+        raise AssertionError(f"DSGD digest {digest} != [9.solve]'s "
+                             f"{want_digest}")
+    if launched != want or sum(counts.values()) != want or calls[0]:
+        raise AssertionError(f"launches {counts}, plain calls {calls[0]}, "
+                             f"want {want} launches")
+    if not (len(rm) == NETFLIX_EPOCHS and all(
+            b < a for a, b in zip([float("inf")] + rm, rm))):
+        raise AssertionError(f"RMSE trace {rm} not strictly descending")
+
+    # one more epoch as solve runs it, each sub-epoch between CUDA events
+    Ws, Hs = factors_from_reference(res.W, res.H, br, device=dev)
+    del res
+    cells = wave_csr(br, sequential=True).to(dev)
+    steps = [cells.cells(s * p, (s + 1) * p) for s in range(p)]
+    lr = float(np.float32(config.make_stepsize()(NETFLIX_EPOCHS)))
+    lam = config.lam
+    W1 = Ws[q_hot:q_hot + 1].clone()
+    H1 = Hs[br.block_at(q_hot, s_hot)].clone()[None]
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in steps]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for (a, b), c in zip(events, steps):
+        a.record()
+        ks.nomad_sgd_waves_csr(Ws, Hs, c, lr, lam)
+        b.record()
+        Hs = torch.roll(Hs, 1, 0)
+    torch.cuda.synchronize()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    for s, c in enumerate(steps):
+        sb_ms, sb_by = bound(Ws, Hs, c)
+        phase("10.step", step=s, kernel_ms=f"{step_ms[s]:.3f}",
+              bound_ms=f"{sb_ms:.4f}", bound_by=sb_by, chain=chain(c),
+              chain_bound_ms=f"{chain(c) * floor_ns * 1e-6:.3f}",
+              h_global_chain_bound_ms=(
+                  f"{chain(c) * global_floor_ns * 1e-6:.3f}"),
+              ratings=cell_ratings(c)[1].numel(),
+              variant=ks.launch_plan(Ws, Hs).describe())
+    epoch_chain = sum(chain(c) for c in steps)
+    phase("10.split", epoch_ms=f"{epoch_ms:.1f}",
+          epoch_kernel_ms=f"{sum(step_ms):.2f}", epoch_chain=epoch_chain,
+          epoch_chain_bound_ms=f"{epoch_chain * floor_ns * 1e-6:.2f}",
+          h_global_epoch_chain_bound_ms=(
+              f"{epoch_chain * global_floor_ns * 1e-6:.2f}"),
+          updates_per_s=f"{problem.nnz / epoch_ms * 1e3:.4g}",
+          ns_per_update=f"{sum(step_ms) * 1e6 / epoch_chain:.1f}")
+    del Ws, Hs
+
+    # the kernel against its plain version: the first ratings of the
+    # hottest sub-epoch's largest cell, each its own wave
+    hot = steps[s_hot].cells(q_hot, q_hot + 1)
+    lo = int(hot.woff[hot.cell_woff[0]])
+    n_cut = min(DSGD_CHECK_RATINGS, int(br.nnz_cell[q_hot, s_hot]))
+    csr = ks.WaveCSR(
+        rows=hot.rows[lo:lo + n_cut].contiguous(),
+        cols=hot.cols[lo:lo + n_cut].contiguous(),
+        vals=hot.vals[lo:lo + n_cut].contiguous(),
+        woff=torch.arange(n_cut + 1, dtype=torch.int32, device=dev),
+        cell_woff=torch.tensor([0, n_cut], dtype=torch.int32, device=dev))
+    Wk, Hk = ks.nomad_sgd_waves_csr(W1.clone(), H1.clone(), csr, lr, lam)
+    Wt, Ht = W1.clone(), H1.clone()
+    k_ms = cuda_ms(lambda: ks.nomad_sgd_waves_csr(Wt, Ht, csr, lr, lam), 3)
+    (Wp, Hp), p_ms = timed(lambda: ks.block_sgd_waves_csr(
+        W1.clone(), H1.clone(), csr, lr, lam))
+    upd = max_row_updates(csr, br.m_local, br.n_local)
+    what = (f"DSGD full Netflix sub-epoch {s_hot} cell {q_hot} first "
+            f"{n_cut} ratings (sequential)")
+    err = max(check_close(f"W kernel vs plain, {what}", Wk, Wp, upd),
+              check_close(f"H kernel vs plain, {what}", Hk, Hp, upd))
+    bound_ = 16 * EPS_FP32 * max(float(upd), 1.0) ** 0.5
+    ctrl = rel_err(W1, Wp)
+    phase("control", what=f"{what} no update", max_rel_err=f"{ctrl:.3e}",
+          bound=f"{bound_:.3e}", rejected=ctrl > bound_)
+    if not ctrl > bound_:
+        raise AssertionError("the check cannot tell a launch that did "
+                             "nothing from the plain version")
+    b_ms, b_by = bound(W1, H1, csr)
+    peak.close()
+    problem._pack_cache.clear()
+    return dict(
+        name="nomad_sgd_waves_csr[sequential,dsgd,full_netflix]",
+        route="cuda", source=KERNEL_SRC, replaces=REPLACES["sequential"],
+        launches=launched, launches_on="[10.dsgd]", max_abs_err=err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, variant=ks.launch_plan(W1, H1).describe(),
+        work=f"sub-epoch {s_hot} cell {q_hot}, first {n_cut} ratings",
+        step_ms_max=max(step_ms),
+        step_chain_bound_ms=max(chain(c) for c in steps) * floor_ns * 1e-6)
+
+
+def baselines_phase(api, dev, problem, small):
+    """[10.ccdpp], [10.als], [10.hogwild] at the paper's full Netflix on
+    phase 9's problem (cold starts from seed 0, one solve per epoch, each
+    warm from the last, so eq. (1) is read after each), and
+    [10.als.resume] on phase 2's problem: seconds per epoch, card and
+    host peaks, the RMSE trace against the initial factors', all-finite
+    factors.  Fails unless every epoch's RMSE is below the initial one,
+    CCD++ and ALS (exact coordinate minimizers of eq. (1)) lower it every
+    epoch (1.001 slack, as the JAX package's test), and 1 + 1 ALS epochs
+    through ``warm_start`` equal 2 bitwise."""
+    from repro_torch.configs.nomad_mf import NETFLIX
+    from repro_torch.core.nomad import _sharded_rmse_body
+    from repro_torch.core.objective import init_factors
+    from repro_torch.core.stepsize import PowerSchedule
+
+    k, lam = NETFLIX.k, NETFLIX.lam
+    W0, H0 = (x.to(dev) for x in init_factors(
+        torch.Generator().manual_seed(0), problem.m, problem.n, k))
+    tr, tc = (torch.tensor(a, device=dev) for a in problem.test[:2])
+    tv = torch.tensor(problem.test[2], dtype=torch.float32, device=dev)
+    rmse0 = float(_sharded_rmse_body(W0, H0, tr, tc, tv))
+    rows, cols = (torch.tensor(a, device=dev)
+                  for a in (problem.rows, problem.cols))
+    vals = torch.tensor(problem.vals, dtype=torch.float32, device=dev)
+    obj = [objective_chunked(W0, H0, rows, cols, vals, lam)]
+    del W0, H0
+
+    def run(tag, cfg, epochs):
+        """``epochs`` solves of one epoch each, warm from the last, with
+        their seconds, peaks, RMSE and objective."""
+        peak = HostPeak()
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, rm, objs = None, [], [], []
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            res = api.solve(problem, cfg, warm_start=res, device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rm.append(float(res.rmse[-1]))
+            if tag in ("ccdpp", "als"):
+                objs.append(objective_chunked(
+                    torch.from_numpy(res.W).to(dev),
+                    torch.from_numpy(res.H).to(dev), rows, cols, vals, lam))
+        finite = bool(np.isfinite(res.W).all() and np.isfinite(res.H).all())
+        peak.close()
+        phase(f"10.{tag}", epochs=epochs,
+              s_per_epoch=json.dumps([round(x, 3) for x in secs]),
+              rmse_initial=rmse0, rmse=json.dumps(rm),
+              **({"objective_initial": f"{obj[0]:.6e}",
+                  "objective": json.dumps([f"{o:.6e}" for o in objs])}
+                 if objs else {}),
+              finite=finite, card_peak_bytes=torch.cuda.max_memory_allocated(),
+              host_peak_rss_gb=peak.gb(), config=repr(cfg))
+        if not (finite and res.W.shape == (problem.m, k)
+                and res.H.shape == (problem.n, k)):
+            raise AssertionError(f"{tag}: non-finite or misshapen factors")
+        if not all(r < rmse0 for r in rm):
+            raise AssertionError(f"{tag}: RMSE {rm} not below the "
+                                 f"initial {rmse0}")
+        if objs and not all(b <= a * 1.001
+                            for a, b in zip(obj + objs, objs)):
+            raise AssertionError(f"{tag}: objective {objs} rose from "
+                                 f"{obj[0]}")
+        return res
+
+    run("ccdpp", api.CcdConfig(k=k, lam=lam, epochs=1, inner=CCD_INNER),
+        CCD_EPOCHS)
+    run("als", api.AlsConfig(k=k, lam=lam, epochs=1), ALS_EPOCHS)
+    run("hogwild", api.HogwildConfig(
+        k=k, lam=lam, epochs=1, batch=HOG_BATCH,
+        stepsize=PowerSchedule(NETFLIX.alpha, NETFLIX.beta)), HOG_EPOCHS)
+    del rows, cols, vals, tr, tc, tv
+    torch.cuda.empty_cache()
+
+    # Hogwild's CUDA graphs against its eager loop, one epoch of phase 2's
+    # problem from the same factors: the racing sums (float atomics) may
+    # differ in the last bits, so within the tolerance tier, and a
+    # no-update control
+    from repro_torch.core import baselines
+    t0 = time.perf_counter()
+    args = (small.rows, small.cols, small.vals, small.m, small.n, k)
+    W0, H0 = (x.numpy() for x in init_factors(
+        torch.Generator().manual_seed(0), small.m, small.n, k))
+    kw = dict(lam=0.01, epochs=1, batch=HOG_BATCH, W0=W0, H0=H0,
+              schedule=PowerSchedule(0.096, 0.05), device=dev)
+    Wg, Hg, _ = baselines.hogwild(*args, **kw)
+    graph_s = time.perf_counter() - t0
+    per_graph, baselines.HOG_GRAPH = baselines.HOG_GRAPH, 1 << 62
+    try:
+        t0 = time.perf_counter()
+        We, He, _ = baselines.hogwild(*args, **kw)
+        eager_s = time.perf_counter() - t0
+    finally:
+        baselines.HOG_GRAPH = per_graph
+    upd = max(np.bincount(small.rows).max(), np.bincount(small.cols).max())
+    what = "Hogwild CUDA graphs vs eager, phase 2's problem, 1 epoch"
+    for x, got, want in (("W", Wg, We), ("H", Hg, He)):
+        check_close(f"{x} {what}", torch.from_numpy(got),
+                    torch.from_numpy(want), upd)
+    bound_ = 16 * EPS_FP32 * float(upd) ** 0.5
+    ctrl = rel_err(torch.from_numpy(W0), torch.from_numpy(We))
+    phase("control", what=f"{what}: no update", max_rel_err=f"{ctrl:.3e}",
+          bound=f"{bound_:.3e}", rejected=ctrl > bound_)
+    if not ctrl > bound_:
+        raise AssertionError("the check cannot tell no update from eager")
+    phase("10.hogwild.graph", graph_s=f"{graph_s:.2f}",
+          eager_s=f"{eager_s:.2f}", minibatches=small.nnz // HOG_BATCH,
+          per_graph=per_graph)
+
+    # ALS resumes bitwise on the card: 1 + 1 epochs == 2
+    cfg = api.AlsConfig(k=k, lam=0.01, epochs=1)
+    t0 = time.perf_counter()
+    whole = api.solve(small, dataclasses.replace(cfg, epochs=2), device=dev)
+    half = api.solve(small, cfg, device=dev)
+    rest = api.solve(small, cfg, warm_start=half, device=dev)
+    equal = (np.array_equal(whole.W, rest.W)
+             and np.array_equal(whole.H, rest.H))
+    phase("10.als.resume", m=small.m, n=small.n, nnz=small.nnz, k=k,
+          digest_2=factor_digest(whole.W, whole.H),
+          digest_1_1=factor_digest(rest.W, rest.H), equal=equal,
+          rmse=json.dumps([float(x) for x in whole.rmse]),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    if not equal:
+        raise AssertionError("ALS 1 + 1 epochs != 2 epochs on the card")
 
 
 def log_order(update_log, stepsize):
@@ -1901,7 +2214,8 @@ def sim_phase(api, ks, dev) -> int:
 
 def main_path(args, api, ks, ref, dev):
     """Phases 2-8 at Netflix x ``args.scale``.  Returns the kernel
-    records, phase 2's errors and ``[4.floor]``'s ns per wave."""
+    records, phase 2's errors, ``[4.floor]``'s ns per wave and phase 2's
+    problem (its packs released)."""
     from repro_torch.core.nomad import wave_csr
     from repro_torch.core.partition import padded_waves
     from repro_torch.core.stepsize import PowerSchedule
@@ -2246,7 +2560,8 @@ def main_path(args, api, ks, ref, dev):
         elif rec["name"].startswith("topk_scores_cuda"):
             rec["launches"] += stream["topk"]
             rec["launches_on"] = "[5.serve] and [8.swap]"
-    return kernels, errs, floor_ns
+    problem._pack_cache.clear()
+    return kernels, errs, floor_ns, problem
 
 
 def main() -> int:
@@ -2296,11 +2611,22 @@ def main() -> int:
     phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
           full_netflix=ks.plan(2222, 100, 4).describe())
 
-    kernels, errs, floor_ns = main_path(args, api, ks, ref, dev)
+    kernels, errs, floor_ns, small = main_path(args, api, ks, ref, dev)
     # -- 9. full Netflix on the main path; the simulator's schedule ------
     torch.cuda.empty_cache()
-    kernels.append(netflix_phase(api, ks, ref, dev, floor_ns))
+    record, netflix, digest, global_floor_ns = netflix_phase(
+        api, ks, ref, dev, floor_ns)
+    kernels.append(record)
     sim_launches = sim_phase(api, ks, dev)
+    # -- 10. the paper's baselines at full Netflix ----------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kernels.append(dsgd_phase(api, ks, dev, netflix, digest, floor_ns,
+                              global_floor_ns))
+    torch.cuda.empty_cache()
+    baselines_phase(api, dev, netflix, small)
+    del netflix, small
+    phase("10.done", seconds=f"{time.perf_counter() - t0:.1f}")
     for rec in kernels:
         if rec["name"] == "nomad_sgd_waves_csr[grid]":
             rec["launches"] += sim_launches

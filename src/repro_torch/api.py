@@ -6,9 +6,11 @@ The port's subset of the JAX package's API, same names and fields:
                           test/val, sizes, dtype) that owns *packing*:
                           ``problem.packed(p, waves=..., sub_blocks=...)``
                           memoizes the ``BlockedRatings``.
-* :class:`SolverConfig` / :class:`NomadConfig` — frozen hyperparameter
-                          records; invalid combinations fail at
-                          construction.
+* :class:`SolverConfig` — frozen per-solver hyperparameter records
+                          (:class:`NomadConfig`, :class:`DsgdConfig`,
+                          :class:`CcdConfig`, :class:`AlsConfig`,
+                          :class:`HogwildConfig`); invalid combinations
+                          fail at construction.
 * :class:`AsyncSimConfig` — the discrete-event simulator of Algorithm 1
                           (host, float64); ``emit_schedule`` compiles
                           its run into an ``OwnershipSchedule`` the
@@ -34,10 +36,12 @@ and :class:`StreamingSession` take ``device=`` the same way.
     ...                                          kernel="wave_pallas"))
     >>> res.rmse[-1], res.wall_time
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(SPMD, ROADMAP.md Queue 1 item 9) and streaming with a solver other than
-NOMAD; the baselines (DSGD, CCD++, ALS, Hogwild) have no config here yet
-(Queue 1 item 8).
+NOMAD, every baseline of the paper (DSGD, CCD++, ALS, Hogwild,
+:mod:`repro_torch.core.baselines`) and the simulator run through this one
+call.  NOMAD, DSGD and Hogwild stream; CCD++, ALS and the simulator
+refuse ``partial_fit`` with ``NotImplementedError``, as in the JAX
+package.  Not ported yet, and refused with ``NotImplementedError``:
+``mesh=`` (SPMD, ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -62,18 +66,13 @@ from .runtime.transport import TransportConfig
 
 __all__ = [
     "MCProblem", "ProblemDelta", "SolverConfig", "NomadConfig",
+    "DsgdConfig", "CcdConfig", "AlsConfig", "HogwildConfig",
     "AsyncSimConfig", "FitResult", "KernelPolicy", "OwnershipSchedule", "TransitionSchedule",
     "FaultPolicy", "DivergencePolicy", "DivergenceError", "solve",
     "register_solver", "solver_names", "config_for", "partial_fit",
     "register_partial_fit", "supports_partial_fit",
     "streaming_solver_names", "StreamingSession",
 ]
-
-#: what a streaming call with a solver other than NOMAD raises
-_BASELINES_ITEM = ("the baselines' streaming continuations (DSGD, "
-                   "Hogwild) are not ported yet: ROADMAP.md Queue 1 item "
-                   "8 [baselines]")
-
 
 # ---------------------------------------------------------------------- #
 # Problem container                                                       #
@@ -487,6 +486,45 @@ class NomadConfig(SolverConfig):
                                dtype_policy=self.dtype_policy))
         object.__setattr__(self, "sub_blocks", self.kernel.sub_blocks)
         object.__setattr__(self, "dtype_policy", self.kernel.dtype_policy)
+
+
+@dataclasses.dataclass(frozen=True)
+class DsgdConfig(SolverConfig):
+    """Bulk-synchronous DSGD [Gemulla et al., 2011]."""
+    p: int = 4
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.p < 1:
+            raise ValueError(f"p must be >= 1, got {self.p}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CcdConfig(SolverConfig):
+    """CCD++ [Yu et al., 2012] feature-wise coordinate descent."""
+    inner: int = 3
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.inner < 1:
+            raise ValueError(f"inner must be >= 1, got {self.inner}")
+
+
+@dataclasses.dataclass(frozen=True)
+class AlsConfig(SolverConfig):
+    """Exact alternating least squares [Zhou et al., 2008]."""
+
+
+@dataclasses.dataclass(frozen=True)
+class HogwildConfig(SolverConfig):
+    """Lock-free racing minibatch SGD [Recht et al., 2011] — the
+    non-serializable contrast class."""
+    batch: int = 256
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1018,9 +1056,8 @@ def streaming_solver_names() -> List[str]:
 def _refuse_non_streaming(config) -> None:
     if not supports_partial_fit(config):
         raise NotImplementedError(
-            f"{type(config).__name__} has no partial_fit in the port "
-            f"(streaming solvers: {streaming_solver_names()}); "
-            + _BASELINES_ITEM)
+            f"{type(config).__name__} has no partial_fit; streaming "
+            f"solvers: {streaming_solver_names()}")
 
 
 def partial_fit(result: FitResult, delta: ProblemDelta,
@@ -1038,8 +1075,9 @@ def partial_fit(result: FitResult, delta: ProblemDelta,
     incremental path — ``partition.repack_delta`` re-colors only the
     cells the delta touches — and is bitwise-identical to a warm-started
     ``solve`` on the concatenated data under the same (sticky)
-    partition.  Other solvers raise ``NotImplementedError`` (the
-    baselines are ROADMAP.md Queue 1 item 8).
+    partition.  DSGD and Hogwild grow the factors and re-solve warm on
+    the concatenated data; solvers without a streaming continuation
+    (CCD++, ALS, the simulator) raise ``NotImplementedError``.
 
     The returned result's ``extras["problem"]`` is the materialized
     extended :class:`MCProblem` (pinned to the sticky partition) — build
@@ -1198,6 +1236,100 @@ def _partial_fit_nomad(result: FitResult, delta: ProblemDelta,
     return res
 
 
+@register_partial_fit(DsgdConfig)
+def _partial_fit_dsgd(result, delta, config, *, verbose=False, device=None):
+    return _partial_refit(result, delta, config, verbose=verbose,
+                          device=device)
+
+
+@register_partial_fit(HogwildConfig)
+def _partial_fit_hogwild(result, delta, config, *, verbose=False,
+                         device=None):
+    return _partial_refit(result, delta, config, verbose=verbose,
+                          device=device)
+
+
+def _partial_refit(result: FitResult, delta: ProblemDelta,
+                   config: SolverConfig, *, verbose=False,
+                   device=None) -> FitResult:
+    """Generic streaming continuation for solvers without an incremental
+    pack: deterministic factor growth + warm-started batch solve on the
+    concatenated data."""
+    from .core.objective import grow_factors
+    W2, H2 = grow_factors(np.asarray(result.W), np.asarray(result.H),
+                          delta.m_new, delta.n_new, seed=config.seed)
+    warm = dataclasses.replace(result, W=W2, H=H2)
+    ext = delta.extended()
+    res = solve(ext, config, warm_start=warm, verbose=verbose,
+                device=device)
+    res.extras["problem"] = ext
+    return res
+
+
+def _baseline_result(W, H, trace, start, config) -> FitResult:
+    epochs, rmses = _as_trace_arrays(trace)
+    return FitResult(W=W, H=H, trace_epochs=epochs, trace_rmse=rmses,
+                     epochs_done=int(start) + int(config.epochs))
+
+
+@register_solver("dsgd", DsgdConfig)
+def _solve_dsgd(problem: MCProblem, config: DsgdConfig, *,
+                warm_start=None, verbose=False, device=None) -> FitResult:
+    """DSGD on the problem's memoized ring packing (``waves=False``), each
+    sub-epoch one launch of the CUDA kernel's sequential route."""
+    from .core import baselines
+    W0, H0, start = _warm_factors(warm_start)
+    W, H, trace = baselines.dsgd(
+        problem.rows, problem.cols, problem.vals, problem.m, problem.n,
+        config.k, config.p, lam=config.lam, epochs=int(config.epochs),
+        schedule=config.make_stepsize(), seed=config.seed,
+        test=problem.test, W0=W0, H0=H0, start_epoch=int(start),
+        br=problem.packed(config.p, balanced=True, waves=False),
+        device=device)
+    return _baseline_result(W, H, trace, start, config)
+
+
+@register_solver("ccdpp", CcdConfig)
+def _solve_ccdpp(problem: MCProblem, config: CcdConfig, *,
+                 warm_start=None, verbose=False, device=None) -> FitResult:
+    from .core import baselines
+    W0, H0, start = _warm_factors(warm_start)
+    W, H, trace = baselines.ccdpp(
+        problem.rows, problem.cols, problem.vals, problem.m, problem.n,
+        config.k, lam=config.lam, epochs=int(config.epochs),
+        inner=config.inner, seed=config.seed, test=problem.test,
+        W0=W0, H0=H0, start_epoch=int(start), device=device)
+    return _baseline_result(W, H, trace, start, config)
+
+
+@register_solver("als", AlsConfig)
+def _solve_als(problem: MCProblem, config: AlsConfig, *,
+               warm_start=None, verbose=False, device=None) -> FitResult:
+    from .core import baselines
+    W0, H0, start = _warm_factors(warm_start)
+    W, H, trace = baselines.als(
+        problem.rows, problem.cols, problem.vals, problem.m, problem.n,
+        config.k, lam=config.lam, epochs=int(config.epochs),
+        seed=config.seed, test=problem.test, W0=W0, H0=H0,
+        start_epoch=int(start), device=device)
+    return _baseline_result(W, H, trace, start, config)
+
+
+@register_solver("hogwild", HogwildConfig)
+def _solve_hogwild(problem: MCProblem, config: HogwildConfig, *,
+                   warm_start=None, verbose=False,
+                   device=None) -> FitResult:
+    from .core import baselines
+    W0, H0, start = _warm_factors(warm_start)
+    W, H, trace = baselines.hogwild(
+        problem.rows, problem.cols, problem.vals, problem.m, problem.n,
+        config.k, lam=config.lam, epochs=int(config.epochs),
+        batch=config.batch, schedule=config.make_stepsize(),
+        seed=config.seed, test=problem.test, W0=W0, H0=H0,
+        start_epoch=int(start), device=device)
+    return _baseline_result(W, H, trace, start, config)
+
+
 @register_solver("async_sim", AsyncSimConfig)
 def _solve_async_sim(problem: MCProblem, config: AsyncSimConfig, *,
                      warm_start=None, verbose=False,
@@ -1272,7 +1404,9 @@ class StreamingSession:
     more epochs with the step-size schedule resumed, so the whole chain
     is bitwise-identical to ``partial_fit`` calls (and to warm-started
     batch refits) without rebuilding the engine or re-coloring untouched
-    cells.  NOMAD only; other solvers are ROADMAP.md Queue 1 item 8.
+    cells.  A DSGD or Hogwild session chains ``partial_fit`` calls (each
+    a warm re-solve on the concatenated data); the elastic calls below
+    need a :class:`NomadConfig`.
 
     The session is also the *elastic* front door: :meth:`resize` changes
     the worker set mid-run (workers leave or join; surviving shards
@@ -1327,7 +1461,8 @@ class StreamingSession:
         self._base_config = config
         self._replay_log: List[tuple] = []
         self._replaying = False
-        self._schedule_spec = config.schedule
+        self._schedule_spec = (config.schedule
+                               if isinstance(config, NomadConfig) else None)
         # log compaction: the replay log holds rounds
         # [_base_round, _base_round + len(_replay_log)); once every
         # retained committed checkpoint has advanced past a snapshotted
@@ -1337,7 +1472,8 @@ class StreamingSession:
         self._base_result: Optional[FitResult] = None
         self._snapshots: dict = {}
         self._monitor = None
-        if faults is not None and faults.monitor:
+        if faults is not None and faults.monitor \
+                and isinstance(config, NomadConfig):
             from .runtime.straggler import StragglerMonitor
             self._monitor = StragglerMonitor(config.p,
                                              threshold=faults.threshold)
@@ -1386,6 +1522,14 @@ class StreamingSession:
             self._eng, _ = _nomad_cold_start(self.problem, self.config,
                                              self.device, self.result)
         return self._eng
+
+    def _require_nomad(self, what: str) -> NomadConfig:
+        if not isinstance(self.config, NomadConfig):
+            raise NotImplementedError(
+                f"{what} requires a NomadConfig session (ownership "
+                "transfer is what makes the engine elastic); got "
+                f"{type(self.config).__name__}")
+        return self.config
 
     def _nomad_round(self, cfg: NomadConfig, test, start) -> FitResult:
         """One training round under the divergence quarantine
@@ -1446,9 +1590,13 @@ class StreamingSession:
         — the cold start, or further refinement between arrivals."""
         cfg = self._cfg(epochs)
         t0 = time.perf_counter()
-        self._ensure_engine()
-        start = 0 if self.result is None else self.result.epochs_done
-        res = self._nomad_round(cfg, self.problem.test, start)
+        if isinstance(cfg, NomadConfig):
+            self._ensure_engine()
+            start = 0 if self.result is None else self.result.epochs_done
+            res = self._nomad_round(cfg, self.problem.test, start)
+        else:
+            res = solve(self.problem, cfg, warm_start=self.result,
+                        verbose=self.verbose, device=self.device)
         res = self._finish(res, t0, cfg)
         self._after_round(("fit", epochs))
         return res
@@ -1473,9 +1621,14 @@ class StreamingSession:
         delta = self.problem.extend(rows, cols, vals, m_new=m_new,
                                     n_new=n_new, test=test)
         t0 = time.perf_counter()
-        self._absorb(delta, cfg)
-        res = self._nomad_round(cfg, delta.merged_test,
-                                self.result.epochs_done)
+        if isinstance(cfg, NomadConfig):
+            self._absorb(delta, cfg)
+            res = self._nomad_round(cfg, delta.merged_test,
+                                    self.result.epochs_done)
+        else:
+            res = partial_fit(self.result, delta, cfg, verbose=self.verbose,
+                              device=self.device)
+            self.problem = delta.extended()
         res = self._finish(res, t0, cfg)
         self._after_round(("arrive", rows, cols, vals, m_new, n_new,
                            test, epochs))
@@ -1501,7 +1654,7 @@ class StreamingSession:
         concentrates moved shards on single donors/targets instead of
         load-spreading them.  ``mesh`` other than ``"keep"``/``None``
         is not ported yet.  Returns the compiled transition."""
-        p = self.config.p
+        p = self._require_nomad("resize()").p
         leave = tuple(int(q) for q in np.atleast_1d(
             np.asarray(leave, dtype=np.int64)).tolist())
         join = int(join)
@@ -1540,6 +1693,7 @@ class StreamingSession:
         after it, and resizes the dead workers out — landing bitwise on
         the state a graceful ``resize(leave=workers)`` reaches, which is
         what makes the recovered history exactly serializable."""
+        self._require_nomad("kill()")
         if not workers:
             raise ValueError("kill() needs at least one worker id")
         restored, step = None, 0
@@ -1679,6 +1833,7 @@ class StreamingSession:
         ``faults.eject`` they are gracefully resized out, and with
         ``faults.adapt_schedule`` the ownership schedule re-routes by
         the live speed estimates."""
+        self._require_nomad("observe_step_times()")
         if self._monitor is None:
             raise RuntimeError(
                 "straggler monitoring is off; pass "
@@ -1698,7 +1853,7 @@ class StreamingSession:
         ``OwnershipSchedule.balanced`` on per-cell nnz scaled by each
         worker's inverse speed, applied through the identity transition
         (no shard moves — only the visit order changes)."""
-        cfg = self.config
+        cfg = self._require_nomad("_adapt_schedule()")
         eng = self._ensure_engine()
         br = eng.br
         speeds = np.maximum(np.asarray(speeds, dtype=np.float64), 1e-12)

@@ -30,9 +30,10 @@ carrier) are saved with the ``"bfloat16"`` sidecar, so the JAX package
 restores them as bf16; a bf16 checkpoint restores here as the fp32
 carrier, bit for bit.  Config fields of the runtime types
 (``TransportConfig``, ``LinkEvent``, ``DegradedLink``) encode and decode
-as the JAX package's do, and so do ``NomadConfig`` and
-``AsyncSimConfig``; a config of a solver the port lacks (such as
-``DsgdConfig``) raises "unknown config".
+as the JAX package's do, and so does every solver config
+(``NomadConfig``, ``DsgdConfig``, ``CcdConfig``, ``AlsConfig``,
+``HogwildConfig``, ``AsyncSimConfig``); a config name neither package
+defines raises "unknown config".
 """
 from __future__ import annotations
 
@@ -396,9 +397,8 @@ def _decode_config(d):
     if cls is None or not (isinstance(cls, type)
                            and issubclass(cls, api.SolverConfig)):
         raise ValueError(
-            f"checkpoint names unknown config {d['__config__']!r} (the "
-            "port has NomadConfig and AsyncSimConfig; ROADMAP.md Queue 1 "
-            "lists the solvers still to port)")
+            f"checkpoint names unknown config {d['__config__']!r}; the "
+            f"solver configs are {sorted(c.__name__ for c in api._SOLVERS)}")
     return cls(**{k: _decode_value(v) for k, v in d["fields"].items()})
 
 

@@ -176,13 +176,14 @@ def test_refuses_what_is_not_ported(tiny_mc_problem):
         tapi.solve(tp, cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tapi.StreamingSession(tp, cfg, mesh=object(), device="cpu")
-    # streaming runs NOMAD only; the baselines' continuations are item 8
+    # CCD++ and ALS have no streaming continuation, as in the reference
     res = tapi.solve(tp, cfg, device="cpu")
-    other = tapi.SolverConfig(k=8, epochs=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.partial_fit(res, tp.extend(m_new=1), other, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.StreamingSession(tp, other, device="cpu")
+    for other in (tapi.CcdConfig(k=8, epochs=1),
+                  tapi.AlsConfig(k=8, epochs=1)):
+        with pytest.raises(NotImplementedError, match="partial_fit"):
+            tapi.partial_fit(res, tp.extend(m_new=1), other, device="cpu")
+        with pytest.raises(NotImplementedError, match="streaming"):
+            tapi.StreamingSession(tp, other, device="cpu")
 
 
 def test_solve_defaults_to_cuda(tiny_mc_problem):
@@ -202,7 +203,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.serve, repro_torch.models.transformer, "
             "repro_torch.configs, repro_torch.kernels.flash_attn, "
             "repro_torch.runtime, repro_torch.data, "
-            "repro_torch.core.serial, repro_torch.core.async_sim\n"
+            "repro_torch.core.serial, repro_torch.core.async_sim, "
+            "repro_torch.core.baselines\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

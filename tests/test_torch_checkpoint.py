@@ -265,7 +265,7 @@ def test_config_codecs_refuse_what_is_not_ported(tmp_path):
     back = tck.checkpoint._decode_value(enc)
     assert back.rates == link.rates and back.events == link.events
     with pytest.raises(ValueError, match="unknown config"):
-        tck.checkpoint._decode_config({"__config__": "DsgdConfig",
+        tck.checkpoint._decode_config({"__config__": "SgdNoSuchConfig",
                                        "fields": {}})
     with pytest.raises(ValueError, match="unknown checkpoint value tag"):
         tck.checkpoint._decode_value({"__type__": "Nope"})

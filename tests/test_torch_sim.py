@@ -329,4 +329,4 @@ def test_async_sim_config_type_checks_and_fractional_faults(tmp_path):
                    faults=tapi.FaultPolicy(checkpoint_dir=str(tmp_path)))
     assert "async_sim" in tapi.solver_names()
     assert tapi.config_for("async_sim") is tapi.AsyncSimConfig
-    assert tapi.streaming_solver_names() == ["nomad"]
+    assert tapi.streaming_solver_names() == rapi.streaming_solver_names()

@@ -226,16 +226,19 @@ def test_partial_fit_refusals():
     res = tapi.solve(tp, tcfg, warm_start=_warm(tapi, tp.m, tp.n),
                      device=CPU)
     delta = tp.extend(m_new=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.partial_fit(res, delta, tapi.SolverConfig(k=K), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tapi.StreamingSession(tp, tapi.SolverConfig(k=K), device=CPU)
+    for other in (tapi.CcdConfig(k=K), tapi.AlsConfig(k=K)):
+        with pytest.raises(NotImplementedError, match="partial_fit"):
+            tapi.partial_fit(res, delta, other, device=CPU)
+        with pytest.raises(NotImplementedError, match="streaming"):
+            tapi.StreamingSession(tp, other, device=CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         tapi.partial_fit(res, delta, tcfg, mesh=object(), device=CPU)
     with pytest.raises(TypeError):
         tapi.partial_fit(res, tp, tcfg, device=CPU)
-    assert tapi.streaming_solver_names() == ["nomad"]
+    assert tapi.streaming_solver_names() == ["dsgd", "hogwild", "nomad"]
     assert tapi.supports_partial_fit("nomad")
+    assert tapi.supports_partial_fit(tapi.DsgdConfig(k=K))
+    assert not tapi.supports_partial_fit("als")
     assert not tapi.supports_partial_fit(tapi.SolverConfig)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
