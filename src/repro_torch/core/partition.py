@@ -35,6 +35,8 @@ the SPMD engine's pipelined permutes touch each rating exactly once.
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing as mp
+import os
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -386,6 +388,18 @@ def padded_waves(br: BlockedRatings, steps: Union[int, slice] = slice(None),
     return tuple(out)
 
 
+def _cell_order(rows: np.ndarray, cols: np.ndarray, cell: np.ndarray,
+                m: int, n: int, cells: int) -> np.ndarray:
+    """The permutation ``np.lexsort((rows, cols, cell))``: ratings by
+    cell, then column, then row, ties in input order.  One stable sort of
+    a combined int64 key when ``cells * n * m`` fits (the lexsort's three
+    passes are most of a pack without waves), the lexsort otherwise."""
+    if int(cells) * int(n) * int(m) >= 2 ** 63:
+        return np.lexsort((rows, cols, cell))
+    key = (cell.astype(np.int64) * n + cols) * m + rows
+    return np.argsort(key, kind="stable")
+
+
 def _localize(row_owner: np.ndarray, col_block: np.ndarray, m: int, n: int,
               p: int):
     """Local indices + inverse maps for a given assignment.  Within a bin,
@@ -409,35 +423,88 @@ def _localize(row_owner: np.ndarray, col_block: np.ndarray, m: int, n: int,
     return m_local, n_local, row_local, col_local, row_of, col_of
 
 
-def _order_cell(ids, rloc, cloc, *, waves: bool, sub_blocks: int, sb: int):
-    """Order one cell's ratings — already (col, row, gid)-sorted — into
-    the final serial sequence: sub-block-major, wave-major within a
-    sub-block.  Returns ``(ids, rloc, cloc, wave, sid)``; ``wave`` is
-    ``None`` when waves are off.  Shared by :func:`pack` and
-    :func:`repack_delta` so both emit identical cell sequences by
-    construction."""
-    sid = np.minimum(cloc // sb, sub_blocks - 1)
-    # sub-block-major, preserving (col, row) order within
-    sub_sort = np.argsort(sid, kind="stable")
-    ids, rloc, cloc, sid = (a[sub_sort] for a in (ids, rloc, cloc, sid))
+#: ratings from which :func:`_order_cells` colors the cells in forked
+#: processes, one per CPU (the coloring is a Python loop, ~1 us a rating,
+#: and one cell's does not depend on another's)
+COLOR_PROCESSES_FROM = 1 << 22
+
+#: a coloring worker's segments, inherited from its parent at the fork
+_SEGMENTS: list = []
+
+
+def _color_init(segs) -> None:
+    global _SEGMENTS
+    _SEGMENTS = segs
+
+
+def _color_one(i: int) -> np.ndarray:
+    return greedy_wave_color(*_SEGMENTS[i])
+
+
+def _color_segments(segs) -> list:
+    """:func:`greedy_wave_color` of each ``(rloc, cloc)`` of ``segs``: in
+    worker processes, one per CPU, from :data:`COLOR_PROCESSES_FROM`
+    ratings in all, else here.  The same colors either way.
+
+    The workers are forked although the caller may run threads (torch's,
+    a sampler's): they run only this loop and numpy's list conversions,
+    take no lock another thread could hold, and return by pipe.  Forked,
+    they read the segments in place (at full Netflix 1.4 GB that a spawned
+    worker would unpickle, after importing the caller's ``__main__``)."""
+    procs = min(len(os.sched_getaffinity(0)), len(segs))
+    if procs < 2 or sum(len(r) for r, _ in segs) < COLOR_PROCESSES_FROM:
+        return [greedy_wave_color(r, c) for r, c in segs]
+    # longest first, so that the last to finish starts early
+    order = sorted(range(len(segs)), key=lambda i: -len(segs[i][0]))
+    with mp.get_context("fork").Pool(procs, _color_init, (segs,)) as pool:
+        done = pool.map(_color_one, order, chunksize=1)
+    out = [None] * len(segs)
+    for i, w in zip(order, done):
+        out[i] = w
+    return out
+
+
+def _order_cells(jobs, *, waves: bool, sub_blocks: int, sb: int) -> list:
+    """Order cells' ratings — each job's ``(ids, rloc, cloc)`` already
+    (col, row, gid)-sorted — into their final serial sequences:
+    sub-block-major, wave-major within a sub-block.  Returns one ``(ids,
+    rloc, cloc, wave, sid)`` per job; ``wave`` is ``None`` when waves are
+    off.  Shared by :func:`pack`, :func:`repack_delta` and
+    :func:`repack_transition` so all emit identical cell sequences by
+    construction; the cells' colorings run together
+    (:func:`_color_segments`)."""
+    cells, segs = [], []
+    for ids, rloc, cloc in jobs:
+        sid = np.minimum(cloc // sb, sub_blocks - 1)
+        if sub_blocks > 1:
+            # sub-block-major, preserving (col, row) order within
+            sub_sort = np.argsort(sid, kind="stable")
+            ids, rloc, cloc, sid = (a[sub_sort]
+                                    for a in (ids, rloc, cloc, sid))
+        # each sub-block's ratings are now one run of the arrays
+        ends = np.searchsorted(sid, np.arange(sub_blocks + 1)).tolist()
+        parts = [slice(a, b) for a, b in zip(ends, ends[1:]) if b > a]
+        cells.append((ids, rloc, cloc, sid, parts))
+        if waves:
+            segs.extend((rloc[seg], cloc[seg]) for seg in parts)
     if not waves:
-        return ids, rloc, cloc, None, sid
-    # wave-color each sub-block independently; offset so wave indices
-    # are globally ordered sub-block-major
-    wave = np.zeros(len(ids), dtype=np.int64)
-    off = 0
-    for sbi in range(sub_blocks):
-        seg = np.flatnonzero(sid == sbi)
-        if len(seg) == 0:
-            continue
-        wseg = greedy_wave_color(rloc[seg], cloc[seg])
-        wave[seg] = wseg + off
-        off += int(wseg.max()) + 1
-    # serial order inside the cell = wave-major (stable)
-    worder = np.argsort(wave, kind="stable")
-    ids, rloc, cloc, sid, wave = (a[worder] for a in
-                                  (ids, rloc, cloc, sid, wave))
-    return ids, rloc, cloc, wave, sid
+        return [(ids, rloc, cloc, None, sid)
+                for ids, rloc, cloc, sid, _ in cells]
+    colors = iter(_color_segments(segs))
+    out = []
+    for ids, rloc, cloc, sid, parts in cells:
+        # wave-color each sub-block independently; offset so wave indices
+        # are globally ordered sub-block-major
+        wave = np.zeros(len(ids), dtype=np.int64)
+        off = 0
+        for seg in parts:
+            wseg = next(colors)
+            wave[seg] = wseg + off
+            off += int(wseg.max()) + 1
+        # serial order inside the cell = wave-major (stable)
+        worder = np.argsort(wave, kind="stable")
+        out.append(tuple(a[worder] for a in (ids, rloc, cloc, wave, sid)))
+    return out
 
 
 def _empty_cell(waves: bool):
@@ -453,7 +520,7 @@ def _fill_layouts(cell_info, vals_f, *, p, m, n, m_local, n_local,
                   sub_starts, schedule) -> BlockedRatings:
     """Compute padded dims from ordered cell sequences and fill every
     layout.  ``cell_info[q][s] = (ids, rloc, cloc, wave, sid)`` in final
-    serial order (from :func:`_order_cell` or copied verbatim from an old
+    serial order (from :func:`_order_cells` or copied verbatim from an old
     packing by :func:`repack_delta`), with ``s`` ranging over
     ``schedule.n_steps`` execution steps (idle slots hold empty
     entries)."""
@@ -618,7 +685,7 @@ def pack(
     cell_q = row_owner[rows]
     cell_b = col_block[cols]
     cell_id = cell_q.astype(np.int64) * p + cell_b
-    order = np.lexsort((rows, cols, cell_id))
+    order = _cell_order(rows, cols, cell_id, m, n, p * p)
     counts = np.bincount(cell_id[order], minlength=p * p).reshape(p, p)
 
     # resolve the schedule spec now that per-cell loads are known (the
@@ -630,14 +697,17 @@ def pack(
     # cell_info[q][s] = (ids, rloc, cloc, wave, sid) in final serial order
     starts = np.concatenate([[0], np.cumsum(counts.reshape(-1))])
     cell_info = [[_empty_cell(waves)] * sched.n_steps for _ in range(p)]
+    slots, jobs = [], []
     for q in range(p):
         for b in range(p):
             lo, hi = starts[q * p + b], starts[q * p + b + 1]
             ids = order[lo:hi]
-            s = int(sched.step_of[q, b])  # step at which q executes b
-            cell_info[q][s] = _order_cell(
-                ids, row_local[rows[ids]], col_local[cols[ids]],
-                waves=waves, sub_blocks=sub_blocks, sb=sb)
+            # the step at which q executes b
+            slots.append((q, int(sched.step_of[q, b])))
+            jobs.append((ids, row_local[rows[ids]], col_local[cols[ids]]))
+    for (q, s), info in zip(slots, _order_cells(
+            jobs, waves=waves, sub_blocks=sub_blocks, sb=sb)):
+        cell_info[q][s] = info
 
     # ---- pass 2: compute padded dims and fill the layouts --------------
     return _fill_layouts(
@@ -679,7 +749,7 @@ def repack_delta(
     ``pack(ext_rows, ext_cols, ext_vals, m, n, p,
     row_owner=out.row_owner, col_block=out.col_block,
     schedule=br.schedule)``: both paths order affected cells with
-    :func:`_order_cell` on identical inputs, lay them out at the same
+    :func:`_order_cells` on identical inputs, lay them out at the same
     (sticky) schedule steps, and fill through :func:`_fill_layouts`.
     Property-tested in ``tests/test_streaming.py``.
     """
@@ -736,6 +806,7 @@ def repack_delta(
     # ownership-transfer order as the base (it only depends on p)
     sched = br.schedule or OwnershipSchedule.ring(p)
     cell_info = [[_empty_cell(waves)] * sched.n_steps for _ in range(p)]
+    slots, jobs = [], []
     for q in range(p):
         for b in range(p):
             s = int(sched.step_of[q, b])
@@ -753,15 +824,17 @@ def repack_delta(
                 cell_info[q][s] = (old_ids, rloc, cloc, wave, sid)
             else:
                 # affected cell: merge into (col, row, gid) order — the
-                # exact per-cell order pack()'s global lexsort yields —
+                # exact per-cell order pack()'s global sort yields —
                 # then re-color from scratch
                 ids = np.concatenate([old_ids, fresh])
                 perm = np.lexsort((ids, ext_rows[ids], ext_cols[ids]))
                 ids = ids[perm]
-                cell_info[q][s] = _order_cell(
-                    ids, row_local[ext_rows[ids]],
-                    col_local[ext_cols[ids]], waves=waves, sub_blocks=1,
-                    sb=sb)
+                slots.append((q, s))
+                jobs.append((ids, row_local[ext_rows[ids]],
+                             col_local[ext_cols[ids]]))
+    for (q, s), info in zip(slots, _order_cells(jobs, waves=waves,
+                                                sub_blocks=1, sb=sb)):
+        cell_info[q][s] = info
 
     return _fill_layouts(
         cell_info, vals_f, p=p, m=m, n=n, m_local=m_local,
@@ -803,7 +876,7 @@ def repack_transition(
     result is bitwise-identical to a from-scratch ``pack(rows, cols,
     vals, m, n, tr.p_new, row_owner=tr.row_owner,
     col_block=tr.col_block, schedule=<same resolved schedule>)`` — both
-    order affected cells with :func:`_order_cell` on identical inputs
+    order affected cells with :func:`_order_cells` on identical inputs
     and fill through :func:`_fill_layouts`.
     """
     if br.sub_blocks != 1:
@@ -865,9 +938,11 @@ def repack_transition(
     old_sched = br.schedule or OwnershipSchedule.ring(br.p)
 
     # group the moved ratings' cells for the re-sort path
-    affected_order = np.lexsort((rows, cols, cell_new))
+    affected_order = _cell_order(rows, cols, cell_new, m, n, p_new * p_new)
+    affected_cell = cell_new[affected_order]
 
     cell_info = [[_empty_cell(waves)] * sched.n_steps for _ in range(p_new)]
+    slots, jobs = [], []
     for q in range(p_new):
         for b in range(p_new):
             s = int(sched.step_of[q, b])
@@ -887,11 +962,14 @@ def repack_transition(
                                    np.zeros(cnt, dtype=np.int64))
             else:
                 sel = affected_order[np.searchsorted(
-                    cell_new[affected_order], q * p_new + b):]
+                    affected_cell, q * p_new + b):]
                 ids = sel[:int(counts[q, b])]
-                cell_info[q][s] = _order_cell(
-                    ids, row_local[rows[ids]], col_local[cols[ids]],
-                    waves=waves, sub_blocks=1, sb=sb)
+                slots.append((q, s))
+                jobs.append((ids, row_local[rows[ids]],
+                             col_local[cols[ids]]))
+    for (q, s), info in zip(slots, _order_cells(jobs, waves=waves,
+                                                sub_blocks=1, sb=sb)):
+        cell_info[q][s] = info
 
     return _fill_layouts(
         cell_info, vals_f, p=p_new, m=m, n=n, m_local=m_local,

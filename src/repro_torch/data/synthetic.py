@@ -9,6 +9,8 @@ the paper's weak-scaling experiment (Fig. 12).
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -27,6 +29,21 @@ def _powerlaw_degrees(rng, count, mean_deg, alpha=1.5, max_deg=None):
 #: computes, into two float64 ``(chunk, k)`` buffers it reuses (3.3 MB at
 #: k=100: small enough to stay in cache, no page faults per step)
 CHUNK = 1 << 12
+#: ratings below which the true ratings are computed on one thread
+THREADED_FROM = 1 << 20
+
+
+def _dots(W, H, rows, cols, out, chunk: int) -> None:
+    """``out[t] = <W[rows[t]], H[cols[t]]>``, ``chunk`` ratings a step."""
+    wbuf = np.empty((min(chunk, len(rows)), W.shape[1]))
+    hbuf = np.empty_like(wbuf)
+    for lo in range(0, len(rows), chunk):
+        hi = min(lo + chunk, len(rows))
+        w, h = wbuf[:hi - lo], hbuf[:hi - lo]
+        np.take(W, rows[lo:hi], axis=0, out=w)
+        np.take(H, cols[lo:hi], axis=0, out=h)
+        np.multiply(w, h, out=w)
+        np.sum(w, axis=-1, out=out[lo:hi])
 
 
 def synthetic_ratings(m: int, n: int, nnz: int, k: int = 16, *, seed: int = 0,
@@ -37,9 +54,11 @@ def synthetic_ratings(m: int, n: int, nnz: int, k: int = 16, *, seed: int = 0,
 
     The true ratings ``<w_i, h_j>`` are computed :data:`CHUNK` ratings at
     a time, so no ``(nnz, k)`` array lives whole (at the paper's full
-    Netflix size one would be 79 GB).  Each rating's dot is reduced on its
-    own, so the result is bitwise the one-piece computation's whatever
-    the chunk."""
+    Netflix size one would be 79 GB), on one thread per CPU in contiguous
+    spans from :data:`THREADED_FROM` ratings (numpy releases the GIL in
+    each step).  Each rating's dot is reduced on its own, so the result is
+    bitwise the one-piece computation's whatever the chunk or the thread;
+    the random draws stay on the one generator, in the same order."""
     rng = np.random.default_rng(seed)
     if powerlaw:
         user_deg = _powerlaw_degrees(rng, m, nnz / m, max_deg=n)
@@ -54,17 +73,18 @@ def synthetic_ratings(m: int, n: int, nnz: int, k: int = 16, *, seed: int = 0,
     # §5.5: factors ~ N(0, I_k); ratings get N(0, noise) noise
     W = rng.standard_normal((m, k)) / np.sqrt(k)
     H = rng.standard_normal((n, k)) / np.sqrt(k)
-    chunk = CHUNK
     vals = np.empty(len(rows), dtype=np.float64)
-    wbuf = np.empty((min(chunk, len(rows)), k))
-    hbuf = np.empty_like(wbuf)
-    for lo in range(0, len(rows), chunk):
-        hi = min(lo + chunk, len(rows))
-        w, h = wbuf[:hi - lo], hbuf[:hi - lo]
-        np.take(W, rows[lo:hi], axis=0, out=w)
-        np.take(H, cols[lo:hi], axis=0, out=h)
-        np.multiply(w, h, out=w)
-        np.sum(w, axis=-1, out=vals[lo:hi])
+    threads = min(len(os.sched_getaffinity(0)),
+                  max(1, len(rows) // THREADED_FROM))
+    if threads == 1:
+        _dots(W, H, rows, cols, vals, CHUNK)
+    else:
+        cut = [-(-len(rows) * i // threads // CHUNK) * CHUNK
+               for i in range(threads)] + [len(rows)]
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda i: _dots(
+                W, H, rows[cut[i]:cut[i + 1]], cols[cut[i]:cut[i + 1]],
+                vals[cut[i]:cut[i + 1]], CHUNK), range(threads)))
     vals += noise * rng.standard_normal(len(rows))
     return rows, cols, vals, W, H
 

@@ -200,6 +200,19 @@ def test_synthetic_chunks_are_bitwise_the_reference(monkeypatch, chunk,
         tol.assert_bitwise(a, b, name)
 
 
+@pytest.mark.parametrize("threaded_from", [1, 700, 2048])
+@pytest.mark.parametrize("chunk", [7, tsyn.CHUNK])
+def test_synthetic_threads_are_bitwise_the_reference(monkeypatch,
+                                                     threaded_from, chunk):
+    """The true ratings split into one contiguous span per thread."""
+    want = rsyn.synthetic_ratings(400, 60, 5000, k=12, seed=7)
+    monkeypatch.setattr(tsyn, "THREADED_FROM", threaded_from)
+    monkeypatch.setattr(tsyn, "CHUNK", chunk)
+    got = tsyn.synthetic_ratings(400, 60, 5000, k=12, seed=7)
+    for name, a, b in zip(("rows", "cols", "vals", "W", "H"), got, want):
+        tol.assert_bitwise(a, b, name)
+
+
 def test_netflix_like_is_bitwise_the_reference():
     for a, b in zip(tsyn.netflix_like(2e-4, seed=3, k=8),
                     rsyn.netflix_like(2e-4, seed=3, k=8)):
@@ -288,3 +301,64 @@ def test_list_recurrences_are_bitwise_the_reference(seed):
         tol.assert_bitwise(
             tsched.greedy_two_resource_color(a, b, 30, 7),
             rsched.greedy_two_resource_color(a, b, 30, 7), "colors")
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("m,n", [(50, 9), (3_000_000, 20_000),
+                                 (2 ** 40, 2 ** 20)])
+def test_cell_order_is_the_lexsort(seed, m, n):
+    """One stable sort of a combined key (or, where the key would not fit
+    in int64, the lexsort itself) orders ratings as pack's lexsort did,
+    repeated (row, col) pairs in input order."""
+    rng = np.random.default_rng(seed)
+    cells = 16
+    rows = rng.integers(0, min(m, 40), 3000) * (m // min(m, 40))
+    cols = rng.integers(0, min(n, 8), 3000) * (n // min(n, 8))
+    cell = rng.integers(0, cells, 3000)
+    want = np.lexsort((rows, cols, cell))
+    tol.assert_bitwise(tpart._cell_order(rows, cols, cell, m, n, cells),
+                       want, "order")
+
+
+@pytest.mark.parametrize("sub_blocks", [1, 2])
+def test_pack_colors_in_processes_bitwise(monkeypatch, sub_blocks):
+    """The cells colored in forked processes: the reference's layout."""
+    m, n, nnz, p = 60, 24, 900, 4
+    rows, cols, vals = strategies.coo_problem(4, m, n, nnz)
+    want = rpart.pack(rows, cols, vals, m, n, p, sub_blocks=sub_blocks)
+    monkeypatch.setattr(tpart, "COLOR_PROCESSES_FROM", 0)
+    got = tpart.pack(rows, cols, vals, m, n, p, sub_blocks=sub_blocks)
+    tol.assert_bitwise(got.wave_cnt, want.wave_cnt, "wave_cnt")
+    tol.assert_bitwise(got.gid, want.gid, "gid")
+    if sub_blocks > 1:
+        tol.assert_bitwise(got.sub_rows, want.sub_rows, "sub_rows")
+    assert_padded_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["delta", "transition"])
+def test_repacks_color_in_processes_bitwise(monkeypatch, kind):
+    """repack_delta's and repack_transition's re-colored cells, colored in
+    forked processes: the reference's layout."""
+    m, n, p = 60, 24, 4
+    (rows, cols, vals), script = strategies.arrival_script(5, m, n, 700, 1)
+    bt = tpart.pack(rows, cols, vals, m, n, p)
+    br = rpart.pack(rows, cols, vals, m, n, p)
+    monkeypatch.setattr(tpart, "COLOR_PROCESSES_FROM", 0)
+    if kind == "delta":
+        b = script[0]
+        args = (rows, cols, vals, b["rows"], b["cols"], b["vals"],
+                m + b["m_new"], n + b["n_new"])
+        got = tpart.repack_delta(bt, *args)
+        want = rpart.repack_delta(br, *args)
+    else:
+        alive = np.ones(p, dtype=bool)
+        alive[1] = False
+        tkw = dict(alive=alive, join=1,
+                   row_weights=np.bincount(rows, minlength=m),
+                   col_weights=np.bincount(cols, minlength=n))
+        got = tpart.repack_transition(bt, rows, cols, vals, t_compile(
+            p, bt.row_owner, bt.col_block, **tkw))
+        want = rpart.repack_transition(br, rows, cols, vals, r_compile(
+            p, br.row_owner, br.col_block, **tkw))
+    tol.assert_bitwise(got.wave_cnt, want.wave_cnt, "wave_cnt")
+    assert_padded_equal(got, want)
