@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving; streaming; then
-                                     # the full Netflix size: NOMAD, then
-                                     # the paper's baselines
+                                     # the full Netflix size: NOMAD, its
+                                     # SPMD executor in 8 ranks, then the
+                                     # paper's baselines
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -81,7 +82,7 @@ Phases, one line each (any failure raises and exits non-zero):
    its time beside its bound, the plain version's and SDPA's;
 8. streaming, elasticity and integrity at the main path's full width,
    warm from phase 3's result (its pack a cache hit): a
-   ``StreamingSession`` absorbs three arrival batches (each 1 % new
+   ``StreamingSession`` absorbs two arrival batches (each 1 % new
    ratings, 1 % new users and items, a 5 % held-out share), one epoch
    each (``[8.stream]``: repack, grow and epoch seconds, the layout and
    the kernel's plan, RMSE and digest per round), equal to the same
@@ -125,12 +126,31 @@ Phases, one line each (any failure raises and exits non-zero):
    must equal ``[9.solve]``'s, a descending trace; each sub-epoch's
    launch by CUDA events beside its byte and chain bounds; the kernel
    against its plain version on the first 50,000 ratings of the hottest
-   sub-epoch's largest cell, with a no-update control.  Then CCD++ (2
-   epochs, ``inner=3``, eq. (1) read after each), ALS (2 epochs) and
+   sub-epoch's largest cell, with a no-update control.  Then CCD++ (1
+   epoch, ``inner=3``, eq. (1) read after it), ALS (1 epoch) and
    Hogwild (1 epoch, minibatches of 256), cold from seed 0: seconds per
    epoch, card and host peaks, the RMSE trace against the initial
    factors', all-finite factors; and ``[10.als.resume]``: on phase 2's
    problem, 1 + 1 ALS epochs through ``warm_start`` equal 2, bitwise.
+11. NOMAD's SPMD executor (it runs between ``[9.sim]`` and phase 10, on
+   phase 9's wave pack): 8 ranks started by
+   ``launch.mesh.spawn_ranks`` share the card, so their H blocks travel
+   by gloo through pinned host buffers (the transport is printed).
+   Phase 9's pack, cold start and held-out ratings are written once
+   under ``build/`` and mapped read-only by the ranks.
+   ``[11.netflix]``: ``NomadRingEngine(mesh=)`` with ``[9.solve]``'s
+   settings for 3 fused epochs; the factors' digest must be
+   ``[9.solve]``'s, every rank must launch the wave kernel 24 times and
+   call no plain version, the RMSE trace must be ``[9.solve]``'s
+   (bitwise, or within 1e-6); per step each rank's kernel ms (CUDA
+   events), staging and gloo ms per hop, the step's wall; seconds per
+   epoch beside ``[9.split]``'s, spawn to ready, card and host peaks.
+   ``[11.api]``: ``api.solve(mesh=)`` on Netflix x 0.02 (2 epochs) for
+   the ring, random and balanced schedules, each digest equal to this
+   process's one-device ``solve``, the ring's loop dispatch equal to its
+   fused one, and ``sub_blocks=2`` (the sequential route, 1 epoch) on the
+   card against the same ranks on the CPU (``check_close``, with a
+   no-update control).  Any rank's failure or timeout fails the phase.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -143,7 +163,6 @@ import dataclasses
 import json
 import subprocess
 import sys
-import threading
 import time
 import types
 from pathlib import Path
@@ -312,12 +331,12 @@ def bound(Ws, Hs, csr):
 
 
 def factor_digest(W, H) -> str:
-    """sha256 of the factors' bytes, W then H: equal digests from two
-    trees in one call show their results bitwise equal."""
-    import hashlib
-    h = hashlib.sha256(np.ascontiguousarray(W).tobytes())
-    h.update(np.ascontiguousarray(H).tobytes())
-    return h.hexdigest()[:16]
+    """sha256 of the factors' bytes, W then H
+    (``repro_torch.testing.factor_digest``, which the ranks of phase 11
+    use too): equal digests from two trees in one call show their results
+    bitwise equal."""
+    from repro_torch.testing import factor_digest as digest
+    return digest(W, H)
 
 
 #: the segments of ``nomad_sgd.wave_split``: warp 0's index fetch, row
@@ -1235,7 +1254,9 @@ def lm_phase(dev):
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
 #: new users and items as a share of m and n, held-out share of a batch
-ARRIVALS, ARRIVE_SHARE, ARRIVE_TEST = 3, 0.01, 0.05
+#: (a third batch, a repeat of the second, was cut to keep the smoke near
+#: half its time limit once phase 11 came)
+ARRIVALS, ARRIVE_SHARE, ARRIVE_TEST = 2, 0.01, 0.05
 #: [8.swap]: queries after each round, of which new users
 SWAP_QUERIES, SWAP_NEW = 64, 16
 
@@ -1402,7 +1423,7 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
     def epochs_steps(res):
         return int(res.trace_epochs.size) * sess._eng.br.n_steps
 
-    # -- [8.stream]: three arrivals, one epoch each ----------------------
+    # -- [8.stream]: the arrivals, one epoch each -----------------------
     digests = []
     with srv:
         for t, b in enumerate(batches):
@@ -1553,37 +1574,6 @@ REPLAY_RTOL, REPLAY_ATOL = 2e-5, 2e-6
 SLOT_BYTES = 4 + 4 + 4 + 1 + 8
 
 
-def _rss_kb() -> int:
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS:"):
-                return int(line.split()[1])
-    return 0
-
-
-class HostPeak:
-    """Peak resident memory of this process from construction on, the
-    largest of samples taken every 20 ms (the kernel's high-water mark
-    covers the whole process and cannot always be reset)."""
-
-    def __init__(self):
-        self.peak_kb = _rss_kb()
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._sample, daemon=True)
-        self._thread.start()
-
-    def _sample(self):
-        while not self._stop.wait(0.02):
-            self.peak_kb = max(self.peak_kb, _rss_kb())
-
-    def gb(self) -> str:
-        return f"{max(self.peak_kb, _rss_kb()) * 1024 / 1e9:.2f}"
-
-    def close(self) -> None:
-        self._stop.set()
-        self._thread.join()
-
-
 def count_plain(ks):
     """Count the calls of the wave kernel's plain version (the wrappers'
     CPU path) until the returned ``restore()``; returns ``(calls,
@@ -1615,12 +1605,14 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
     and the kernel against its plain version on the hottest
     cell's first waves, read through ``partition.padded_waves``, with a
     no-update control.  Returns the kernel record, the problem (its wave
-    pack released), ``[9.solve]``'s digest and the H-global plan's ns per
-    wave."""
+    pack kept for phase 11), ``[9.solve]``'s digest, the H-global plan's
+    ns per wave, and what phase 11 reads of this run: the packing, the
+    config, ``[9.solve]``'s RMSE trace and ``[9.split]``'s epoch ms."""
     from repro_torch.configs.nomad_mf import NETFLIX
     from repro_torch.core.nomad import NomadRingEngine
     from repro_torch.core.partition import padded_waves
     from repro_torch.core.stepsize import PowerSchedule
+    from repro_torch.testing import HostPeak
 
     t_phase = time.perf_counter()
     peak = HostPeak()
@@ -1790,7 +1782,6 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
           host_peak_rss_gb=peak.gb(), rss_sampled_every_s=0.02,
           card_peak_bytes=card_peak, padded_built=br.__dict__.get(
               "_padded_waves") is not None)
-    problem._pack_cache.clear()
     record = dict(
         name="nomad_sgd_waves_csr[grid,full_netflix]", route="cuda",
         source=KERNEL_SRC, replaces=REPLACES["grid"], launches=launched,
@@ -1799,7 +1790,8 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
         work=f"step {s_hot} cell {q_hot}, first {w_cut} waves, {n_cut} "
         "ratings", step_ms_max=max(step_ms),
         step_chain_bound_ms=max(chain(c) for c in steps) * floor_ns * 1e-6)
-    return record, problem, digest, global_floor_ns
+    ran = dict(br=br, config=config, rmse=rm, epoch_ms=epoch_ms)
+    return record, problem, digest, global_floor_ns, ran
 
 
 #: [10.dsgd]'s kernel check: the hottest sub-epoch's largest cell's
@@ -1807,8 +1799,10 @@ def netflix_phase(api, ks, ref, dev, floor_ns):
 #: rating on the card)
 DSGD_CHECK_RATINGS = 50_000
 #: [10.*]: CCD++'s epochs (each one solve, warm from the last) and inner
-#: sweeps, ALS's epochs, Hogwild's epochs and minibatch
-CCD_EPOCHS, CCD_INNER, ALS_EPOCHS, HOG_EPOCHS, HOG_BATCH = 2, 3, 2, 1, 256
+#: sweeps, ALS's epochs, Hogwild's epochs and minibatch (CCD++'s and
+#: ALS's second epochs, repeats of the first, were cut to keep the smoke
+#: near half its time limit once phase 11 came)
+CCD_EPOCHS, CCD_INNER, ALS_EPOCHS, HOG_EPOCHS, HOG_BATCH = 1, 3, 1, 1, 256
 
 
 def objective_chunked(W, H, rows, cols, vals, lam) -> float:
@@ -1838,6 +1832,7 @@ def dsgd_phase(api, ks, dev, problem, want_digest, floor_ns,
     from repro_torch.convert import factors_from_reference
     from repro_torch.core.nomad import wave_csr
     from repro_torch.core.stepsize import PowerSchedule
+    from repro_torch.testing import HostPeak
 
     peak = HostPeak()
     torch.cuda.reset_peak_memory_stats()
@@ -1983,6 +1978,7 @@ def baselines_phase(api, dev, problem, small):
     from repro_torch.core.nomad import _sharded_rmse_body
     from repro_torch.core.objective import init_factors
     from repro_torch.core.stepsize import PowerSchedule
+    from repro_torch.testing import HostPeak
 
     k, lam = NETFLIX.k, NETFLIX.lam
     W0, H0 = (x.to(dev) for x in init_factors(
@@ -2210,6 +2206,253 @@ def sim_phase(api, ks, dev) -> int:
           rmse=json.dumps([float(x) for x in res.rmse]),
           seconds=f"{time.perf_counter() - t_phase:.1f}")
     return want
+
+
+#: [11.*]: ranks of the SPMD executor (all on the one card), the seconds
+#: they may take, [11.api]'s problem (Netflix x SPMD_API_SCALE, built as
+#: phases 2-8 build theirs; below the pack's fork threshold, so ranks
+#: pack it without forking) and its epochs, and the bound of
+#: [11.netflix]'s RMSE trace against [9.solve]'s where it is not bitwise
+SPMD_P, SPMD_TIMEOUT = 8, 900
+SPMD_API_SCALE, SPMD_API_EPOCHS = 0.02, 2
+SPMD_TRACE_RTOL = 1e-6
+#: epochs of [11.api]'s sub_blocks=2 run, on the card and on the CPU
+#: (the CPU ranks' sequential plain version takes ~18 s an epoch)
+SPMD_SUB_EPOCHS = 1
+
+
+def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
+    """[11.netflix], [11.api]: NOMAD's SPMD executor in ``SPMD_P`` ranks
+    started by ``launch.mesh.spawn_ranks`` (spawned, one process group, the
+    transport ``make_mc_mesh`` picks: staged gloo when the ranks share the
+    card).  Phase 9's packing, cold start and held-out ratings are written
+    once under ``build/`` and mapped read-only by the ranks.
+    ``[11.netflix]``: ``NomadRingEngine(mesh=)`` with phase 9's settings for
+    its epochs (fused), each rank's steps logged; the factors' digest must
+    be ``[9.solve]``'s, each rank must launch the wave kernel once per step
+    and call no plain version, and the RMSE trace must be ``[9.solve]``'s
+    (bitwise, or within ``SPMD_TRACE_RTOL``).  ``[11.api]``:
+    ``api.solve(mesh=)`` on Netflix x ``SPMD_API_SCALE`` for the ring,
+    random and balanced schedules (digests equal to this process's
+    one-device ``solve``), the ring under both dispatches, and
+    ``sub_blocks=2`` on the card for ``SPMD_SUB_EPOCHS`` held against the
+    same ranks on the CPU (``check_close``, with a no-update control).
+    Returns the ranks' launches of the per-cell and the sequential route.
+    Chain bounds are waves x ``floor_ns`` (``[4.floor]``): a step's longest
+    cell, and its cells one after another (what 8 processes time-slicing one
+    card can at best do)."""
+    import shutil
+
+    from repro_torch.configs.nomad_mf import NETFLIX
+    from repro_torch.core import partition as part
+    from repro_torch.core.objective import init_factors
+    from repro_torch.core.stepsize import PowerSchedule
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.testing import HostPeak, run_on_mesh
+
+    t_phase = time.perf_counter()
+    peak = HostPeak()
+    br, config = ran["br"], ran["config"]
+    k, p = config.k, SPMD_P
+
+    # phase 9's pack, cold start and held-out ratings, written once
+    out = ROOT / "build" / "spmd_netflix"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    part.save_pack(br, str(out / "pack"))
+    W0, H0 = init_factors(torch.Generator().manual_seed(int(config.seed)),
+                          problem.m, problem.n, k)
+    np.save(out / "W0.npy", W0.numpy())
+    np.save(out / "H0.npy", H0.numpy())
+    del W0, H0
+    for name, a in zip(("rows", "cols", "vals"), problem.test):
+        np.save(out / f"test_{name}.npy", a)
+    write_s = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    netflix = dict(kind="engine", br=str(out / "pack"), k=k, lam=config.lam,
+                   stepsize=config.make_stepsize(), policy=config.kernel,
+                   W0=str(out / "W0.npy"), H0=str(out / "H0.npy"),
+                   test=str(out / "test"), epochs=NETFLIX_EPOCHS,
+                   dispatch=config.dispatch,
+                   record_every=config.record_every, log_steps=True,
+                   return_factors=False)
+
+    # [11.api]'s problem, and its one-device solves on the card
+    m_a = int(NETFLIX.m * SPMD_API_SCALE)
+    n_a = int(NETFLIX.n * SPMD_API_SCALE)
+    small = api.MCProblem.synthetic(m_a, n_a, 37 * m_a, k=k, seed=0,
+                                    noise=0.1, test_frac=0.05, split_seed=1)
+    base = api.NomadConfig(k=k, p=p, lam=NETFLIX.lam,
+                           stepsize=PowerSchedule(NETFLIX.alpha,
+                                                  NETFLIX.beta),
+                           kernel="wave_pallas", epochs=SPMD_API_EPOCHS)
+    cases = {s: dataclasses.replace(base, schedule=s)
+             for s in ("ring", "random", "balanced")}
+    cases["ring, loop"] = dataclasses.replace(base, dispatch="loop")
+    sub = dataclasses.replace(base, kernel="pallas", sub_blocks=2,
+                              epochs=SPMD_SUB_EPOCHS)
+    local = {}
+    t0 = time.perf_counter()
+    for name in ("ring", "random", "balanced"):
+        res = api.solve(small, cases[name], device=dev)
+        local[name] = (factor_digest(res.W, res.H),
+                       [float(x) for x in res.rmse])
+    local_s = time.perf_counter() - t0
+    fresh = api.MCProblem(small.rows, small.cols, small.vals, small.m,
+                          small.n, test=small.test)     # no packs pickled
+    runs = [netflix]
+    runs += [dict(kind="solve", problem=fresh, config=c)
+             for c in cases.values()]
+    runs += [dict(kind="solve", problem=fresh, config=sub),
+             dict(kind="solve", problem=fresh, config=sub, device="cpu")]
+    phase("11.write", seconds=f"{write_s:.2f}", bytes=written,
+          api_m=small.m, api_n=small.n, api_train=small.nnz,
+          api_local_solves_s=f"{local_s:.2f}", host_peak_rss_gb=peak.gb())
+
+    torch.cuda.empty_cache()
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(run_on_mesh, p, runs, None, timeout=SPMD_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+
+    # -- [11.netflix] ---------------------------------------------------
+    steps_per_epoch = br.n_steps
+    want = NETFLIX_EPOCHS * steps_per_epoch
+    waves = [o["launches0"]["nomad_sgd_waves_csr"] for o in outs]
+    totals = [sum(o["launches0"].values()) for o in outs]
+    plain = [o["plain0"] for o in outs]
+    digests = sorted({o["digest0"] for o in outs})
+    rm = [[x for _, x in o["trace0"]] for o in outs]
+    trace_bitwise = all(r == ran["rmse"] for r in rm)
+    trace_rel = max(abs(a - b) / abs(b) for r in rm
+                    for a, b in zip(r, ran["rmse"]))
+    train_s = [o["train_s0"] for o in outs]
+    phase("11.netflix", transport=repr(outs[0]["transport"]), ranks=p,
+          epochs=NETFLIX_EPOCHS, digest=",".join(digests),
+          want_digest=want_digest, equal=digests == [want_digest],
+          launches=json.dumps(waves), all_wrappers=json.dumps(totals),
+          want=want, plain_calls=json.dumps(plain),
+          rmse=json.dumps(rm[0]), want_rmse=json.dumps(ran["rmse"]),
+          trace_bitwise=trace_bitwise, trace_max_rel=f"{trace_rel:.3e}",
+          finite=all(o["finite0"] for o in outs),
+          spawn_to_ready_s=(
+              f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
+          load_s=f"{max(o['load_s0'] for o in outs):.2f}",
+          train_s=f"{max(train_s):.2f}",
+          factors_s=f"{max(o['factors_s0'] for o in outs):.2f}")
+    if digests != [want_digest]:
+        raise AssertionError(f"[11.netflix] digests {digests} != "
+                             f"[9.solve]'s {want_digest}")
+    if waves != [want] * p or totals != [want] * p or any(plain):
+        raise AssertionError(f"[11.netflix] launches {waves}/{totals}, plain "
+                             f"calls {plain}, want {want} each")
+    if not (trace_bitwise or trace_rel <= SPMD_TRACE_RTOL) or not all(
+            o["finite0"] for o in outs):
+        raise AssertionError(f"[11.netflix] trace {rm} vs [9.solve]'s "
+                             f"{ran['rmse']}, or non-finite factors")
+    hop_bytes = br.n_local * k * 4
+    last = [o["steps0"][-steps_per_epoch:] for o in outs]
+    cell_waves = (br.wave_cnt > 0).sum(-1)                # (p, n_steps)
+    for s in range(steps_per_epoch):
+        rec = [r[s] for r in last]
+        phase("11.step", step=s, epoch=NETFLIX_EPOCHS - 1,
+              kernel_ms=json.dumps([round(x["kernel_ms"], 3) for x in rec]),
+              stage_ms=json.dumps([round(x["stage_ms"], 3) for x in rec]),
+              wire_ms=json.dumps([round(x["wire_ms"], 3) for x in rec]),
+              wall_ms=f"{max(x['wall_ms'] for x in rec):.3f}",
+              hop_bytes=hop_bytes,
+              cells_waves=json.dumps(cell_waves[:, s].tolist()),
+              chain_bound_ms=(
+                  f"{cell_waves[:, s].max() * floor_ns * 1e-6:.1f}"),
+              serial_chain_bound_ms=(
+                  f"{cell_waves[:, s].sum() * floor_ns * 1e-6:.1f}"))
+    epoch_ms = [sum(x["wall_ms"] for x in r) for r in last]
+    kernel_ms = [sum(x["kernel_ms"] for x in r) for r in last]
+    phase("11.split", epoch_ms=f"{max(epoch_ms):.1f}",
+          s_per_epoch=f"{max(train_s) / NETFLIX_EPOCHS:.3f}",
+          one_device_epoch_ms=f"{ran['epoch_ms']:.1f}",
+          epoch_chain_bound_ms=(
+              f"{cell_waves.max(0).sum() * floor_ns * 1e-6:.1f}"),
+          epoch_serial_chain_bound_ms=(
+              f"{cell_waves.sum() * floor_ns * 1e-6:.1f}"),
+          kernel_ms_per_rank=json.dumps([round(x, 1) for x in kernel_ms]),
+          kernel_ms_sum=f"{sum(kernel_ms):.1f}",
+          stage_ms_per_rank=json.dumps([round(sum(
+              x["stage_ms"] for x in r), 2) for r in last]),
+          wire_ms_per_rank=json.dumps([round(sum(
+              x["wire_ms"] for x in r), 2) for r in last]),
+          card_peak_bytes_per_rank=json.dumps(
+              [o["card_peak_bytes"] for o in outs]),
+          card_peak_bytes_sum=sum(o["card_peak_bytes"] for o in outs),
+          rank_host_peak_rss_gb=json.dumps(
+              [round(o["host_peak_rss_gb"], 2) for o in outs]),
+          parent_host_peak_rss_gb=peak.gb())
+
+    # -- [11.api] -------------------------------------------------------
+    launched = {"per_cell": sum(waves), "sequential": 0}
+    for i, name in enumerate(cases, start=1):
+        sched = small.packed(p, waves=True, schedule=cases[name].schedule,
+                             schedule_seed=base.schedule_seed).schedule
+        want_l = [SPMD_API_EPOCHS * int(sched.active[:, q].sum())
+                  for q in range(p)]
+        got_l = [o[f"launches{i}"]["nomad_sgd_waves_csr"] for o in outs]
+        ds = sorted({o[f"digest{i}"] for o in outs})
+        want_d, want_rm = local[name.split(",")[0]]
+        traces = {tuple(x for _, x in o[f"trace{i}"]) for o in outs}
+        phase("11.api", schedule=repr(name), digest=",".join(ds),
+              want_digest=want_d, equal=ds == [want_d],
+              trace_equal=traces == {tuple(want_rm)},
+              launches=json.dumps(got_l), want=json.dumps(want_l),
+              plain_calls=json.dumps([o[f"plain{i}"] for o in outs]),
+              solve_s=f"{max(o[f'train_s{i}'] for o in outs):.2f}")
+        if ds != [want_d] or traces != {tuple(want_rm)}:
+            raise AssertionError(f"[11.api] {name}: digests {ds}, want "
+                                 f"{want_d}; traces {traces}")
+        if got_l != want_l or any(o[f"plain{i}"] for o in outs) or any(
+                sum(o[f"launches{i}"].values()) != w
+                for o, w in zip(outs, want_l)):
+            raise AssertionError(f"[11.api] {name}: launches {got_l}, want "
+                                 f"{want_l}, or plain calls")
+        launched["per_cell"] += sum(got_l)
+    card, cpu = len(cases) + 1, len(cases) + 2
+    want_l = SPMD_SUB_EPOCHS * p * sub.sub_blocks     # the ring: p steps
+    got_l = [o[f"launches{card}"]["nomad_sgd_waves_csr"] for o in outs]
+    phase("11.api", schedule="'ring'", sub_blocks=2, kernel="pallas",
+          launches=json.dumps(got_l), want=want_l,
+          plain_calls=json.dumps([o[f"plain{card}"] for o in outs]),
+          cpu_plain_calls=json.dumps([o[f"plain{cpu}"] for o in outs]),
+          solve_s=f"{max(o[f'train_s{card}'] for o in outs):.2f}",
+          cpu_solve_s=f"{max(o[f'train_s{cpu}'] for o in outs):.2f}")
+    if got_l != [want_l] * p or any(o[f"plain{card}"] for o in outs):
+        raise AssertionError(f"[11.api] sub_blocks=2: launches {got_l}, "
+                             f"want {want_l}, or plain calls")
+    launched["sequential"] = sum(got_l)
+    upd = SPMD_SUB_EPOCHS * max(int(np.bincount(small.rows).max()),
+                                int(np.bincount(small.cols).max()))
+    W0, _ = init_factors(torch.Generator().manual_seed(int(base.seed)),
+                         small.m, small.n, k)
+    for o in outs[:1]:
+        for nm in ("W", "H"):
+            check_close(f"[11.api] {nm} sub_blocks=2, 8 ranks on the card "
+                        "vs on the CPU", torch.from_numpy(o[f"{nm}{card}"]),
+                        torch.from_numpy(o[f"{nm}{cpu}"]), upd)
+        want_W = torch.from_numpy(o[f"W{cpu}"])
+        bound_ = 16 * EPS_FP32 * upd ** 0.5
+        ctrl = rel_err(W0, want_W)
+        phase("control", what="[11.api] sub_blocks=2 no update",
+              max_rel_err=f"{ctrl:.3e}", bound=f"{bound_:.3e}",
+              rejected=ctrl > bound_)
+        if not ctrl > bound_:
+            raise AssertionError("the check cannot tell factors that were "
+                                 "not updated from the CPU ranks' result")
+    if len({o[f"digest{card}"] for o in outs}) != 1:
+        raise AssertionError("[11.api] sub_blocks=2: ranks disagree")
+    shutil.rmtree(out, ignore_errors=True)
+    peak.close()
+    phase("11.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          spawn_s=f"{spawn_s:.1f}", host_peak_rss_gb=peak.gb())
+    return launched
 
 
 def main_path(args, api, ks, ref, dev):
@@ -2614,10 +2857,15 @@ def main() -> int:
     kernels, errs, floor_ns, small = main_path(args, api, ks, ref, dev)
     # -- 9. full Netflix on the main path; the simulator's schedule ------
     torch.cuda.empty_cache()
-    record, netflix, digest, global_floor_ns = netflix_phase(
+    record, netflix, digest, global_floor_ns, ran = netflix_phase(
         api, ks, ref, dev, floor_ns)
     kernels.append(record)
     sim_launches = sim_phase(api, ks, dev)
+    # -- 11. the SPMD executor in ranks on the card, on phase 9's pack --
+    torch.cuda.empty_cache()
+    spmd_launches = spmd_phase(api, ks, dev, netflix, ran, digest, floor_ns)
+    del ran
+    netflix._pack_cache.clear()
     # -- 10. the paper's baselines at full Netflix ----------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2631,6 +2879,14 @@ def main() -> int:
         if rec["name"] == "nomad_sgd_waves_csr[grid]":
             rec["launches"] += sim_launches
             rec["launches_on"] = "[3.grid], [8.*] and [9.sim]"
+        elif rec["name"] == "nomad_sgd_waves_csr[per_cell]":
+            rec["launches"] += spmd_launches["per_cell"]
+            rec["launches_on"] = ("[3.per_cell], and [11.netflix] and "
+                                  "[11.api] summed over their ranks")
+        elif rec["name"] == "nomad_sgd_waves_csr[sequential]":
+            rec["launches"] += spmd_launches["sequential"]
+            rec["launches_on"] = ("[3.sequential], and [11.api]'s "
+                                  "sub_blocks=2 summed over its ranks")
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

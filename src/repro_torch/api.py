@@ -40,8 +40,12 @@ NOMAD, every baseline of the paper (DSGD, CCD++, ALS, Hogwild,
 :mod:`repro_torch.core.baselines`) and the simulator run through this one
 call.  NOMAD, DSGD and Hogwild stream; CCD++, ALS and the simulator
 refuse ``partial_fit`` with ``NotImplementedError``, as in the JAX
-package.  Not ported yet, and refused with ``NotImplementedError``:
-``mesh=`` (SPMD, ROADMAP.md Queue 1 item 9).
+package.  ``solve(..., mesh=)`` runs NOMAD's SPMD executor over a
+:class:`repro_torch.launch.mesh.McMesh` (one process per worker; the
+other solvers accept the mesh and ignore it, as in the JAX package).
+Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP.md
+Queue 1 item 9: ``mesh=`` in ``partial_fit``, ``StreamingSession`` and
+``solve(faults=)``.
 """
 from __future__ import annotations
 
@@ -827,8 +831,8 @@ _BY_NAME: Dict[str, Type[SolverConfig]] = {}
 
 
 def register_solver(name: str, config_cls: Type[SolverConfig]):
-    """Register ``fn(problem, config, *, warm_start, verbose, device) ->
-    FitResult`` as the solver for ``config_cls`` (and for lookups by
+    """Register ``fn(problem, config, *, warm_start, verbose, device,
+    mesh) -> FitResult`` as the solver for ``config_cls`` (and for lookups by
     ``name``)."""
     def deco(fn):
         if name in _BY_NAME:
@@ -875,13 +879,23 @@ def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
                      and resume from the last committed block after a
                      crash, bitwise-identical to the uninterrupted run.
     ``device``     — where the factors live and the updates run; ``None``
-                     means ``"cuda"`` (``RuntimeError`` without CUDA).
-    ``mesh`` is not ported yet and raises ``NotImplementedError``.
+                     means ``"cuda"`` (``RuntimeError`` without CUDA), or
+                     the mesh's device when there is a mesh.
+    ``mesh``       — a :class:`repro_torch.launch.mesh.McMesh`: NOMAD runs
+                     its SPMD executor, one rank per process; every rank
+                     calls ``solve`` with the same problem and config and
+                     gets the same result, bitwise the one-device run's.
+                     The other solvers accept it and ignore it, as the
+                     JAX package's do.
     """
     if not isinstance(problem, MCProblem):
         raise TypeError(f"problem must be MCProblem, got "
                         f"{type(problem).__name__}")
-    _refuse_mesh(mesh)
+    if mesh is not None:
+        if faults is not None:
+            _refuse_mesh(mesh)
+        if device is None:
+            device = mesh.device
     device = resolve_device(device)
     if faults is not None:
         if not isinstance(faults, FaultPolicy):
@@ -904,7 +918,7 @@ def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
     _, fn = entry
     t0 = time.perf_counter()
     result = fn(problem, config, warm_start=warm_start, verbose=verbose,
-                device=device)
+                device=device, mesh=mesh)
     return _finalize(result, config, t0)
 
 
@@ -1108,11 +1122,11 @@ def partial_fit(result: FitResult, delta: ProblemDelta,
 # Solver implementations (adapters over core/)                            #
 # ---------------------------------------------------------------------- #
 
-def _nomad_engine(br, config: NomadConfig, device):
+def _nomad_engine(br, config: NomadConfig, device, mesh=None):
     from .core.nomad import NomadRingEngine
     return NomadRingEngine(br=br, k=config.k, lam=config.lam,
                            stepsize=config.make_stepsize(),
-                           policy=config.kernel, device=device)
+                           policy=config.kernel, device=device, mesh=mesh)
 
 
 def _nomad_run(eng, config: NomadConfig, test, start,
@@ -1179,7 +1193,7 @@ def _sticky_extended_problem(delta: ProblemDelta, br,
 
 
 def _nomad_cold_start(problem: MCProblem, config: NomadConfig, device,
-                      warm_start):
+                      warm_start, mesh=None):
     """Pack + engine + initial factors (warm, or Algorithm 1's seeded
     init drawn on a CPU ``torch.Generator`` seeded with
     ``config.seed``) — the one cold-start path shared by
@@ -1192,7 +1206,7 @@ def _nomad_cold_start(problem: MCProblem, config: NomadConfig, device,
                         waves=policy.wave, sub_blocks=policy.sub_blocks,
                         schedule=config.schedule,
                         schedule_seed=config.schedule_seed)
-    eng = _nomad_engine(br, config, device)
+    eng = _nomad_engine(br, config, device, mesh)
     W0, H0, start = _warm_factors(warm_start, dtype=problem.dtype)
     if W0 is None:
         gen = torch.Generator().manual_seed(int(config.seed))
@@ -1204,8 +1218,10 @@ def _nomad_cold_start(problem: MCProblem, config: NomadConfig, device,
 
 @register_solver("nomad", NomadConfig)
 def _solve_nomad(problem: MCProblem, config: NomadConfig, *,
-                 warm_start=None, verbose=False, device=None) -> FitResult:
-    eng, start = _nomad_cold_start(problem, config, device, warm_start)
+                 warm_start=None, verbose=False, device=None,
+                 mesh=None) -> FitResult:
+    eng, start = _nomad_cold_start(problem, config, device, warm_start,
+                                   mesh)
     return _nomad_run(eng, config, problem.test, start, verbose)
 
 
@@ -1274,7 +1290,8 @@ def _baseline_result(W, H, trace, start, config) -> FitResult:
 
 @register_solver("dsgd", DsgdConfig)
 def _solve_dsgd(problem: MCProblem, config: DsgdConfig, *,
-                warm_start=None, verbose=False, device=None) -> FitResult:
+                warm_start=None, verbose=False, device=None,
+                mesh=None) -> FitResult:
     """DSGD on the problem's memoized ring packing (``waves=False``), each
     sub-epoch one launch of the CUDA kernel's sequential route."""
     from .core import baselines
@@ -1291,7 +1308,8 @@ def _solve_dsgd(problem: MCProblem, config: DsgdConfig, *,
 
 @register_solver("ccdpp", CcdConfig)
 def _solve_ccdpp(problem: MCProblem, config: CcdConfig, *,
-                 warm_start=None, verbose=False, device=None) -> FitResult:
+                 warm_start=None, verbose=False, device=None,
+                mesh=None) -> FitResult:
     from .core import baselines
     W0, H0, start = _warm_factors(warm_start)
     W, H, trace = baselines.ccdpp(
@@ -1304,7 +1322,8 @@ def _solve_ccdpp(problem: MCProblem, config: CcdConfig, *,
 
 @register_solver("als", AlsConfig)
 def _solve_als(problem: MCProblem, config: AlsConfig, *,
-               warm_start=None, verbose=False, device=None) -> FitResult:
+               warm_start=None, verbose=False, device=None,
+               mesh=None) -> FitResult:
     from .core import baselines
     W0, H0, start = _warm_factors(warm_start)
     W, H, trace = baselines.als(
@@ -1318,7 +1337,7 @@ def _solve_als(problem: MCProblem, config: AlsConfig, *,
 @register_solver("hogwild", HogwildConfig)
 def _solve_hogwild(problem: MCProblem, config: HogwildConfig, *,
                    warm_start=None, verbose=False,
-                   device=None) -> FitResult:
+                   device=None, mesh=None) -> FitResult:
     from .core import baselines
     W0, H0, start = _warm_factors(warm_start)
     W, H, trace = baselines.hogwild(
@@ -1333,7 +1352,7 @@ def _solve_hogwild(problem: MCProblem, config: HogwildConfig, *,
 @register_solver("async_sim", AsyncSimConfig)
 def _solve_async_sim(problem: MCProblem, config: AsyncSimConfig, *,
                      warm_start=None, verbose=False,
-                     device=None) -> FitResult:
+                     device=None, mesh=None) -> FitResult:
     """The discrete-event simulator (float64 numpy on the host, bitwise
     the JAX package's for the same inputs and seed); ``device`` is not
     read.  With ``emit_schedule`` the simulated ownership transfers come

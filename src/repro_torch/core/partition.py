@@ -37,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing as mp
 import os
+import pickle
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -1056,6 +1057,40 @@ def step_major_cells(arrays) -> Tuple[np.ndarray, ...]:
     """
     return tuple(np.ascontiguousarray(np.swapaxes(np.asarray(a), 0, 1))
                  for a in arrays)
+
+
+def save_pack(br: BlockedRatings, path: str) -> None:
+    """Write what the engine reads of ``br`` to the directory ``path``:
+    each array as ``<field>.npy`` (worker-major, so one worker's cells
+    are one contiguous piece of each file), the sizes and the schedule in
+    ``meta.pkl``.  Not written: the padded wave arrays (built from the
+    rest when read) and ``gid`` (the ratings' global ids, which only
+    :meth:`BlockedRatings.schedule_order` reads)."""
+    os.makedirs(path, exist_ok=True)
+    meta = {}
+    for f in dataclasses.fields(br):
+        if f.name in PADDED_WAVES or f.name == "gid":
+            continue
+        val = getattr(br, f.name)
+        if isinstance(val, np.ndarray):
+            np.save(os.path.join(path, f.name + ".npy"), val)
+        else:
+            meta[f.name] = val
+    with open(os.path.join(path, "meta.pkl"), "wb") as fh:
+        pickle.dump(meta, fh)
+
+
+def load_pack(path: str) -> BlockedRatings:
+    """The packing :func:`save_pack` wrote to ``path``, its arrays mapped
+    read-only (``np.load(mmap_mode="r")``): a process reads only the
+    pages it touches, such as one SPMD rank's cells."""
+    with open(os.path.join(path, "meta.pkl"), "rb") as fh:
+        fields = pickle.load(fh)
+    for name in os.listdir(path):
+        if name.endswith(".npy"):
+            fields[name[:-4]] = np.load(os.path.join(path, name),
+                                        mmap_mode="r")
+    return BlockedRatings(**fields)
 
 
 def shard_factors(W: np.ndarray, H: np.ndarray, br: BlockedRatings

@@ -122,3 +122,200 @@ def assert_rare_flips(got: torch.Tensor, want: torch.Tensor,
             f"{what}: {differing} elements differ of {changed} updated "
             f"(bound {FLIP_SLACK} + {FLIP_SHARE:g} x updated)")
     return differing, changed
+
+
+def factor_digest(W, H) -> str:
+    """sha256 of the factors' bytes, W then H, its first 16 hex digits:
+    equal digests show two results bitwise equal."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256(np.ascontiguousarray(W).tobytes())
+    h.update(np.ascontiguousarray(H).tobytes())
+    return h.hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------- #
+# Rank bodies for ``launch.mesh.spawn_ranks`` (importable by name: spawn   #
+# pickles functions by reference), shared by the SPMD tests and           #
+# ``chip_smoke.py``                                                        #
+# ---------------------------------------------------------------------- #
+
+def _rss_kb() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    return 0
+
+
+class HostPeak:
+    """Peak resident memory of this process from construction on, the
+    largest of samples taken every 20 ms (the kernel's high-water marks,
+    ``VmHWM`` and ``ru_maxrss``, cover the whole process, are carried
+    across ``exec`` and cannot always be reset)."""
+
+    def __init__(self):
+        import threading
+        self.peak_kb = _rss_kb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak_kb = max(self.peak_kb, _rss_kb())
+
+    def gb(self) -> str:
+        return f"{max(self.peak_kb, _rss_kb()) * 1024 / 1e9:.2f}"
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def _load(x):
+    """An array, or the ``.npy`` file that holds it (mapped read-only)."""
+    import numpy as np
+    return np.load(x, mmap_mode="r") if isinstance(x, str) else x
+
+
+def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
+    """Rank body: each of ``runs`` on this rank's mesh
+    (``make_mc_mesh(p, device=run.get("device", device))``), in order.
+    A run is a dict with ``kind``:
+
+    * ``"engine"``: ``NomadRingEngine(br, k, lam, stepsize, policy,
+      mesh=)`` (``br`` a packing or a :func:`~repro_torch.core.partition.
+      save_pack` directory), ``init_factors(W0, H0)`` (arrays or ``.npy``
+      paths), ``train(epochs, test, dispatch=, record_every=)``; with
+      ``log_steps`` the engine's per-step records come back;
+    * ``"solve"``: ``api.solve(problem, config, mesh=)``;
+    * ``"errors"``: the messages of ``make_mc_mesh(p + 1)`` and of an
+      engine built on ``br`` (a packing for another ``p``).
+
+    Returns, for run ``i``: ``digest{i}``, ``trace{i}``, ``finite{i}``,
+    the wave kernel wrappers' launches (``launches{i}``) and the plain
+    version's calls (``plain{i}``), the train and factors seconds, and
+    ``W{i}``/``H{i}`` unless ``return_factors`` is False; and the mesh's
+    transport, ``ready_at`` (``time.time()`` once the first mesh was
+    made), the card's peak bytes and the process's peak RSS
+    (:class:`HostPeak`)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from . import api
+    from .core import partition as part
+    from .core.nomad import NomadRingEngine
+    from .kernels import nomad_sgd as ks
+    from .launch.mesh import make_mc_mesh
+
+    meshes, out = {}, {}
+    peak = HostPeak()
+
+    def mesh_for(dev):
+        key = str(dev)
+        if key not in meshes:
+            meshes[key] = make_mc_mesh(p, device=dev)
+            out.setdefault("ready_at", time.time())
+            out.setdefault("transport", meshes[key].describe())
+        return meshes[key]
+
+    plain, calls = ks.block_sgd_waves_csr, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return plain(*a, **kw)
+
+    ks.block_sgd_waves_csr = counted
+    try:
+        for i, run in enumerate(runs):
+            mesh = mesh_for(run.get("device", device))
+            if run["kind"] == "errors":
+                msgs = []
+                try:
+                    make_mc_mesh(p + 1, device=mesh.device)
+                except ValueError as e:
+                    msgs.append(str(e))
+                try:
+                    NomadRingEngine(br=run["br"], k=2, lam=0.0,
+                                    stepsize=lambda e: 0.0, mesh=mesh)
+                except ValueError as e:
+                    msgs.append(str(e))
+                out[f"errors{i}"] = msgs
+                continue
+            ks.reset_launches()
+            calls[0] = 0
+            t0 = time.perf_counter()
+            if run["kind"] == "engine":
+                br = run["br"]
+                br = part.load_pack(br) if isinstance(br, str) else br
+                eng = NomadRingEngine(
+                    br=br, k=run["k"], lam=run["lam"],
+                    stepsize=run["stepsize"], policy=run["policy"],
+                    mesh=mesh, step_log=[] if run.get("log_steps") else None)
+                eng.init_factors(_load(run["W0"]), _load(run["H0"]))
+                test = run.get("test")
+                if isinstance(test, str):
+                    test = tuple(np.load(f"{test}_{c}.npy")
+                                 for c in ("rows", "cols", "vals"))
+                load_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                trace = eng.train(run["epochs"], test=test,
+                                  dispatch=run.get("dispatch", "fused"),
+                                  record_every=run.get("record_every", 1))
+                if mesh.device.type == "cuda":
+                    torch.cuda.synchronize(mesh.device)
+                train_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                W, H = eng.factors()
+                finite = eng.last_finite
+                out[f"steps{i}"] = eng.step_log
+                out[f"load_s{i}"] = load_s
+            else:
+                res = api.solve(run["problem"], run["config"], mesh=mesh)
+                train_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                W, H = res.W, res.H
+                trace = list(zip(res.trace_epochs.tolist(),
+                                 res.trace_rmse.tolist()))
+                finite = res.extras.get("divergence", {}).get("finite")
+            out[f"factors_s{i}"] = time.perf_counter() - t0
+            out[f"train_s{i}"] = train_s
+            out[f"digest{i}"] = factor_digest(W, H)
+            out[f"trace{i}"] = [(int(e), float(r)) for e, r in trace]
+            out[f"finite{i}"] = finite
+            out[f"launches{i}"] = {w.__name__: w.launches
+                                   for w in ks.WRAPPERS}
+            out[f"plain{i}"] = calls[0]
+            if run.get("return_factors", True):
+                out[f"W{i}"], out[f"H{i}"] = np.asarray(W), np.asarray(H)
+            del W, H
+    finally:
+        ks.block_sgd_waves_csr = plain
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        out["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+    peak.close()
+    out["host_peak_rss_gb"] = float(peak.gb())
+    return out
+
+
+def raise_on_rank(rank: int, p: int, bad: int) -> int:
+    """Rank body: rank ``bad`` raises, the others return their rank."""
+    if rank == bad:
+        raise ValueError(f"rank {rank} was told to fail")
+    return rank
+
+
+def hang_on_rank(rank: int, p: int, bad: int, pid_dir: str) -> int:
+    """Rank body: every rank writes its pid to ``pid_dir``; rank ``bad``
+    then sleeps for ever, the others return their rank."""
+    import os
+    import time
+    with open(os.path.join(pid_dir, f"rank{rank}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    while rank == bad:
+        time.sleep(1)
+    return rank

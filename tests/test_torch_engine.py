@@ -231,9 +231,11 @@ def test_convert_roundtrip(tiny_mc_problem, packs):
 
 def test_engine_refuses_mesh_and_missing_cuda(packs):
     bt, _ = packs["ring", True]
+    # NomadRingEngine(mesh=) runs (tests/test_torch_spmd.py); migrating
+    # onto a mesh does not yet
+    eng = _port(bt, "wave_pallas")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tnomad.NomadRingEngine(br=bt, k=K, lam=0.05, stepsize=TPower(),
-                               mesh=object(), device="cpu")
+        eng.migrate(bt, mesh=object())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tnomad.NomadRingEngine(br=bt, k=K, lam=0.05, stepsize=TPower())
