@@ -34,10 +34,9 @@ Phases, one line each (any failure raises and exits non-zero):
    kernel's plan (``variant``) on every line; where the hottest cell's
    waves spend their time (``[4.wave.split]``, ``clock64()`` samples of
    the kernel's profile build) with H in global memory beside the ring
-   and as the plan lays it out, each bitwise the launch's result; the
-   variant for an H block too large for shared memory (``[4.hglobal]``,
-   2,222 item rows, the plan must keep H in global memory) against its
-   plain version; and
+   and as the plan lays it out, each bitwise the launch's result (the
+   variant for an H block too large for shared memory is held against
+   its plain version at full Netflix, phase 9); and
    ``nomad_sgd_block`` on a whole cell, bitwise equal to the sequential
    route's launch;
 5. serving: the main path's result saved with ``save_fit_result``,
@@ -145,12 +144,32 @@ Phases, one line each (any failure raises and exits non-zero):
    (bitwise, or within 1e-6); per step each rank's kernel ms (CUDA
    events), staging and gloo ms per hop, the step's wall; seconds per
    epoch beside ``[9.split]``'s, spawn to ready, card and host peaks.
-   ``[11.api]``: ``api.solve(mesh=)`` on Netflix x 0.02 (2 epochs) for
+   ``[11.api]``: ``api.solve(mesh=)`` on Netflix x 0.02 (1 epoch) for
    the ring, random and balanced schedules, each digest equal to this
    process's one-device ``solve``, the ring's loop dispatch equal to its
-   fused one, and ``sub_blocks=2`` (the sequential route, 1 epoch) on the
-   card against the same ranks on the CPU (``check_close``, with a
-   no-update control).  Any rank's failure or timeout fails the phase.
+   fused one, and ``sub_blocks=2`` (the sequential route, sub-block by
+   sub-block) equal to the one-device ``solve`` of the same config.  Any
+   rank's failure or timeout fails the phase.
+12. NOMAD's streaming, elastic and fault-tolerant paths on the mesh, in
+   the same spawn as phase 11, after it: phase 2's ratings, phase 3's
+   factors and packing (with the ratings' ids) are written once under
+   ``build/`` and mapped by the ranks.  ``StreamingSession(mesh=)`` warm
+   from phase 3's result replays phase 8's sequence: the two arrival
+   batches, one epoch each; a leave (worker 3) and a join, each onto a
+   mesh of the new worker count within the 8 ranks
+   (``McMesh.ranks_after``), each followed by ``fit()``; ``kill(5)``;
+   ``fit()``; the newest checkpoint bit-flipped; ``kill(0)``
+   (``[12.op]``, one line an op: the digest, which must equal phase 8's
+   for the same op, or the factors before a resize; the wave kernel's
+   launches, steps x epochs on member ranks and 0 on idle ones; 0 plain
+   calls; the idle ranks; the slowest rank's seconds of each part: the
+   lead rank's re-pack that the others map, migrate with its gather, the
+   epoch, checkpoint save, restore and replay).  ``[12.faults]``:
+   ``solve(faults=, mesh=)`` cut after 2 epochs and resumed equals phase
+   3's run.  ``[12.chaos]``: ``ChaosHarness(mesh_factory=make_mc_mesh)``
+   with a leave, a join, a kill and a NaN on a small problem equals the
+   same harness on one device in this process.  ``[12.ranks]``: each
+   rank's card and host peaks.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -372,45 +391,6 @@ def wave_split(ks, W, H, csr, lr, lam, plan, what: str,
                                   for name in SPLIT_NAMES}))
     sp["ns_per_cycle"] = ns_per_cycle
     return sp
-
-
-def h_global_check(ks, dev, m_tile: int, k: int, lr, lam) -> None:
-    """[4.hglobal]: the variant for an H block too large for shared
-    memory, on one synthetic cell of full Netflix's ``n_local`` (2,222
-    item rows), ``m_tile`` user rows and rank ``k``: ratings from a seed
-    (users uniform, items Zipf(1.3), as skewed as real ratings), packed
-    into waves on the host, factors from a seed on the card.  Its plan
-    must keep H in global memory; the kernel against its plain version
-    within ``check_close``; its time."""
-    from repro_torch.core.partition import pack_cell_waves
-    n_tile, nnz = 2222, 137_000
-    rng = np.random.default_rng(18)
-    r = rng.integers(0, m_tile, nnz)
-    c = np.minimum(rng.zipf(1.3, nnz) - 1, n_tile - 1)
-    v = rng.normal(size=nnz).astype(np.float32)
-    _, *pad, _ = pack_cell_waves(r, c, v)
-    csr = ks.WaveCSR.from_padded(*(torch.from_numpy(a)[None].to(dev)
-                                   for a in pad))
-    g = torch.Generator(device=dev).manual_seed(18)
-    W0 = torch.rand((1, m_tile, k), generator=g, device=dev) / k ** 0.5
-    H0 = torch.rand((1, n_tile, k), generator=g, device=dev) / k ** 0.5
-    plan = ks.launch_plan(W0, H0)
-    if plan.resident:
-        raise AssertionError(f"n_tile={n_tile}: plan {plan.describe()} "
-                             "keeps H resident")
-    Wk, Hk = ks.nomad_sgd_waves_csr(W0.clone(), H0.clone(), csr, lr, lam)
-    (Wp, Hp), p_ms = timed(lambda: ks.block_sgd_waves_csr(
-        W0.clone(), H0.clone(), csr, lr, lam))
-    upd = max_row_updates(csr, m_tile, n_tile)
-    for x, got, want in (("W", Wk, Wp), ("H", Hk, Hp)):
-        check_close(f"{x} kernel vs plain, n_tile={n_tile} "
-                    f"({plan.describe()})", got, want, upd)
-    k_ms = cuda_ms(lambda: ks.nomad_sgd_waves_csr(W0.clone(), H0.clone(),
-                                                  csr, lr, lam), 3)
-    phase("4.hglobal", n_tile=n_tile, m_tile=m_tile, ratings=nnz,
-          chain=chain(csr), kernel_ms=f"{k_ms:.3f}",
-          us_per_wave=f"{k_ms * 1e3 / chain(csr):.4f}",
-          plain_ms=f"{p_ms:.1f}", variant=plan.describe())
 
 
 def dependency_path(br, csr) -> tuple:
@@ -1325,7 +1305,10 @@ def arrival_batches(result, m: int, n: int, nnz: int, k: int):
 def stream_phase(api, ks, ref, problem, config, warm, dev):
     """[8.*]: streaming, elasticity and integrity on the card, warm from
     phase 3's result at its full width.  Returns the wave kernel's and
-    the top-k kernel's launches on these paths."""
+    the top-k kernel's launches on these paths, and the digests phase 12
+    is held to (keyed by its ops: ``arrive1``, ``arrive2``, ``fit after
+    leave``, ``fit after join``, ``kill5``, ``fit after kill5``,
+    ``kill0``, ``faults``)."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -1343,6 +1326,7 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
     ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_",
                                  dir=ROOT / "build"))
     launches = {"wave": 0, "topk": 0}
+    want = {}
 
     def run(fn, epochs_of):
         """``fn()`` with the wave kernel's count zeroed before and read
@@ -1432,6 +1416,7 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
             eng = sess._eng
             tm = sess.timings
             digests.append(factor_digest(res.W, res.H))
+            want[f"arrive{t + 1}"] = digests[-1]
             phase("8.stream", round=t + 1, m=eng.br.m, n=eng.br.n,
                   nnz=sess.problem.nnz, m_local=eng.br.m_local,
                   n_local=eng.br.n_local,
@@ -1471,6 +1456,7 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
             plan_ = layout_check(ks, ref, eng, lr, lam, f"migrate {what}")
             m_before, v0 = sess.problem.m, store.version
             res, n_l = run(lambda: sess.fit(), epochs_steps)
+            want[f"fit after {what}"] = factor_digest(res.W, res.H)
             phase("8.elastic", op=what, p=f"{tr.p_old}->{tr.p_new}",
                   moved_rows=len(tr.moved_rows),
                   moved_cols=len(tr.moved_cols),
@@ -1484,20 +1470,16 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
     sess.unsubscribe(store.publish_result)
 
     # -- [8.kill]: kill recovery against a graceful twin -----------------
-    # the twin: a session warm from the partial_fit chain's result and its
-    # pinned problem, through the same worker-set changes
-    twin = api.StreamingSession(pr, cfg1, warm_start=chain, device=dev)
-    twin.resize(leave=(3,))
-    twin.fit()
-    twin.resize(join=1)
-    twin_res = twin.fit()
-    if factor_digest(twin_res.W, twin_res.H) != factor_digest(
-            sess.result.W, sess.result.H):
-        raise AssertionError("the twin session differs before the kill")
+    # the twin: a session warm from the session's result, on its problem
+    # (pinned to its partition and schedule, the packing a cache hit) and
+    # config, which departs gracefully where the session is killed
+    twin = api.StreamingSession(sess.problem, sess.config,
+                                warm_start=sess.result, device=dev)
     for worker, flip in ((5, False), (0, True)):
         if flip:
             # one more round each, then the newest checkpoint corrupted
-            sess.fit()
+            res = sess.fit()
+            want["fit after kill5"] = factor_digest(res.W, res.H)
             twin.fit()
             flipped = bitflip_checkpoint(str(ckpt), seed=8)
         t0 = time.perf_counter()
@@ -1505,7 +1487,8 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
         kill_s = time.perf_counter() - t0
         twin.resize(leave=(worker,))
         got = factor_digest(*sess._eng.factors())
-        want = factor_digest(*twin._eng.factors())
+        twin_d = factor_digest(*twin._eng.factors())
+        want[f"kill{worker}"] = got
         tm = sess.timings
         quarantined = (flip and (ckpt / f"step_{flipped:08d}.corrupt")
                        .is_dir())
@@ -1518,10 +1501,10 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
               replay_s=f"{tm['replay']:.3f}",
               repack_transition_s=f"{tm['repack_transition']:.3f}",
               migrate_s=f"{tm['migrate']:.3f}", kill_s=f"{kill_s:.3f}",
-              digest=got, twin_digest=want, equal=got == want)
-        if got != want or (flip and not quarantined):
+              digest=got, twin_digest=twin_d, equal=got == twin_d)
+        if got != twin_d or (flip and not quarantined):
             raise AssertionError(f"kill({worker}): recovery {got} against "
-                                 f"the twin's {want}, quarantined "
+                                 f"the twin's {twin_d}, quarantined "
                                  f"{quarantined}")
     del twin, sess, chain, pr
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1540,13 +1523,14 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
                                     device=dev),
                   lambda r: (config.epochs - 2) * n_steps)
     part2_s = time.perf_counter() - t0
-    got, want = factor_digest(res.W, res.H), factor_digest(warm.W, warm.H)
+    got, whole = factor_digest(res.W, res.H), factor_digest(warm.W, warm.H)
+    want["faults"] = got
     same_trace = np.array_equal(res.trace_rmse, warm.trace_rmse)
     phase("8.faults", epochs=f"2+{config.epochs - 2}",
           part1_s=f"{part1_s:.3f}", part2_s=f"{part2_s:.3f}",
-          launches=n1 + n2, digest=got, uninterrupted_digest=want,
-          equal=got == want, trace_equal=same_trace)
-    if got != want or not same_trace:
+          launches=n1 + n2, digest=got, uninterrupted_digest=whole,
+          equal=got == whole, trace_equal=same_trace)
+    if got != whole or not same_trace:
         raise AssertionError("crash-resume differs from the uninterrupted "
                              "run")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1555,7 +1539,7 @@ def stream_phase(api, ks, ref, problem, config, warm, dev):
     phase("8.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
           wave_launches=launches["wave"], topk_launches=launches["topk"],
           host_peak_rss_gb=f"{rss_gb:.1f}")
-    return launches
+    return launches, want
 
 
 #: [9.netflix]: the paper's Netflix (its Table 2) with its
@@ -1567,7 +1551,8 @@ NETFLIX_EPOCHS = 3
 CHECK_RATINGS = 100_000
 #: [9.sim]: the simulator's problem (users, items, ratings, rank), its
 #: workers, and the epochs its schedule runs on the card
-SIM_M, SIM_N, SIM_NNZ, SIM_K, SIM_P, SIM_EPOCHS = 2000, 500, 40_000, 16, 8, 2
+SIM_M, SIM_N, SIM_NNZ, SIM_K, SIM_P = 2000, 500, 40_000, 16, 8
+SIM_EPOCHS = 1
 #: the reference tests' tolerance of an engine against the serial replay
 REPLAY_RTOL, REPLAY_ATOL = 2e-5, 2e-6
 #: bytes of one padded wave slot: row, col, value, mask, global id
@@ -2211,17 +2196,15 @@ def sim_phase(api, ks, dev) -> int:
 #: [11.*]: ranks of the SPMD executor (all on the one card), the seconds
 #: they may take, [11.api]'s problem (Netflix x SPMD_API_SCALE, built as
 #: phases 2-8 build theirs; below the pack's fork threshold, so ranks
-#: pack it without forking) and its epochs, and the bound of
-#: [11.netflix]'s RMSE trace against [9.solve]'s where it is not bitwise
+#: pack it without forking) and its epochs (the sub_blocks=2 run's too),
+#: and the bound of [11.netflix]'s RMSE trace against [9.solve]'s where
+#: it is not bitwise
 SPMD_P, SPMD_TIMEOUT = 8, 900
-SPMD_API_SCALE, SPMD_API_EPOCHS = 0.02, 2
+SPMD_API_SCALE, SPMD_API_EPOCHS = 0.02, 1
 SPMD_TRACE_RTOL = 1e-6
-#: epochs of [11.api]'s sub_blocks=2 run, on the card and on the CPU
-#: (the CPU ranks' sequential plain version takes ~18 s an epoch)
-SPMD_SUB_EPOCHS = 1
 
 
-def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
+def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
     """[11.netflix], [11.api]: NOMAD's SPMD executor in ``SPMD_P`` ranks
     started by ``launch.mesh.spawn_ranks`` (spawned, one process group, the
     transport ``make_mc_mesh`` picks: staged gloo when the ranks share the
@@ -2235,12 +2218,14 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
     ``api.solve(mesh=)`` on Netflix x ``SPMD_API_SCALE`` for the ring,
     random and balanced schedules (digests equal to this process's
     one-device ``solve``), the ring under both dispatches, and
-    ``sub_blocks=2`` on the card for ``SPMD_SUB_EPOCHS`` held against the
-    same ranks on the CPU (``check_close``, with a no-update control).
+    ``sub_blocks=2`` (the sequential route, sub-block by sub-block) held
+    to the one-device ``solve`` of the same config.
     Returns the ranks' launches of the per-cell and the sequential route.
     Chain bounds are waves x ``floor_ns`` (``[4.floor]``): a step's longest
     cell, and its cells one after another (what 8 processes time-slicing one
-    card can at best do)."""
+    card can at best do).  Phase 12's runs (:func:`mesh_stream_runs`, on
+    ``stream``) follow in the same spawn, reported by
+    :func:`mesh_stream_report`."""
     import shutil
 
     from repro_torch.configs.nomad_mf import NETFLIX
@@ -2290,12 +2275,12 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
     cases = {s: dataclasses.replace(base, schedule=s)
              for s in ("ring", "random", "balanced")}
     cases["ring, loop"] = dataclasses.replace(base, dispatch="loop")
-    sub = dataclasses.replace(base, kernel="pallas", sub_blocks=2,
-                              epochs=SPMD_SUB_EPOCHS)
+    sub = dataclasses.replace(base, kernel="pallas", sub_blocks=2)
     local = {}
     t0 = time.perf_counter()
-    for name in ("ring", "random", "balanced"):
-        res = api.solve(small, cases[name], device=dev)
+    for name, cfg in (("ring", cases["ring"]), ("random", cases["random"]),
+                      ("balanced", cases["balanced"]), ("sub", sub)):
+        res = api.solve(small, cfg, device=dev)
         local[name] = (factor_digest(res.W, res.H),
                        [float(x) for x in res.rmse])
     local_s = time.perf_counter() - t0
@@ -2304,8 +2289,12 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
     runs = [netflix]
     runs += [dict(kind="solve", problem=fresh, config=c)
              for c in cases.values()]
-    runs += [dict(kind="solve", problem=fresh, config=sub),
-             dict(kind="solve", problem=fresh, config=sub, device="cpu")]
+    runs += [dict(kind="solve", problem=fresh, config=sub)]
+    first12 = len(runs)
+    t12 = time.perf_counter()
+    runs12, chaos_local = mesh_stream_runs(api, stream, dev)
+    runs += runs12
+    t12 = time.perf_counter() - t12
     phase("11.write", seconds=f"{write_s:.2f}", bytes=written,
           api_m=small.m, api_n=small.n, api_train=small.nnz,
           api_local_solves_s=f"{local_s:.2f}", host_peak_rss_gb=peak.gb())
@@ -2415,50 +2404,263 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns):
             raise AssertionError(f"[11.api] {name}: launches {got_l}, want "
                                  f"{want_l}, or plain calls")
         launched["per_cell"] += sum(got_l)
-    card, cpu = len(cases) + 1, len(cases) + 2
-    want_l = SPMD_SUB_EPOCHS * p * sub.sub_blocks     # the ring: p steps
+    card = len(cases) + 1
+    want_l = SPMD_API_EPOCHS * p * sub.sub_blocks    # the ring: p steps
     got_l = [o[f"launches{card}"]["nomad_sgd_waves_csr"] for o in outs]
+    ds = sorted({o[f"digest{card}"] for o in outs})
+    traces = {tuple(x for _, x in o[f"trace{card}"]) for o in outs}
     phase("11.api", schedule="'ring'", sub_blocks=2, kernel="pallas",
+          digest=",".join(ds), want_digest=local["sub"][0],
+          equal=ds == [local["sub"][0]],
+          trace_equal=traces == {tuple(local["sub"][1])},
           launches=json.dumps(got_l), want=want_l,
           plain_calls=json.dumps([o[f"plain{card}"] for o in outs]),
-          cpu_plain_calls=json.dumps([o[f"plain{cpu}"] for o in outs]),
-          solve_s=f"{max(o[f'train_s{card}'] for o in outs):.2f}",
-          cpu_solve_s=f"{max(o[f'train_s{cpu}'] for o in outs):.2f}")
+          solve_s=f"{max(o[f'train_s{card}'] for o in outs):.2f}")
+    if ds != [local["sub"][0]] or traces != {tuple(local["sub"][1])}:
+        raise AssertionError(f"[11.api] sub_blocks=2: digests {ds}, want "
+                             f"{local['sub'][0]}; traces {traces}")
     if got_l != [want_l] * p or any(o[f"plain{card}"] for o in outs):
         raise AssertionError(f"[11.api] sub_blocks=2: launches {got_l}, "
                              f"want {want_l}, or plain calls")
     launched["sequential"] = sum(got_l)
-    upd = SPMD_SUB_EPOCHS * max(int(np.bincount(small.rows).max()),
-                                int(np.bincount(small.cols).max()))
-    W0, _ = init_factors(torch.Generator().manual_seed(int(base.seed)),
-                         small.m, small.n, k)
-    for o in outs[:1]:
-        for nm in ("W", "H"):
-            check_close(f"[11.api] {nm} sub_blocks=2, 8 ranks on the card "
-                        "vs on the CPU", torch.from_numpy(o[f"{nm}{card}"]),
-                        torch.from_numpy(o[f"{nm}{cpu}"]), upd)
-        want_W = torch.from_numpy(o[f"W{cpu}"])
-        bound_ = 16 * EPS_FP32 * upd ** 0.5
-        ctrl = rel_err(W0, want_W)
-        phase("control", what="[11.api] sub_blocks=2 no update",
-              max_rel_err=f"{ctrl:.3e}", bound=f"{bound_:.3e}",
-              rejected=ctrl > bound_)
-        if not ctrl > bound_:
-            raise AssertionError("the check cannot tell factors that were "
-                                 "not updated from the CPU ranks' result")
-    if len({o[f"digest{card}"] for o in outs}) != 1:
-        raise AssertionError("[11.api] sub_blocks=2: ranks disagree")
     shutil.rmtree(out, ignore_errors=True)
     peak.close()
     phase("11.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
           spawn_s=f"{spawn_s:.1f}", host_peak_rss_gb=peak.gb())
+    launched["per_cell"] += mesh_stream_report(outs, first12, stream,
+                                               chaos_local, t12)
+    return launched
+
+
+#: [12.*]: phase 8's sequence on the mesh, each op with the phase 8
+#: digest it is held to (``None``: a resize, held to the factors before
+#: it, which it only moves)
+MESH_SCRIPT = [("arrive", 0, "arrive1"), ("arrive", 1, "arrive2"),
+               ("leave", (3,), None), ("fit", None, "fit after leave"),
+               ("join", 1, None), ("fit", None, "fit after join"),
+               ("kill", (5,), "kill5"), ("fit", None, "fit after kill5"),
+               ("bitflip", 8, None), ("kill", (0,), "kill0")]
+#: [12.chaos]: the harness's problem (users, items, ratings; k and p are
+#: phase 8's), its seed; its script is a leave, a join, a kill and a NaN
+#: in worker 0's shard, one epoch a round
+CHAOS_M, CHAOS_N, CHAOS_NNZ, CHAOS_SEED = 4000, 400, 80_000, 5
+
+
+def mesh_stream_inputs(problem, config, warm, br, want) -> dict:
+    """Phase 12's inputs, written once under ``build/spmd_stream`` for the
+    ranks to map: phase 2's ratings and held-out ratings, phase 3's
+    factors and its packing (with the ratings' ids, which the lead rank's
+    re-packs read); the digests of phase 8 the ops are held to."""
+    import shutil
+
+    from repro_torch.core import partition as part
+
+    out = ROOT / "build" / "spmd_stream"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    part.save_pack(br, str(out / "pack"), ids=True)
+    files = {}
+    for name, a in (("rows", problem.rows), ("cols", problem.cols),
+                    ("vals", problem.vals), ("W", warm.W), ("H", warm.H),
+                    *((f"test_{c}", t) for c, t in zip(
+                        ("rows", "cols", "vals"), problem.test))):
+        files[name] = str(out / f"{name}.npy")
+        np.save(files[name], a)
+    write_s = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in out.rglob("*") if f.is_file())
+    phase("12.write", seconds=f"{write_s:.2f}", bytes=written)
+    return dict(
+        dir=out, config=config, want=want, n=problem.n, m=problem.m,
+        write_s=write_s,
+        nnz=problem.nnz, k=config.k, epochs_done=warm.epochs_done,
+        trace_epochs=warm.trace_epochs, trace_rmse=warm.trace_rmse,
+        problem=dict(rows=files["rows"], cols=files["cols"],
+                     vals=files["vals"], m=problem.m, n=problem.n,
+                     test=tuple(files[f"test_{c}"]
+                                for c in ("rows", "cols", "vals"))),
+        pack=str(out / "pack"),
+        warm=dict(W=files["W"], H=files["H"], trace_epochs=warm.trace_epochs,
+                  trace_rmse=warm.trace_rmse, epochs_done=warm.epochs_done))
+
+
+def mesh_stream_runs(api, stream, dev):
+    """Phase 12's runs for the ranks (``testing.run_script`` kinds): the
+    session through :data:`MESH_SCRIPT` with phase 8's arrival batches,
+    ``solve(faults=)`` cut after 2 epochs, and the chaos harness on a
+    small problem (:data:`CHAOS_M` ...) with phase 8's k, p and step
+    sizes; and the harness's one-device run on the card in this process,
+    which the ranks' must equal."""
+    from repro_torch import testing
+    from repro_torch.runtime.chaos import ChaosEvent
+
+    cfg1 = dataclasses.replace(stream["config"], epochs=1)
+    warm = api.FitResult(W=np.load(stream["warm"]["W"]),
+                         H=np.load(stream["warm"]["H"]),
+                         trace_epochs=stream["trace_epochs"],
+                         trace_rmse=stream["trace_rmse"],
+                         epochs_done=stream["epochs_done"])
+    batches = arrival_batches(warm, stream["m"], stream["n"],
+                              stream["nnz"], stream["k"])
+    del warm
+    ckpt = stream["dir"] / "ckpt"
+    script = [(op, batches[arg] if op == "arrive" else arg)
+              for op, arg, _ in MESH_SCRIPT]
+    base = dict(problem=stream["problem"], pack=stream["pack"])
+    events = [ChaosEvent(1, "leave", 3), ChaosEvent(2, "join"),
+              ChaosEvent(3, "kill", 5), ChaosEvent(4, "nan")]
+
+    chaos_config = dataclasses.replace(cfg1, stepsize=stream["config"]
+                                       .stepsize)
+
+    def chaos(where):
+        d = stream["dir"] / f"chaos_{where}"
+        d.mkdir()
+        # a problem of its own for each run: no pack cache is pickled
+        problem = api.MCProblem.synthetic(
+            CHAOS_M, CHAOS_N, CHAOS_NNZ, k=stream["k"], seed=CHAOS_SEED,
+            noise=0.1, test_frac=0.05, split_seed=1)
+        return dict(kind="chaos", problem=problem, config=chaos_config,
+                    events=events, seed=CHAOS_SEED,
+                    faults=api.FaultPolicy(
+                        checkpoint_dir=str(d), checkpoint_every=1,
+                        divergence=api.DivergencePolicy(max_rollbacks=3)))
+
+    runs = [dict(base, kind="session", config=cfg1, warm=stream["warm"],
+                 script=script,
+                 faults=api.FaultPolicy(checkpoint_dir=str(ckpt), keep=2)),
+            dict(base, kind="faults", config=stream["config"], cut=2,
+                 ckpt=str(stream["dir"] / "faults")),
+            chaos("mesh")]
+    t0 = time.perf_counter()
+    with testing.KernelCounts() as counts:
+        local = testing.run_script(chaos("card"), counts, device=dev)
+    local["seconds"] = time.perf_counter() - t0
+    return runs, local
+
+
+def mesh_stream_report(outs, first: int, stream, chaos_local,
+                       setup_s: float) -> int:
+    """[12.*] from the ranks' results (runs ``first`` .. ``first + 2`` of
+    the spawn): each op's digest against phase 8's, its launches against
+    steps x epochs on member ranks and 0 on idle ones, 0 plain calls,
+    the slowest rank's seconds for each part of the op; the crash-resume
+    against phase 3's run; the harness against its one-device run.
+    ``setup_s`` is this process's part before the spawn.  Returns the
+    ranks' launches of the per-cell route."""
+    import shutil
+
+    p = len(outs)
+    want = stream["want"]
+    recs = [[o[f"script{first}"]["ops"][j] for o in outs]
+            for j in range(len(MESH_SCRIPT))]
+    launched = 0
+    last = None
+    for j, ((op, arg, key), rs) in enumerate(zip(MESH_SCRIPT, recs)):
+        digests = sorted({r.get("digest") for r in rs} - {None})
+        target = want[key] if key else last
+        waves = [r["launches"]["nomad_sgd_waves_csr"] for r in rs]
+        totals = [sum(r["launches"].values()) for r in rs]
+        plain = [r["plain"] for r in rs]
+        before = rs[0]["ranks_before"]
+        epochs = rs[0]["rounds"]
+        want_l = [epochs * len(before) if q in before else 0
+                  for q in range(p)]
+        timings = {}
+        for r in rs:
+            for name, v in r["timings"].items():
+                timings[name] = max(timings.get(name, 0.0), v)
+        fields = dict(op=op, arg=repr(arg) if op != "arrive" else arg + 1,
+                      p=rs[0]["p"],
+                      idle=json.dumps([q for q in range(p)
+                                       if not rs[q]["member"]]),
+                      seconds=f"{max(r['seconds'] for r in rs):.3f}",
+                      **{f"{n}_s": f"{v:.3f}" for n, v in timings.items()})
+        if op != "bitflip":
+            fields.update(digest=",".join(digests), want_digest=target,
+                          equal=digests == [target])
+        else:
+            fields.update(flipped_step=rs[0]["flipped"])
+        if op == "kill":
+            fields.update(quarantined=json.dumps(rs[0]["corrupt"]))
+        fields.update(launches=json.dumps(waves), want=json.dumps(want_l),
+                      plain_calls=json.dumps(plain))
+        if "trace" in rs[0]:
+            fields.update(rmse=f"{rs[0]['trace'][-1]:.6f}")
+        phase("12.op", i=j, **fields)
+        if op != "bitflip" and digests != [target]:
+            raise AssertionError(f"[12.op] {j} {op}: digests {digests}, "
+                                 f"want {target}")
+        if waves != want_l or totals != want_l or any(plain):
+            raise AssertionError(f"[12.op] {j} {op}: launches {waves} / "
+                                 f"{totals}, want {want_l}, plain {plain}")
+        if op == "kill" and arg == (0,) and rs[0]["corrupt"] != [
+                f"step_{recs[j - 1][0]['flipped']:08d}.corrupt"]:
+            raise AssertionError("[12.op] the bit-flipped checkpoint was "
+                                 "not quarantined")
+        if op != "bitflip":
+            last = digests[0]
+        launched += sum(waves)
+
+    # -- [12.faults]: solve(faults=, mesh=) cut after 2 epochs, resumed ---
+    parts = [[o[f"script{first + 1}"]["ops"][j] for o in outs]
+             for j in (0, 1)]
+    digests = sorted({r["digest"] for r in parts[1]})
+    traces = {tuple(r["trace"]) for r in parts[1]}
+    waves = [[r["launches"]["nomad_sgd_waves_csr"] for r in rs]
+             for rs in parts]
+    want_l = [[2 * p] * p, [(EPOCHS - 2) * p] * p]
+    plain = [r["plain"] for rs in parts for r in rs]
+    phase("12.faults", epochs=f"2+{EPOCHS - 2}", digest=",".join(digests),
+          want_digest=want["faults"], equal=digests == [want["faults"]],
+          trace_equal=traces == {tuple(float(x)
+                                       for x in stream["trace_rmse"])},
+          launches=json.dumps(waves), want=json.dumps(want_l),
+          plain_calls=json.dumps(plain),
+          part1_s=f"{max(r['seconds'] for r in parts[0]):.3f}",
+          part2_s=f"{max(r['seconds'] for r in parts[1]):.3f}")
+    if digests != [want["faults"]] or len(traces) != 1 or any(plain) \
+            or waves != want_l:
+        raise AssertionError(f"[12.faults] digests {digests}, traces "
+                             f"{traces}, launches {waves}, plain {plain}")
+    launched += sum(map(sum, waves))
+
+    # -- [12.chaos]: ChaosHarness(mesh_factory=) against one device ------
+    ch = [o[f"script{first + 2}"] for o in outs]
+    digests = sorted({c["digest"] for c in ch})
+    plain = [c["plain"] for c in ch]
+    waves = [c["launches"]["nomad_sgd_waves_csr"] for c in ch]
+    phase("12.chaos", actions=json.dumps(ch[0]["actions"]),
+          rollbacks=ch[0]["rollbacks"], p_final=ch[0]["p_final"],
+          digest=",".join(digests), one_device_digest=chaos_local["digest"],
+          equal=digests == [chaos_local["digest"]],
+          rmse_equal=all(c["rmse"] == chaos_local["rmse"] for c in ch),
+          launches=json.dumps(waves), plain_calls=json.dumps(plain),
+          one_device_s=f"{chaos_local['seconds']:.2f}")
+    if digests != [chaos_local["digest"]] or any(plain) or not all(
+            c["rmse"] == chaos_local["rmse"] for c in ch) \
+            or not ch[0]["rollbacks"]:
+        raise AssertionError(f"[12.chaos] digests {digests} against "
+                             f"{chaos_local['digest']}, plain {plain}")
+    launched += sum(waves)
+    phase("12.ranks", card_peak_bytes=json.dumps(
+              [o[f"card_peak_bytes{first}"] for o in outs]),
+          host_peak_rss_gb=json.dumps(
+              [round(o[f"host_peak_rss_gb{first}"], 2) for o in outs]))
+    shutil.rmtree(stream["dir"], ignore_errors=True)
+    ranks_s = (max(o[f"span{first + 2}"][1] for o in outs)
+               - min(o[f"span{first}"][0] for o in outs))
+    phase("12.done", seconds=f"{stream['write_s'] + setup_s + ranks_s:.1f}",
+          write_s=f"{stream['write_s']:.2f}", setup_s=f"{setup_s:.2f}",
+          ranks_s=f"{ranks_s:.1f}", wave_launches=launched)
     return launched
 
 
 def main_path(args, api, ks, ref, dev):
     """Phases 2-8 at Netflix x ``args.scale``.  Returns the kernel
-    records, phase 2's errors, ``[4.floor]``'s ns per wave and phase 2's
-    problem (its packs released)."""
+    records, phase 2's errors, ``[4.floor]``'s ns per wave, phase 2's
+    problem (its packs released) and phase 12's inputs
+    (:func:`mesh_stream_inputs`)."""
     from repro_torch.core.nomad import wave_csr
     from repro_torch.core.partition import padded_waves
     from repro_torch.core.stepsize import PowerSchedule
@@ -2701,7 +2903,6 @@ def main_path(args, api, ks, ref, dev):
           ratings=json.dumps(torch.bincount(cell_ratings(step)[0],
                                             minlength=p).tolist()),
           variant=variant)
-    h_global_check(ks, dev, br.m_local, k, lr, lam)
 
     # where solve's time goes: its engine's pieces, one by one
     from repro_torch.core.nomad import NomadRingEngine
@@ -2794,8 +2995,8 @@ def main_path(args, api, ks, ref, dev):
     torch.cuda.empty_cache()
     kernels.extend(flash_kernel_checks(dev, flash_launches))
     torch.cuda.empty_cache()
-    stream = stream_phase(api, ks, ref, problem, config,
-                          routes["grid"]["result"], dev)
+    stream, digests = stream_phase(api, ks, ref, problem, config,
+                                   routes["grid"]["result"], dev)
     for rec in kernels:
         if rec["name"] == "nomad_sgd_waves_csr[grid]":
             rec["launches"] += stream["wave"]
@@ -2803,8 +3004,10 @@ def main_path(args, api, ks, ref, dev):
         elif rec["name"].startswith("topk_scores_cuda"):
             rec["launches"] += stream["topk"]
             rec["launches_on"] = "[5.serve] and [8.swap]"
+    stream_in = mesh_stream_inputs(problem, config, routes["grid"]["result"],
+                                   br, digests)
     problem._pack_cache.clear()
-    return kernels, errs, floor_ns, problem
+    return kernels, errs, floor_ns, problem, stream_in
 
 
 def main() -> int:
@@ -2854,16 +3057,19 @@ def main() -> int:
     phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
           full_netflix=ks.plan(2222, 100, 4).describe())
 
-    kernels, errs, floor_ns, small = main_path(args, api, ks, ref, dev)
+    kernels, errs, floor_ns, small, stream_in = main_path(args, api, ks, ref,
+                                                          dev)
     # -- 9. full Netflix on the main path; the simulator's schedule ------
     torch.cuda.empty_cache()
     record, netflix, digest, global_floor_ns, ran = netflix_phase(
         api, ks, ref, dev, floor_ns)
     kernels.append(record)
     sim_launches = sim_phase(api, ks, dev)
-    # -- 11. the SPMD executor in ranks on the card, on phase 9's pack --
+    # -- 11, 12. the SPMD executor in ranks on the card: phase 9's pack;
+    # phase 8's streaming, elastic and fault-tolerant sequence ----------
     torch.cuda.empty_cache()
-    spmd_launches = spmd_phase(api, ks, dev, netflix, ran, digest, floor_ns)
+    spmd_launches = spmd_phase(api, ks, dev, netflix, ran, digest, floor_ns,
+                               stream_in)
     del ran
     netflix._pack_cache.clear()
     # -- 10. the paper's baselines at full Netflix ----------------------
@@ -2881,8 +3087,9 @@ def main() -> int:
             rec["launches_on"] = "[3.grid], [8.*] and [9.sim]"
         elif rec["name"] == "nomad_sgd_waves_csr[per_cell]":
             rec["launches"] += spmd_launches["per_cell"]
-            rec["launches_on"] = ("[3.per_cell], and [11.netflix] and "
-                                  "[11.api] summed over their ranks")
+            rec["launches_on"] = ("[3.per_cell], and [11.netflix], "
+                                  "[11.api] and [12.*] summed over their "
+                                  "ranks")
         elif rec["name"] == "nomad_sgd_waves_csr[sequential]":
             rec["launches"] += spmd_launches["sequential"]
             rec["launches_on"] = ("[3.sequential], and [11.api]'s "

@@ -40,17 +40,20 @@ NOMAD, every baseline of the paper (DSGD, CCD++, ALS, Hogwild,
 :mod:`repro_torch.core.baselines`) and the simulator run through this one
 call.  NOMAD, DSGD and Hogwild stream; CCD++, ALS and the simulator
 refuse ``partial_fit`` with ``NotImplementedError``, as in the JAX
-package.  ``solve(..., mesh=)`` runs NOMAD's SPMD executor over a
-:class:`repro_torch.launch.mesh.McMesh` (one process per worker; the
-other solvers accept the mesh and ignore it, as in the JAX package).
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP.md
-Queue 1 item 9: ``mesh=`` in ``partial_fit``, ``StreamingSession`` and
-``solve(faults=)``.
+package.  ``mesh=`` (a :class:`repro_torch.launch.mesh.McMesh`) runs
+NOMAD's SPMD executor, one process per worker, in ``solve`` (with or
+without ``faults=``), ``partial_fit`` and :class:`StreamingSession`,
+whose ``resize``/``kill`` move it onto a new mesh; the other solvers
+accept the mesh and ignore it, as in the JAX package.  Every rank of the
+launch makes the same calls and gets the same results, bitwise those of
+one device.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import shutil
+import tempfile
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple, Type, Union
@@ -861,11 +864,12 @@ def config_for(name: str) -> Type[SolverConfig]:
         ) from None
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (SPMD over several devices) is not ported yet: "
-            "ROADMAP.md Queue 1 item 9 [spmd]")
+def _mesh_device(mesh, device):
+    """``device``, or the mesh's device when there is a mesh and no
+    ``device``; refuses a mesh that is not an ``McMesh``."""
+    from .core.nomad import _check_mesh
+    _check_mesh(mesh)
+    return mesh.device if mesh is not None and device is None else device
 
 
 def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
@@ -877,7 +881,10 @@ def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
     ``warm_start`` — a previous :class:`FitResult` to resume from.
     ``faults``     — a :class:`FaultPolicy`: run in checkpointed blocks
                      and resume from the last committed block after a
-                     crash, bitwise-identical to the uninterrupted run.
+                     crash, bitwise-identical to the uninterrupted run
+                     (on a mesh too: one rank writes each block,
+                     ``faults.checkpoint_dir`` must be seen by every
+                     rank).
     ``device``     — where the factors live and the updates run; ``None``
                      means ``"cuda"`` (``RuntimeError`` without CUDA), or
                      the mesh's device when there is a mesh.
@@ -891,12 +898,7 @@ def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
     if not isinstance(problem, MCProblem):
         raise TypeError(f"problem must be MCProblem, got "
                         f"{type(problem).__name__}")
-    if mesh is not None:
-        if faults is not None:
-            _refuse_mesh(mesh)
-        if device is None:
-            device = mesh.device
-    device = resolve_device(device)
+    device = resolve_device(_mesh_device(mesh, device))
     if faults is not None:
         if not isinstance(faults, FaultPolicy):
             raise TypeError(f"faults must be FaultPolicy, got "
@@ -904,7 +906,7 @@ def solve(problem: MCProblem, config: SolverConfig, *, mesh=None,
         t0 = time.perf_counter()
         result = _solve_faulted(problem, config, warm_start=warm_start,
                                 verbose=verbose, faults=faults,
-                                device=device)
+                                device=device, mesh=mesh)
         return _finalize(result, config, t0)
     entry = None
     for cls in type(config).__mro__:
@@ -946,14 +948,16 @@ def _warm_factors(warm_start: Optional[FitResult], dtype=None):
 
 def _solve_faulted(problem: MCProblem, config: SolverConfig, *,
                    warm_start, verbose, faults: FaultPolicy,
-                   device) -> FitResult:
+                   device, mesh=None) -> FitResult:
     """Fault-tolerant ``solve``: run in ``checkpoint_every``-epoch
     blocks, atomically checkpoint the accumulated result after each, and
     (``resume=True``) pick up from the latest committed block.  Split
     runs warm-start bitwise-exactly, so the recovered run equals the
     uninterrupted one in W, H and trace.  With ``faults.divergence`` a
     block that trips the sentinel is discarded and retried from the last
-    good state with a backed-off step size."""
+    good state with a backed-off step size.  On a ``mesh`` every block
+    is ``solve(mesh=)`` and the checkpoints are the mesh's
+    (``save_fit_result(mesh=)``)."""
     from .checkpoint.checkpoint import (gc_checkpoints, restore_fit_result,
                                         save_fit_result)
     total = config.epochs
@@ -964,11 +968,12 @@ def _solve_faulted(problem: MCProblem, config: SolverConfig, *,
     total = int(total)
     if total == 0:
         return solve(problem, config, warm_start=warm_start,
-                     verbose=verbose, device=device)
+                     verbose=verbose, device=device, mesh=mesh)
     base = warm_start.epochs_done if warm_start is not None else 0
     warm, done, traces = warm_start, 0, []
     if faults.resume:
-        restored, _step = restore_fit_result(faults.checkpoint_dir)
+        restored, _step = restore_fit_result(faults.checkpoint_dir,
+                                             mesh=mesh)
         if restored is not None:
             if restored.config is not None and dataclasses.replace(
                     restored.config, epochs=config.epochs) != config:
@@ -996,7 +1001,7 @@ def _solve_faulted(problem: MCProblem, config: SolverConfig, *,
         if div is not None:
             cfg_chunk = div.backed_off(cfg_chunk, rollbacks)
         res = solve(problem, cfg_chunk, warm_start=warm, verbose=verbose,
-                    device=device)
+                    device=device, mesh=mesh)
         if div is not None and div.tripped(res, ref_rmse):
             # divergence quarantine: discard the block, fall back to the
             # last good state (``warm``), back the step size off, retry
@@ -1028,8 +1033,8 @@ def _solve_faulted(problem: MCProblem, config: SolverConfig, *,
         if n_rollbacks:
             res.extras["divergence"] = dict(
                 res.extras.get("divergence", {}), rollbacks=n_rollbacks)
-        save_fit_result(faults.checkpoint_dir, done, res)
-        gc_checkpoints(faults.checkpoint_dir, faults.keep)
+        save_fit_result(faults.checkpoint_dir, done, res, mesh=mesh)
+        gc_checkpoints(faults.checkpoint_dir, faults.keep, mesh=mesh)
         warm = res
     return res
 
@@ -1042,7 +1047,7 @@ _PARTIAL: Dict[Type[SolverConfig], Callable] = {}
 
 
 def register_partial_fit(config_cls: Type[SolverConfig]):
-    """Register ``fn(result, delta, config, *, verbose, device) ->
+    """Register ``fn(result, delta, config, *, verbose, device, mesh) ->
     FitResult`` as the streaming continuation for ``config_cls``."""
     def deco(fn):
         if config_cls in _PARTIAL:
@@ -1097,6 +1102,10 @@ def partial_fit(result: FitResult, delta: ProblemDelta,
     extended :class:`MCProblem` (pinned to the sticky partition) — build
     the next arrival's delta from it to chain batches:
     ``delta2 = res.extras["problem"].extend(...)``.
+
+    ``mesh`` runs NOMAD's round on the SPMD executor (every rank of the
+    launch calls ``partial_fit`` alike); DSGD and Hogwild pass it on to
+    ``solve``, which ignores it.
     """
     if not isinstance(result, FitResult):
         raise TypeError(
@@ -1104,7 +1113,7 @@ def partial_fit(result: FitResult, delta: ProblemDelta,
     if not isinstance(delta, ProblemDelta):
         raise TypeError(
             f"delta must be ProblemDelta, got {type(delta).__name__}")
-    _refuse_mesh(mesh)
+    device = _mesh_device(mesh, device)
     if config is None:
         config = result.config
         if config is None:
@@ -1114,7 +1123,8 @@ def partial_fit(result: FitResult, delta: ProblemDelta,
     fn = next(_PARTIAL[c] for c in type(config).__mro__ if c in _PARTIAL)
     device = resolve_device(device)
     t0 = time.perf_counter()
-    out = fn(result, delta, config, verbose=verbose, device=device)
+    out = fn(result, delta, config, verbose=verbose, device=device,
+             mesh=mesh)
     return _finalize(out, config, t0)
 
 
@@ -1167,6 +1177,34 @@ def _streaming_repack(base_br, base_problem: MCProblem,
         delta.m, delta.n, config.p, waves=config.kernel.wave,
         sub_blocks=config.kernel.sub_blocks, row_owner=row_owner,
         col_block=col_block, schedule=base_br.schedule)
+
+
+def _pack_once(mesh, build: Callable[[], part.BlockedRatings]
+               ) -> part.BlockedRatings:
+    """``build()``, a packing every rank of an SPMD launch needs alike.
+    On a mesh with a shared directory (``mesh.shared_dir``) only its lead
+    rank builds it, writes it there (``partition.save_pack``, the
+    ratings' ids included, so that any rank can re-pack it later) and
+    keeps it; the others map the files read-only, which the lead removes
+    once every rank holds them.  Without one every rank builds it.  The
+    bytes are the same either way."""
+    if mesh is None or mesh.shared_dir is None:
+        return build()
+    held = []
+
+    def lead():
+        br = build()
+        path = tempfile.mkdtemp(prefix="pack_", dir=mesh.shared_dir)
+        part.save_pack(br, path, ids=True)
+        held.append(br)
+        return path
+
+    path = mesh.on_lead(lead)
+    br = held[0] if held else part.load_pack(path)
+    mesh.barrier()          # mapped everywhere: the names can go
+    if mesh.lead:
+        shutil.rmtree(path, ignore_errors=True)
+    return br
 
 
 def _seed_pack_cache(prob: MCProblem, br, config: NomadConfig) -> MCProblem:
@@ -1228,7 +1266,7 @@ def _solve_nomad(problem: MCProblem, config: NomadConfig, *,
 @register_partial_fit(NomadConfig)
 def _partial_fit_nomad(result: FitResult, delta: ProblemDelta,
                        config: NomadConfig, *, verbose=False,
-                       device=None) -> FitResult:
+                       device=None, mesh=None) -> FitResult:
     from .core.objective import grow_factors
     policy = config.kernel
     base_br = delta.base.packed(config.p, balanced=config.balanced,
@@ -1237,7 +1275,7 @@ def _partial_fit_nomad(result: FitResult, delta: ProblemDelta,
                                 schedule=config.schedule,
                                 schedule_seed=config.schedule_seed)
     br = _streaming_repack(base_br, delta.base, delta, config)
-    eng = _nomad_engine(br, config, device)
+    eng = _nomad_engine(br, config, device, mesh)
     W0, H0 = grow_factors(
         np.asarray(result.W, dtype=delta.base.dtype),
         np.asarray(result.H, dtype=delta.base.dtype),
@@ -1253,21 +1291,22 @@ def _partial_fit_nomad(result: FitResult, delta: ProblemDelta,
 
 
 @register_partial_fit(DsgdConfig)
-def _partial_fit_dsgd(result, delta, config, *, verbose=False, device=None):
+def _partial_fit_dsgd(result, delta, config, *, verbose=False, device=None,
+                      mesh=None):
     return _partial_refit(result, delta, config, verbose=verbose,
-                          device=device)
+                          device=device, mesh=mesh)
 
 
 @register_partial_fit(HogwildConfig)
 def _partial_fit_hogwild(result, delta, config, *, verbose=False,
-                         device=None):
+                         device=None, mesh=None):
     return _partial_refit(result, delta, config, verbose=verbose,
-                          device=device)
+                          device=device, mesh=mesh)
 
 
 def _partial_refit(result: FitResult, delta: ProblemDelta,
                    config: SolverConfig, *, verbose=False,
-                   device=None) -> FitResult:
+                   device=None, mesh=None) -> FitResult:
     """Generic streaming continuation for solvers without an incremental
     pack: deterministic factor growth + warm-started batch solve on the
     concatenated data."""
@@ -1277,7 +1316,7 @@ def _partial_refit(result: FitResult, delta: ProblemDelta,
     warm = dataclasses.replace(result, W=W2, H=H2)
     ext = delta.extended()
     res = solve(ext, config, warm_start=warm, verbose=verbose,
-                device=device)
+                device=device, mesh=mesh)
     res.extras["problem"] = ext
     return res
 
@@ -1436,8 +1475,19 @@ class StreamingSession:
     state a graceful :meth:`resize` of the same workers reaches.
 
     ``device`` is where the engine runs, as for :func:`solve` (``None``
-    means ``"cuda"``).  :attr:`timings` holds the host-clock seconds of
-    the latest of each phase: ``repack_delta``, ``grow``, ``train``,
+    means ``"cuda"``, or the mesh's device).  With ``mesh`` (a
+    :class:`repro_torch.launch.mesh.McMesh`) the engine is NOMAD's SPMD
+    executor: every rank of the launch builds the session alike and
+    makes the same calls in the same order, members of the current mesh
+    or not, and every rank's results are bitwise the one-device
+    session's.  ``resize(mesh=)`` and ``kill(mesh=)`` move the engine
+    onto a mesh of the new worker set (``McMesh.ranks_after`` names its
+    ranks within the launch); the replay log keeps each op's mesh.  The
+    first mesh's lead rank writes the checkpoints and builds the
+    re-packings the others map (its shared directory, when it has one);
+    ``faults.checkpoint_dir`` must then be on one file system that every
+    rank sees.  :attr:`timings` holds the host-clock seconds of the
+    latest of each phase: ``repack_delta``, ``grow``, ``train``,
     ``repack_transition``, ``migrate``, ``checkpoint``, ``restore`` and
     ``replay``.
     """
@@ -1450,7 +1500,7 @@ class StreamingSession:
         if not isinstance(problem, MCProblem):
             raise TypeError(f"problem must be MCProblem, got "
                             f"{type(problem).__name__}")
-        _refuse_mesh(mesh)
+        device = _mesh_device(mesh, device)
         _refuse_non_streaming(config)
         if faults is not None and not isinstance(faults, FaultPolicy):
             raise TypeError(f"faults must be FaultPolicy, got "
@@ -1462,6 +1512,10 @@ class StreamingSession:
         self.device = resolve_device(device)
         self.problem = problem
         self.config = config
+        #: the mesh the engine runs on now (``None``: one device), and
+        #: the first mesh, which writes checkpoints and shared packings
+        self.mesh = mesh
+        self._launch = mesh
         self.verbose = verbose
         self.faults = faults
         #: optional resumed state (e.g. a restored checkpoint): the first
@@ -1488,6 +1542,7 @@ class StreamingSession:
         # round, the session re-bases there and drops the prefix
         self._base_round = 0
         self._base_spec = self._schedule_spec
+        self._base_mesh = mesh
         self._base_result: Optional[FitResult] = None
         self._snapshots: dict = {}
         self._monitor = None
@@ -1539,7 +1594,8 @@ class StreamingSession:
     def _ensure_engine(self):
         if self._eng is None:
             self._eng, _ = _nomad_cold_start(self.problem, self.config,
-                                             self.device, self.result)
+                                             self.device, self.result,
+                                             self.mesh)
         return self._eng
 
     def _require_nomad(self, what: str) -> NomadConfig:
@@ -1615,7 +1671,8 @@ class StreamingSession:
             res = self._nomad_round(cfg, self.problem.test, start)
         else:
             res = solve(self.problem, cfg, warm_start=self.result,
-                        verbose=self.verbose, device=self.device)
+                        verbose=self.verbose, device=self.device,
+                        mesh=self.mesh)
         res = self._finish(res, t0, cfg)
         self._after_round(("fit", epochs))
         return res
@@ -1625,7 +1682,8 @@ class StreamingSession:
         and the session problem re-pinned to the sticky extension."""
         eng = self._ensure_engine()
         with self._timed("repack_delta"):
-            br = _streaming_repack(eng.br, self.problem, delta, cfg)
+            br = _pack_once(self._launch, lambda: _streaming_repack(
+                eng.br, self.problem, delta, cfg))
         with self._timed("grow"):
             eng.grow(br, seed=cfg.seed)
         self.problem = _sticky_extended_problem(delta, br, cfg)
@@ -1646,7 +1704,7 @@ class StreamingSession:
                                     self.result.epochs_done)
         else:
             res = partial_fit(self.result, delta, cfg, verbose=self.verbose,
-                              device=self.device)
+                              device=self.device, mesh=self.mesh)
             self.problem = delta.extended()
         res = self._finish(res, t0, cfg)
         self._after_round(("arrive", rows, cols, vals, m_new, n_new,
@@ -1671,8 +1729,10 @@ class StreamingSession:
         step-size schedule continues, so the run's history stays exactly
         serializable across the transition.  ``spread="minimal"``
         concentrates moved shards on single donors/targets instead of
-        load-spreading them.  ``mesh`` other than ``"keep"``/``None``
-        is not ported yet.  Returns the compiled transition."""
+        load-spreading them.  ``mesh`` moves the engine
+        (``NomadRingEngine.migrate``): ``"keep"``, ``None`` (one device)
+        or an ``McMesh`` of the new worker count.  Returns the compiled
+        transition."""
         p = self._require_nomad("resize()").p
         leave = tuple(int(q) for q in np.atleast_1d(
             np.asarray(leave, dtype=np.int64)).tolist())
@@ -1688,6 +1748,9 @@ class StreamingSession:
                 join = p_new - p
         if any(q < 0 or q >= p for q in leave):
             raise ValueError(f"leave workers must lie in [0, {p})")
+        if not (isinstance(mesh, str) and mesh == "keep"):
+            from .core.nomad import _check_mesh
+            _check_mesh(mesh)
         if len(set(leave)) >= p:
             raise RuntimeError("no survivors")
         eng = self._ensure_engine()
@@ -1711,7 +1774,9 @@ class StreamingSession:
         data when none exists), deterministically replays the rounds
         after it, and resizes the dead workers out — landing bitwise on
         the state a graceful ``resize(leave=workers)`` reaches, which is
-        what makes the recovered history exactly serializable."""
+        what makes the recovered history exactly serializable.  The
+        replay re-runs each logged resize on its own mesh, and ``mesh``
+        is the survivors' (as for :meth:`resize`)."""
         self._require_nomad("kill()")
         if not workers:
             raise ValueError("kill() needs at least one worker id")
@@ -1720,7 +1785,7 @@ class StreamingSession:
             if self.faults is not None:
                 from .checkpoint.checkpoint import restore_fit_result
                 restored, step = restore_fit_result(
-                    self.faults.checkpoint_dir)
+                    self.faults.checkpoint_dir, mesh=self._launch)
                 if restored is None:
                     step = 0
         log = self._replay_log
@@ -1737,6 +1802,7 @@ class StreamingSession:
         t0 = time.perf_counter()
         self.problem = self._base_problem
         self.config = self._base_config
+        self.mesh = self._base_mesh
         self._schedule_spec = self._base_spec
         # replay starts where __init__ did — or, after log compaction,
         # at the in-memory base snapshot's round
@@ -1818,21 +1884,27 @@ class StreamingSession:
             self._schedule_spec
             if isinstance(self._schedule_spec, str) else None)
         prob = self.problem
-        with self._timed("repack_transition"):
+
+        def repack():
             if policy.sub_blocks == 1:
-                br = part.repack_transition(
+                return part.repack_transition(
                     eng.br, prob.rows, prob.cols, prob.vals, tr,
                     schedule=spec, schedule_seed=cfg.schedule_seed)
-            else:
-                br = part.pack(
-                    prob.rows, prob.cols, prob.vals, prob.m, prob.n,
-                    tr.p_new, waves=policy.wave,
-                    sub_blocks=policy.sub_blocks,
-                    row_owner=tr.row_owner.astype(np.int32),
-                    col_block=tr.col_block.astype(np.int32),
-                    schedule=spec, schedule_seed=cfg.schedule_seed)
+            return part.pack(
+                prob.rows, prob.cols, prob.vals, prob.m, prob.n,
+                tr.p_new, waves=policy.wave,
+                sub_blocks=policy.sub_blocks,
+                row_owner=tr.row_owner.astype(np.int32),
+                col_block=tr.col_block.astype(np.int32),
+                schedule=spec, schedule_seed=cfg.schedule_seed)
+
+        with self._timed("repack_transition"):
+            br = _pack_once(self._launch, repack)
         with self._timed("migrate"):
             eng.migrate(br, mesh=mesh)
+        if not (isinstance(mesh, str) and mesh == "keep"):
+            self.mesh = mesh
+            self._launch = self._launch or mesh
         self.config = dataclasses.replace(cfg, p=tr.p_new,
                                           schedule=br.schedule)
         # the resize analogue of _sticky_extended_problem
@@ -1924,10 +1996,13 @@ class StreamingSession:
         with self._timed("checkpoint"):
             save_fit_result(self.faults.checkpoint_dir, step,
                             dataclasses.replace(self.result,
-                                                config=self.config))
-        gc_checkpoints(self.faults.checkpoint_dir, self.faults.keep)
+                                                config=self.config),
+                            mesh=self._launch)
+        gc_checkpoints(self.faults.checkpoint_dir, self.faults.keep,
+                       mesh=self._launch)
         self._snapshots[step] = (self.problem, self.config,
-                                 self._schedule_spec, self.result)
+                                 self._schedule_spec, self.result,
+                                 self.mesh)
         self._compact()
         return step
 
@@ -1950,7 +2025,7 @@ class StreamingSession:
             return
         self._replay_log = self._replay_log[smin - self._base_round:]
         (self._base_problem, self._base_config, self._base_spec,
-         self._base_result) = snap
+         self._base_result, self._base_mesh) = snap
         self._base_round = smin
         self._snapshots = {s: v for s, v in self._snapshots.items()
                            if s >= smin}

@@ -34,6 +34,16 @@ as the JAX package's do, and so does every solver config
 (``NomadConfig``, ``DsgdConfig``, ``CcdConfig``, ``AlsConfig``,
 ``HogwildConfig``, ``AsyncSimConfig``); a config name neither package
 defines raises "unknown config".
+
+On an SPMD mesh (``mesh=``, a :class:`repro_torch.launch.mesh.McMesh`;
+every rank of the launch makes the same call with the same, gathered,
+result): :func:`save_fit_result` and :func:`gc_checkpoints` run on the
+mesh's lead rank only while the others wait for it, and
+:func:`restore_fit_result` lets the lead pick (and quarantine down to)
+the newest verified step, which every rank then reads.  The directory
+must be on one file system that every rank sees.  The layout is the
+same, so a checkpoint written on a mesh restores without one, and in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -233,7 +243,7 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def gc_checkpoints(ckpt_dir: str, keep: int) -> None:
+def gc_checkpoints(ckpt_dir: str, keep: int, *, mesh=None) -> None:
     """Delete all but the newest ``keep`` *committed* checkpoints (plus
     any leftover ``.tmp`` write staging older than them).
 
@@ -242,7 +252,10 @@ def gc_checkpoints(ckpt_dir: str, keep: int) -> None:
     step directory from a crash mid-write (no COMMITTED marker) must
     never push the latest restorable checkpoint out of the window — GC
     deleting the very checkpoint a crashed run would restore from is
-    the classic way "atomic" checkpointing loses data anyway."""
+    the classic way "atomic" checkpointing loses data anyway.  On a
+    ``mesh`` only its lead rank deletes; every rank returns once it has."""
+    if mesh is not None:
+        return mesh.on_lead(lambda: gc_checkpoints(ckpt_dir, keep))
     if keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
     if not os.path.isdir(ckpt_dir):
@@ -402,7 +415,8 @@ def _decode_config(d):
     return cls(**{k: _decode_value(v) for k, v in d["fields"].items()})
 
 
-def save_fit_result(ckpt_dir: str, step: int, result) -> str:
+def save_fit_result(ckpt_dir: str, step: int, result, *,
+                    mesh=None) -> str:
     """Checkpoint a ``repro_torch.api.FitResult`` — factors, trace,
     epochs done, timings, the exact config (step-size schedule, kernel
     policy, ownership schedule) and a replayable ``extras['schedule']``
@@ -411,7 +425,10 @@ def save_fit_result(ckpt_dir: str, step: int, result) -> str:
     ``meta.json``.  A ``dtype_policy="bf16"`` result's fp32-carrier
     factors are saved as bf16 (carrier plus ``"bfloat16"`` sidecar, the
     JAX package's encoding).  Non-schedule ``extras`` are not
-    persisted."""
+    persisted.  On a ``mesh`` only its lead rank writes; every rank
+    returns once the step is committed."""
+    if mesh is not None:
+        return mesh.on_lead(lambda: save_fit_result(ckpt_dir, step, result))
     W, H = result.W, result.H
     if getattr(result.config, "dtype_policy", None) == "bf16":
         W, H = (torch.as_tensor(np.asarray(x, np.float32)).bfloat16()
@@ -434,9 +451,8 @@ def save_fit_result(ckpt_dir: str, step: int, result) -> str:
                            extra={"fit_result": meta})
 
 
-def restore_fit_result(ckpt_dir: str,
-                       step: Optional[int] = None) -> Tuple[Any,
-                                                            Optional[int]]:
+def restore_fit_result(ckpt_dir: str, step: Optional[int] = None, *,
+                       mesh=None) -> Tuple[Any, Optional[int]]:
     """Inverse of :func:`save_fit_result`: returns ``(FitResult, step)``,
     or ``(None, None)`` when no committed step exists.  The restored
     result warm-starts ``solve`` bitwise-identically to the run it was
@@ -449,9 +465,12 @@ def restore_fit_result(ckpt_dir: str,
     checkpoint is quarantined (``step_<N>.corrupt``) and the scan falls
     back to the previous good one, so a bit-flipped checkpoint never
     boots.  An explicitly requested corrupted step raises
-    :class:`CorruptCheckpointError`."""
+    :class:`CorruptCheckpointError`.  On a ``mesh`` the lead rank alone
+    scans (and quarantines), and every rank restores the step it
+    found."""
     if step is None:
-        step = latest_verified_step(ckpt_dir)
+        step = (latest_verified_step(ckpt_dir) if mesh is None else
+                mesh.on_lead(lambda: latest_verified_step(ckpt_dir)))
         if step is None:
             return None, None
     elif not verify_checkpoint(ckpt_dir, step):

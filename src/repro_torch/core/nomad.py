@@ -389,12 +389,16 @@ def _lr32(x) -> float:
     return float(np.float32(x))
 
 
-def _rank_shards(W0, H0, br: part.BlockedRatings, q: int,
+def _rank_shards(W0, H0, br: part.BlockedRatings, q: Optional[int],
                  policy: KernelPolicy, device):
     """Worker ``q``'s W shard and home H block of global factors, as
     ``(1, m_local, k)``/``(1, n_local, k)`` tensors in the policy's
     storage dtype (``part.shard_factors``' layout: real rows first, zero
-    padding)."""
+    padding); zeros for a rank that holds no worker (``q`` None)."""
+    if q is None:
+        return tuple(torch.zeros((1, size, A.shape[1]), device=device,
+                                 dtype=policy.storage_dtype)
+                     for A, size in ((W0, br.m_local), (H0, br.n_local)))
     out = []
     for A, of, size in ((W0, br.row_of[q], br.m_local),
                         (H0, br.col_of[q], br.n_local)):
@@ -404,6 +408,20 @@ def _rank_shards(W0, H0, br: part.BlockedRatings, q: int,
         out.append(torch.from_numpy(S)[None].to(
             device=device, dtype=policy.storage_dtype))
     return tuple(out)
+
+
+def _check_mesh(mesh) -> None:
+    """Refuse a ``mesh`` that is neither ``None`` nor an ``McMesh``."""
+    from ..launch.mesh import McMesh
+    if mesh is not None and not isinstance(mesh, McMesh):
+        raise TypeError(f"mesh must be a repro_torch.launch.mesh.McMesh or "
+                        f"None, got {type(mesh).__name__}")
+
+
+def _check_mesh_p(mesh, p: int) -> None:
+    if mesh.p != p:
+        raise ValueError(f"the mesh has {mesh.p} ranks but the packing "
+                         f"wants p={p}")
 
 
 @dataclasses.dataclass
@@ -418,13 +436,15 @@ class NomadRingEngine:
 
     With ``mesh`` (a :class:`~repro_torch.launch.mesh.McMesh`) the engine
     is one rank of the SPMD executor (:func:`_spmd_epoch_fn`): every rank
-    constructs it with the same packing and calls the same methods in
-    the same order.  It keeps only its rank's cells, W shard and held H
-    block, on ``mesh.device``; ``factors()`` and the held-out RMSE are
-    collective and give every rank the same values, bitwise those of the
-    local executor.  ``grow`` and ``migrate`` do not run on a mesh yet.
-    ``step_log``, when a list, receives the SPMD epoch's per-step
-    records (:func:`_spmd_epoch_fn`).
+    of the launch constructs it with the same packing and calls the same
+    methods in the same order.  It keeps only its worker's cells, W shard
+    and held H block, on ``mesh.device``; ``factors()``, the held-out
+    RMSE, ``grow`` and ``migrate`` are collective and give every rank the
+    same values, bitwise those of the local executor.  A rank outside the
+    mesh holds no worker: it runs no epoch and launches no kernel, and
+    takes part in the collectives with zero shards.  ``step_log``, when a
+    list, receives the SPMD epoch's per-step records
+    (:func:`_spmd_epoch_fn`).
     """
     br: part.BlockedRatings
     k: int
@@ -443,6 +463,7 @@ class NomadRingEngine:
     step_log: Optional[list] = None
 
     def __post_init__(self):
+        _check_mesh(self.mesh)
         if self.mesh is None:
             self.device = resolve_device(self.device)
         elif (self.device is not None
@@ -494,29 +515,27 @@ class NomadRingEngine:
         """:meth:`_load_pack` of one SPMD rank: only its cells, for every
         step (its sub-block lists when ``sub_blocks > 1``)."""
         mesh = self.mesh
-        if mesh.p != br.p:
-            raise ValueError(f"the mesh has {mesh.p} ranks but the packing "
-                             f"wants p={br.p}")
+        _check_mesh_p(mesh, br.p)
         self.policy.check_packed(br, pipelined=True)
+        self._perm_src = self._entry = None
+        self._rmse = _spmd_rmse_fn(mesh)
+        if not mesh.member:             # no worker here: no epoch to run
+            self._data = None
+            self._epoch = (lambda Ws, Hs, data, lr, lam, policy, entry:
+                           (Ws, Hs))
+            self._train = _fused_driver(self._epoch, self._rmse)
+            return
         if self.policy.sub_blocks > 1:
             cells = sub_block_csr(br, mesh.rank)
         else:
             cells = wave_csr(br, sequential=not self.policy.wave,
                              worker=mesh.rank)
         self._data = cells.to(self.device)
-        self._perm_src = self._entry = None
         epoch = _spmd_epoch_fn(mesh, self.lam, self.policy, plain=plain,
                                sub_starts=br.sub_starts, sched=self.sched)
         self._epoch = (lambda Ws, Hs, data, lr, lam, policy, entry:
                        epoch(Ws, Hs, data, lr, self.step_log))
-        self._rmse = _spmd_rmse_fn(mesh)
         self._train = _fused_driver(self._epoch, self._rmse)
-
-    def _refuse_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh (SPMD) is not ported yet: ROADMAP.md "
-                "Queue 1 item 9 [spmd]")
 
     def grow(self, br_new: part.BlockedRatings, *, seed: int = 0,
              W_new=None, H_new=None):
@@ -529,9 +548,10 @@ class NomadRingEngine:
         come from ``objective.grow_factors`` (or the explicit
         ``W_new``/``H_new``, each overriding only its own side).
         ``epoch_idx`` is untouched, so the step-size schedule resumes
-        where the previous arrival batch left it.
+        where the previous arrival batch left it.  On a mesh every rank
+        gathers the factors, grows them alike (the same seed) and takes
+        its shards of the new layout.
         """
-        self._refuse_on_mesh("grow()")
         br_old = self.br
         if br_new.m < br_old.m or br_new.n < br_old.n:
             raise ValueError(
@@ -571,25 +591,37 @@ class NomadRingEngine:
         off the old shards and re-scattered into the new layout, so every
         row's and item's W/H values are preserved bit for bit; only their
         shard placement changes.  ``epoch_idx`` is untouched: the
-        step-size schedule continues across the transition.  ``mesh``
-        other than ``"keep"`` or ``None`` (SPMD) is not ported yet."""
-        if not (mesh is None or (isinstance(mesh, str) and mesh == "keep")):
-            raise NotImplementedError(
-                "mesh= (SPMD over several devices) is not ported yet: "
-                "ROADMAP.md Queue 1 item 9 [spmd]")
-        self._refuse_on_mesh("migrate()")
+        step-size schedule continues across the transition.
+
+        ``mesh`` moves the engine: ``"keep"`` stays on the current mesh
+        (or device), an :class:`~repro_torch.launch.mesh.McMesh` of
+        ``br_new.p`` workers re-targets the SPMD executor onto it, and
+        ``None`` runs the local executor on the engine's device.  From a
+        mesh the factors are gathered over the whole launch, so a rank
+        that joins (in no old mesh) receives them too; every rank of the
+        launch calls ``migrate`` alike."""
         if (br_new.m, br_new.n) != (self.br.m, self.br.n):
             raise ValueError(
                 f"migrate() cannot change the problem shape: "
                 f"({br_new.m}, {br_new.n}) != ({self.br.m}, {self.br.n})")
+        keep = isinstance(mesh, str) and mesh == "keep"
+        if not keep:
+            _check_mesh(mesh)
+        target = self.mesh if keep else mesh
+        if target is not None:
+            _check_mesh_p(target, br_new.p)
         W, H = self.factors()
+        if not keep:
+            self.mesh = mesh
+            if mesh is not None:
+                self.device = mesh.device
         self._load_pack(br_new)
         self.init_factors(W, H)
 
     def init_factors(self, W0, H0):
         """Shard and load global ``(m, k)``/``(n, k)`` factors (on a mesh,
-        only the rank's W shard and home H block: the other rows of
-        ``W0``/``H0`` are not read)."""
+        only the worker's W shard and home H block: the other rows of
+        ``W0``/``H0`` are not read; zeros on a rank outside the mesh)."""
         self.last_finite = True     # fresh factors, fresh sentinel
         if self.mesh is not None:
             self.Ws, self.Hs = _rank_shards(W0, H0, self.br, self.mesh.rank,
@@ -636,7 +668,8 @@ class NomadRingEngine:
         rows, cols, vals = key[0], key[1], key[2]
         own = None
         if self.mesh is not None:       # the ratings whose W row is ours
-            own = np.flatnonzero(br.row_owner[rows] == self.mesh.rank)
+            own = (np.flatnonzero(br.row_owner[rows] == self.mesh.rank)
+                   if self.mesh.member else np.zeros(0, np.int64))
             rows, cols, vals = rows[own], cols[own], vals[own]
             ridx = br.row_local[rows].astype(np.int64)
         else:

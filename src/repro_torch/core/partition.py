@@ -1059,17 +1059,19 @@ def step_major_cells(arrays) -> Tuple[np.ndarray, ...]:
                  for a in arrays)
 
 
-def save_pack(br: BlockedRatings, path: str) -> None:
+def save_pack(br: BlockedRatings, path: str, *, ids: bool = False
+              ) -> None:
     """Write what the engine reads of ``br`` to the directory ``path``:
     each array as ``<field>.npy`` (worker-major, so one worker's cells
     are one contiguous piece of each file), the sizes and the schedule in
     ``meta.pkl``.  Not written: the padded wave arrays (built from the
-    rest when read) and ``gid`` (the ratings' global ids, which only
-    :meth:`BlockedRatings.schedule_order` reads)."""
+    rest when read) and, unless ``ids``, ``gid`` (the ratings' global
+    ids, which :meth:`BlockedRatings.schedule_order`,
+    :func:`repack_delta` and :func:`repack_transition` read)."""
     os.makedirs(path, exist_ok=True)
     meta = {}
     for f in dataclasses.fields(br):
-        if f.name in PADDED_WAVES or f.name == "gid":
+        if f.name in PADDED_WAVES or (f.name == "gid" and not ids):
             continue
         val = getattr(br, f.name)
         if isinstance(val, np.ndarray):

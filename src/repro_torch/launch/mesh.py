@@ -3,10 +3,18 @@ and a launcher that starts one process per rank.
 
 The JAX package's ``launch/mesh.py::make_mc_mesh`` builds a 1-D device
 mesh with the axis ``"workers"`` for ``shard_map``.  Here one process is
-one worker: :func:`make_mc_mesh` wraps the default process group as a
-:class:`McMesh` that carries the rank, ``p``, the rank's device and the
-transport its H blocks travel by.  The transport is chosen once, from
-the topology, and never changes:
+one worker: :func:`make_mc_mesh` makes a :class:`McMesh` of ``p``
+workers over ranks of the default process group (the launch): by
+default its first ``p`` ranks, or the global ranks ``ranks=`` names, in
+worker order, so that an elastic run keeps one launch while workers
+leave and join (:func:`ranks_after`).  A launched rank outside the mesh
+holds no worker; it still takes part in every collective, which go over
+the whole launch with such a rank adding nothing (zeros, or ``True``),
+so no sub-group is ever created.  Every rank of the launch makes the
+same calls in the same order (SPMD over the host code).  The mesh
+carries the rank's worker, ``p``, the rank's device and the transport
+its H blocks travel by.  The transport is chosen once, from the
+topology of the launch, and never changes:
 
 * ``"nccl"`` — every rank has a card of its own (``cuda:rank %
   device_count``): NCCL point-to-point between the cards;
@@ -34,7 +42,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,6 +51,9 @@ import torch.distributed as dist
 AXIS = "workers"
 #: the process-group backend of each transport
 BACKEND = {"nccl": "nccl", "gloo-staged": "gloo", "gloo": "gloo"}
+#: environment variable naming a directory every rank of the launch sees
+#: (:func:`spawn_ranks` sets it to its own temporary directory)
+SHARED_DIR_ENV = "REPRO_TORCH_SHARED_DIR"
 
 Device = Optional[Union[str, torch.device]]
 
@@ -78,8 +89,9 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 
 class Transfer:
-    """One block's hop: send ``send`` to rank ``dst`` and receive rank
-    ``src``'s block into ``recv`` (never the same tensor).  Built by
+    """One block's hop: send ``send`` to worker ``dst`` and receive worker
+    ``src``'s block into ``recv`` (never the same tensor); the peers are
+    reached at their global ranks (``mesh.ranks``).  Built by
     :meth:`McMesh.transfer`; under ``"gloo-staged"`` the send is copied to
     a pinned host buffer on the mesh's copy stream first and posted by
     :meth:`post`, so that the caller can queue more work on the card
@@ -89,6 +101,7 @@ class Transfer:
     def __init__(self, mesh: "McMesh", send, dst: int, recv, src: int,
                  tag: int):
         self.dst, self.src, self.tag = dst, src, tag
+        self.peers = mesh.ranks[dst], mesh.ranks[src]
         self.recv, self.works = recv, None
         self.stage_s = self.wire_s = 0.0
         if mesh.transport == "gloo-staged":
@@ -106,8 +119,9 @@ class Transfer:
     def _post(self, send, recv) -> None:
         t0 = time.perf_counter()
         self.works = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, _wire(send), self.dst, tag=self.tag),
-            dist.P2POp(dist.irecv, _wire(recv), self.src, tag=self.tag)])
+            dist.P2POp(dist.isend, _wire(send), self.peers[0], tag=self.tag),
+            dist.P2POp(dist.irecv, _wire(recv), self.peers[1],
+                       tag=self.tag)])
         self.wire_s += time.perf_counter() - t0
 
     def post(self) -> None:
@@ -133,27 +147,52 @@ class Transfer:
 
 @dataclasses.dataclass(eq=False)
 class McMesh:
-    """The 1-D worker mesh of one rank: its rank, ``p``, its device and
-    the transport (:func:`choose_transport`) over the default process
-    group.  ``axis_names`` is the JAX mesh's."""
+    """The 1-D worker mesh as one rank of the launch sees it: ``p``, this
+    rank's worker ``rank`` (``None`` when it holds none), its device, the
+    transport (:func:`choose_transport`), the global rank of each worker
+    (``ranks``, in worker order), the launch's size (``world``) and this
+    process's global rank (``me``).  ``shared_dir``, when set, is a
+    directory every rank sees (where a packing built once is handed to
+    the others).  ``axis_names`` is the JAX mesh's."""
     p: int
-    rank: int
+    rank: Optional[int]
     device: torch.device
     transport: str
+    ranks: Tuple[int, ...] = ()
+    world: int = 0
+    me: int = 0
+    shared_dir: Optional[str] = None
     axis_names: Tuple[str, ...] = (AXIS,)
     _pinned: Dict[tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
     _stream: Optional[torch.cuda.Stream] = dataclasses.field(
         default=None, repr=False)
 
+    def __post_init__(self):
+        self.ranks = tuple(self.ranks) or tuple(range(self.p))
+        self.world = self.world or self.p
+
+    @property
+    def member(self) -> bool:
+        """Whether this rank holds a worker of the mesh."""
+        return self.rank is not None
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank is the mesh's lowest global rank: the one
+        that writes what the launch shares (checkpoints, packings)."""
+        return self.me == min(self.ranks)
+
     def describe(self) -> str:
+        ranks = (f"{self.p} ranks" if self.p == self.world
+                 else f"{self.p} of {self.world} ranks")
         if self.transport == "gloo":
-            return f"gloo, {self.p} ranks on the CPU"
+            return f"gloo, {ranks} on the CPU"
         n = torch.cuda.device_count()
         cards = f"{n} card{'s' if n > 1 else ''}"
         if self.transport == "nccl":
-            return f"nccl, {self.p} ranks on {cards}"
-        return f"gloo, staged, {self.p} ranks on {cards}"
+            return f"nccl, {ranks} on {cards}"
+        return f"gloo, staged, {ranks} on {cards}"
 
     # -- staging ------------------------------------------------------ #
     def pinned(self, role: str, tag: int, like: torch.Tensor
@@ -175,8 +214,9 @@ class McMesh:
     # -- point-to-point and collectives -------------------------------- #
     def transfer(self, send, dst: int, recv, src: int, tag: int = 0
                  ) -> Transfer:
-        """Start one hop (:class:`Transfer`); ``tag`` tells apart the hops
-        that are in flight together (the sub-blocks of a step)."""
+        """Start one hop to worker ``dst`` from worker ``src``
+        (:class:`Transfer`); ``tag`` tells apart the hops that are in
+        flight together (the sub-blocks of a step)."""
         if send.data_ptr() == recv.data_ptr():
             raise ValueError("a hop never sends and receives one tensor")
         return Transfer(self, send, dst, recv, src, tag)
@@ -186,19 +226,23 @@ class McMesh:
 
     def all_gather(self, t: torch.Tensor, device: Device = "cpu"
                    ) -> torch.Tensor:
-        """``(p, *t.shape)``: every rank's ``t``, in rank order, on
-        ``device``."""
+        """``(p, *t.shape)``: every worker's ``t``, in worker order, on
+        ``device``.  Collective over the launch: a rank outside the mesh
+        passes a tensor of the same shape, which is dropped."""
         src = self._host(t.contiguous())
-        out = torch.empty((self.p, *src.shape), dtype=src.dtype,
+        out = torch.empty((self.world, *src.shape), dtype=src.dtype,
                           device=src.device)
         if self.transport == "nccl":
             dist.all_gather_into_tensor(_wire(out), _wire(src))
         else:
             dist.all_gather([_wire(o) for o in out.unbind(0)], _wire(src))
+        if self.ranks != tuple(range(self.world)):
+            out = out[list(self.ranks)]
         return out.to(device)
 
     def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place."""
+        """Sum ``t`` over the launch, in place (a rank outside the mesh
+        passes zeros)."""
         buf = self._host(t)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM)
         if buf is not t:
@@ -206,30 +250,91 @@ class McMesh:
         return t
 
     def all_true(self, flag: bool) -> bool:
-        """``flag`` AND-reduced over the ranks."""
+        """``flag`` AND-reduced over the launch (a rank outside the mesh
+        passes ``True``)."""
         t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                          device=self.device if self.transport == "nccl"
                          else "cpu")
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return bool(t.item())
 
+    def barrier(self) -> None:
+        """Wait for every rank of the launch."""
+        dist.barrier()
 
-def make_mc_mesh(p: int, *, device: Device = None) -> McMesh:
-    """The worker mesh of this rank over the default process group
-    (axis ``"workers"``), on ``device`` (:func:`choose_transport`).
-    Raises if no process group is initialised, if its world size is not
-    ``p``, or if its backend is not the transport's."""
+    def on_lead(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run on the :attr:`lead` rank only, its (picklable)
+        result given to every rank of the launch; when it raises, every
+        rank raises (``RuntimeError`` naming the lead's error), so no
+        rank waits for a result that never comes."""
+        box: List[Any] = [None]
+        if self.lead:
+            try:
+                box[0] = (True, fn())
+            except Exception as e:              # handed to every rank
+                box[0] = (False, f"{type(e).__name__}: {e}")
+        dist.broadcast_object_list(box, src=min(self.ranks))
+        ok, val = box[0]
+        if not ok:
+            raise RuntimeError(f"on the mesh's lead (rank "
+                               f"{min(self.ranks)}): {val}")
+        return val
+
+    def ranks_after(self, leave: Sequence[int] = (), join: int = 0
+                    ) -> Tuple[int, ...]:
+        """:func:`ranks_after` of this mesh's ranks."""
+        return ranks_after(self.ranks, self.world, leave=leave, join=join)
+
+
+def ranks_after(ranks: Sequence[int], world: int, *,
+                leave: Sequence[int] = (), join: int = 0
+                ) -> Tuple[int, ...]:
+    """The global ranks of the workers after a worker-set change, in the
+    new worker order (the order ``TransitionSchedule`` numbers them in):
+    the survivors keep their ranks, compacted (the workers ``leave``
+    drop out), and ``join`` new workers take the lowest ranks of the
+    launch's ``world`` that hold none.  After worker 3 of 8 leaves, worker
+    4 becomes worker 3 on global rank 4; a worker that joins then lands
+    on the idle rank 3."""
+    gone = {int(q) for q in leave}
+    kept = tuple(int(r) for q, r in enumerate(ranks) if q not in gone)
+    idle = [r for r in range(world) if r not in kept]
+    if join > len(idle):
+        raise ValueError(f"{join} workers cannot join: {len(idle)} of the "
+                         f"launch's {world} ranks hold no worker")
+    return kept + tuple(idle[:join])
+
+
+def make_mc_mesh(p: int, *, ranks: Optional[Sequence[int]] = None,
+                 device: Device = None,
+                 shared_dir: Optional[str] = None) -> McMesh:
+    """The worker mesh of ``p`` workers over the default process group
+    (axis ``"workers"``), as this rank sees it: worker ``q`` runs on
+    global rank ``ranks[q]`` (default: the first ``p`` ranks), on
+    ``device`` (:func:`choose_transport`, for the launch's size).
+    Collective: every rank of the launch calls it with the same ``p``
+    and ``ranks``, members or not.  ``shared_dir`` (default: the
+    :data:`SHARED_DIR_ENV` environment variable) is a directory every
+    rank sees.  Raises if no process group is initialised, if it has
+    fewer than ``p`` ranks, if ``ranks`` are not ``p`` distinct ranks of
+    it, or if its backend is not the transport's."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "make_mc_mesh needs an initialised default process group "
             "(torch.distributed.init_process_group, spawn_ranks or "
             "torchrun)")
     world = dist.get_world_size()
-    if world != p:
+    if world < p:
         raise ValueError(f"the process group has {world} ranks, the mesh "
                          f"wants p={p}")
-    rank = dist.get_rank()
-    transport, dev = choose_transport(p, rank, device)
+    ranks = tuple(range(p)) if ranks is None else tuple(int(r)
+                                                         for r in ranks)
+    if len(ranks) != p or len(set(ranks)) != p or not all(
+            0 <= r < world for r in ranks):
+        raise ValueError(f"ranks={ranks} are not {p} distinct ranks of the "
+                         f"process group's {world}")
+    me = dist.get_rank()
+    transport, dev = choose_transport(world, me, device)
     backend = dist.get_backend()
     if backend != BACKEND[transport]:
         raise RuntimeError(f"transport {transport!r} needs the "
@@ -238,7 +343,10 @@ def make_mc_mesh(p: int, *, device: Device = None) -> McMesh:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.barrier()      # every rank holds its mesh before the first hop
-    return McMesh(p=p, rank=rank, device=dev, transport=transport)
+    return McMesh(p=p, rank=ranks.index(me) if me in ranks else None,
+                  device=dev, transport=transport, ranks=ranks, world=world,
+                  me=me, shared_dir=shared_dir or os.environ.get(
+                      SHARED_DIR_ENV))
 
 
 # ---------------------------------------------------------------------- #
@@ -299,7 +407,9 @@ def spawn_ranks(fn, p: int, *args, timeout: float, device: Device = None
     process group of ``p`` ranks (backend from :func:`choose_transport` for
     ``device``, a ``file://`` store in a temporary directory, ``timeout`` on
     every collective), with one intra-op thread
-    (``torch.set_num_threads(1)``, ``OMP_NUM_THREADS=1``).  ``fn`` must be
+    (``torch.set_num_threads(1)``, ``OMP_NUM_THREADS=1``) and the temporary
+    directory as the ranks' shared directory (:data:`SHARED_DIR_ENV`).
+    ``fn`` must be
     importable by name (spawn pickles functions by reference); ``args``
     reach the ranks pickled in a file.  Returns each rank's result in rank
     order: numpy arrays among a returned dict's values travel through files,
@@ -326,7 +436,7 @@ def spawn_ranks(fn, p: int, *args, timeout: float, device: Device = None
         # the children's environment: one OpenMP thread, and the
         # loopback interface for gloo's and NCCL's sockets (every rank is
         # on this host), unless the caller chose one
-        env = {"OMP_NUM_THREADS": "1",
+        env = {"OMP_NUM_THREADS": "1", SHARED_DIR_ENV: tmp,
                "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME",
                                                     "lo"),
                "NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME",

@@ -316,22 +316,24 @@ class ChaosHarness:
     per-worker step timings derived from the packed loads and the
     current slowdown multipliers.
 
-    ``mesh_factory`` (SPMD over several devices) is not ported yet and
-    raises ``NotImplementedError``, as ``mesh=`` does everywhere in the
-    port; the engine keeps its single device, where the worker count is
-    purely a layout property.
+    ``mesh_factory`` (optional, ``p -> McMesh | None``) re-targets the
+    SPMD executor onto a mesh of the new worker count at every kill,
+    leave or join; by default the engine keeps its current mesh or
+    device.  On a mesh every rank of the launch runs the harness alike
+    (the factory is called on every rank, e.g.
+    ``launch.mesh.make_mc_mesh``): a ``nan`` is written into the shard of
+    the rank that holds worker 0 and a ``bitflip`` by the session's lead
+    rank, and the divergence sentinel is AND-reduced over the ranks, so a
+    rollback happens on every rank or on none.
     """
 
     def __init__(self, session, events: Sequence[ChaosEvent], *,
                  epochs_per_round: int = 1, seed: int = 0,
                  mesh_factory=None):
-        if mesh_factory is not None:
-            raise NotImplementedError(
-                "mesh_factory= (SPMD over several devices) is not ported "
-                "yet: ROADMAP.md Queue 1 item 9 [spmd]")
         self.session = session
         self.events = sorted(events, key=lambda e: (e.round, e.action))
         self.epochs_per_round = int(epochs_per_round)
+        self.mesh_factory = mesh_factory
         self._rng = np.random.default_rng(seed)
         self.speed = np.ones(session.config.p, dtype=np.float64)
 
@@ -378,9 +380,17 @@ class ChaosHarness:
         if ev.action == "bitflip":
             # corrupt the newest committed checkpoint in place; the next
             # kill-recovery must quarantine it and fall back to the
-            # previous verified step (tentpole b)
-            if sess.faults is None or bitflip_checkpoint(
-                    sess.faults.checkpoint_dir, seed=ev.round) is None:
+            # previous verified step (tentpole b); on a mesh its lead
+            # rank flips and every rank learns the step
+            flipped = None
+            if sess.faults is not None:
+                launch = sess._launch
+
+                def flip():
+                    return bitflip_checkpoint(sess.faults.checkpoint_dir,
+                                              seed=ev.round)
+                flipped = flip() if launch is None else launch.on_lead(flip)
+            if flipped is None:
                 out.skipped.append(ev)
             return
         if ev.action == "nan":
@@ -388,18 +398,22 @@ class ChaosHarness:
             # sentinel must trip on the next round and the session's
             # DivergencePolicy roll back to the last good factors
             eng = sess._ensure_engine()
-            eng.Ws[0, 0, 0] = float("nan")
+            if eng.mesh is None or eng.mesh.rank == 0:
+                eng.Ws[0, 0, 0] = float("nan")
             return
+        p_next = p - 1 if ev.action in ("kill", "leave") else p + 1
+        kw = {} if self.mesh_factory is None else \
+            {"mesh": self.mesh_factory(p_next)}
         t0 = time.perf_counter()
         if ev.action == "kill":
             w = self._pick_worker(ev)
-            tr = sess.kill(w)
+            tr = sess.kill(w, **kw)
         elif ev.action == "leave":
             w = self._pick_worker(ev)
-            tr = sess.resize(leave=(w,))
+            tr = sess.resize(leave=(w,), **kw)
         else:                                   # join
             w = p
-            tr = sess.resize(join=1)
+            tr = sess.resize(join=1, **kw)
         dt = time.perf_counter() - t0
         self._remap_speed(tr)
         out.recoveries.append(ChaosRecovery(

@@ -22,6 +22,7 @@ type, differs on most of the elements it updates.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -179,10 +180,244 @@ def _load(x):
     return np.load(x, mmap_mode="r") if isinstance(x, str) else x
 
 
+class KernelCounts:
+    """The wave kernel wrappers' launches (``kernels.nomad_sgd.WRAPPERS``)
+    and the calls of their plain version, ``block_sgd_waves_csr``, counted
+    while the context is open (a counting stand-in replaces it; the
+    stream impls call it straight from ``core.nomad``, uncounted)."""
+
+    def __enter__(self):
+        from .kernels import nomad_sgd as ks
+        self._ks, self._plain, self.plain = ks, ks.block_sgd_waves_csr, 0
+
+        def counted(*a, **kw):
+            self.plain += 1
+            return self._plain(*a, **kw)
+
+        ks.block_sgd_waves_csr = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._ks.block_sgd_waves_csr = self._plain
+
+    def reset(self) -> None:
+        self._ks.reset_launches()
+        self.plain = 0
+
+    def launches(self) -> dict:
+        return {w.__name__: w.launches for w in self._ks.WRAPPERS}
+
+
+def _problem(spec):
+    """An ``api.MCProblem``, or one built from a dict: ``m``, ``n`` and
+    ``rows``/``cols``/``vals`` and ``test`` (a triple), arrays or ``.npy``
+    paths."""
+    import numpy as np
+
+    from . import api
+    if isinstance(spec, api.MCProblem):
+        return spec
+    test = spec.get("test")
+    return api.MCProblem(
+        *(np.asarray(_load(spec[c])) for c in ("rows", "cols", "vals")),
+        m=spec["m"], n=spec["n"],
+        test=None if test is None else tuple(np.asarray(_load(a))
+                                             for a in test))
+
+
+def _fit_result(spec):
+    """An ``api.FitResult``, or one built from a dict of its fields
+    (``W``/``H`` arrays or ``.npy`` paths)."""
+    import numpy as np
+
+    from . import api
+    if spec is None or isinstance(spec, api.FitResult):
+        return spec
+    spec = dict(spec)
+    for name in ("W", "H"):
+        spec[name] = np.asarray(_load(spec[name]))
+    return api.FitResult(**spec)
+
+
+def session_ops(sess, script, counts: KernelCounts, make_mesh=None,
+                keep_factors: bool = False) -> list:
+    """Drive ``sess`` (an ``api.StreamingSession``) through ``script``,
+    one record per op.  Ops: ``("fit", epochs)``, ``("arrive", batch)``
+    (``sess.arrive(**batch)``), ``("leave", workers)``, ``("join",
+    count)``, ``("kill", workers)`` and ``("bitflip", seed)`` (the newest
+    checkpoint, by the session's lead rank on a mesh).  On a mesh each
+    worker-set change moves the session onto ``make_mesh(ranks)``, the
+    ranks ``McMesh.ranks_after`` gives; without one the engine keeps its
+    device.  A record holds the factors' digest (the round's result,
+    or the engine's factors after a change), the round's RMSE trace, the
+    wave kernel's launches and the plain version's calls during the op,
+    the session's timings of the op, ``p``, whether this rank held a
+    worker, the mesh's ranks before the op, the training rounds it ran
+    (a kill's replayed ones), the host seconds, after a kill the
+    quarantined steps, and with ``keep_factors`` the factors themselves
+    (``W``, ``H``)."""
+    import os
+
+    import numpy as np
+
+    from .runtime.chaos import bitflip_checkpoint
+    out = []
+    for name, arg in script:
+        counts.reset()
+        sess.timings.clear()
+        kw = {}
+        if sess.mesh is not None and name in ("leave", "kill", "join"):
+            change = {"join": arg} if name == "join" else {"leave": arg}
+            kw["mesh"] = make_mesh(sess.mesh.ranks_after(**change))
+        rec = {"op": name, "ranks_before": None if sess.mesh is None
+               else list(sess.mesh.ranks)}
+        rounds = len(sess.history)
+        t0 = time.perf_counter()
+        res = None
+        if name == "fit":
+            res = sess.fit(arg)
+        elif name == "arrive":
+            res = sess.arrive(**arg)
+        elif name == "leave":
+            sess.resize(leave=arg, **kw)
+        elif name == "join":
+            sess.resize(join=arg, **kw)
+        elif name == "kill":
+            sess.kill(*arg, **kw)
+        elif name == "bitflip":
+            def flip():
+                return bitflip_checkpoint(sess.faults.checkpoint_dir,
+                                          seed=arg)
+            rec["flipped"] = (flip() if sess._launch is None
+                              else sess._launch.on_lead(flip))
+        else:
+            raise ValueError(f"unknown op {name!r}")
+        if res is not None:
+            W, H = res.W, res.H
+            rec["trace"] = [float(x) for x in res.trace_rmse]
+        elif name != "bitflip":
+            W, H = sess._eng.factors()
+        if name != "bitflip":
+            rec["digest"] = factor_digest(W, H)
+            if keep_factors:
+                rec["W"], rec["H"] = np.asarray(W), np.asarray(H)
+        rec["seconds"] = time.perf_counter() - t0
+        if name == "kill" and sess.faults is not None:
+            rec["corrupt"] = sorted(
+                f for f in os.listdir(sess.faults.checkpoint_dir)
+                if f.endswith(".corrupt"))
+        rec.update(launches=counts.launches(), plain=counts.plain,
+                   timings=dict(sess.timings), p=sess.config.p,
+                   member=sess.mesh is None or sess.mesh.member,
+                   rounds=len(sess.history) - (0 if name == "kill"
+                                               else rounds))
+        out.append(rec)
+    return out
+
+
+def run_script(run: dict, counts: KernelCounts, mesh=None,
+               device=None) -> dict:
+    """One streaming, elastic or fault-tolerant run, on ``mesh`` (every
+    rank of the launch alike) or, without one, on ``device`` — the same
+    calls either way, so that the two are held against each other.
+    ``run["kind"]``:
+
+    * ``"session"``: ``StreamingSession(problem, config,
+      warm_start=warm, faults=faults, mesh=)`` through ``script``
+      (:func:`session_ops`, the factors kept with ``keep_factors``);
+      ``pack``, a ``save_pack`` directory, seeds the problem's pack
+      cache.  Returns ``ops``.
+    * ``"partial_fit"``: ``partial_fit(mesh=)`` of each of ``batches`` in
+      a chain from ``warm``.  Returns ``ops`` (digest, trace).
+    * ``"faults"``: ``solve(faults=FaultPolicy(ckpt), mesh=)`` of ``cut``
+      epochs, then of ``config.epochs``: a crash after ``cut`` epochs
+      and the resume.  Returns ``ops`` (digest, trace, launches).
+    * ``"chaos"``: ``ChaosHarness(session, events, seed=,
+      mesh_factory=)`` (``make_mc_mesh`` of each new ``p`` on a mesh) over
+      a session with ``faults``, after one ``fit``.  Returns
+      ``digest``, ``rmse``, ``p_final`` and the recoveries' actions.
+    """
+    import dataclasses
+
+    from . import api
+    from .core import partition as part
+    from .launch.mesh import make_mc_mesh
+    from .runtime.chaos import ChaosHarness
+
+    kind = run["kind"]
+    prob = _problem(run["problem"])
+    cfg = run["config"]
+    warm = _fit_result(run.get("warm"))
+    if run.get("pack"):
+        api._seed_pack_cache(prob, part.load_pack(run["pack"]), cfg)
+    dev = None if mesh is not None else device
+
+    def new_mesh(ranks):
+        return make_mc_mesh(len(ranks), ranks=ranks, device=mesh.device)
+
+    def record(res, t0):
+        return dict(digest=factor_digest(res.W, res.H),
+                    trace=[float(x) for x in res.trace_rmse],
+                    seconds=time.perf_counter() - t0,
+                    launches=counts.launches(), plain=counts.plain)
+
+    if kind == "session":
+        sess = api.StreamingSession(prob, cfg, warm_start=warm,
+                                    faults=run.get("faults"), mesh=mesh,
+                                    device=dev)
+        return {"ops": session_ops(sess, run["script"], counts, new_mesh,
+                                   run.get("keep_factors", False))}
+    if kind == "partial_fit":
+        ops, res = [], warm
+        for b in run["batches"]:
+            counts.reset()
+            t0 = time.perf_counter()
+            res = api.partial_fit(res, prob.extend(**b), cfg, mesh=mesh,
+                                  device=dev)
+            prob = res.extras["problem"]
+            ops.append(record(res, t0))
+        return {"ops": ops}
+    if kind == "faults":
+        policy = api.FaultPolicy(checkpoint_dir=run["ckpt"],
+                                 checkpoint_every=1)
+        ops = []
+        for epochs in (run["cut"], cfg.epochs):
+            counts.reset()
+            t0 = time.perf_counter()
+            res = api.solve(prob, dataclasses.replace(cfg, epochs=epochs),
+                            warm_start=warm, faults=policy, mesh=mesh,
+                            device=dev)
+            ops.append(record(res, t0))
+        return {"ops": ops}
+    if kind == "chaos":
+        sess = api.StreamingSession(prob, cfg, warm_start=warm,
+                                    faults=run["faults"], mesh=mesh,
+                                    device=dev)
+        sess.fit()
+        factory = None if mesh is None else (
+            lambda p_next: make_mc_mesh(p_next, device=mesh.device))
+        counts.reset()
+        report = ChaosHarness(sess, run["events"], seed=run.get("seed", 0),
+                              mesh_factory=factory).run()
+        W, H = sess._eng.factors()
+        return dict(digest=factor_digest(W, H), rmse=report.rmse,
+                    p_final=report.p_final, launches=counts.launches(),
+                    plain=counts.plain,
+                    actions=[r.action for r in report.recoveries],
+                    rollbacks=sess.history[-1].extras.get(
+                        "divergence", {}).get("rollbacks"))
+    raise ValueError(f"unknown run kind {kind!r}")
+
+
+#: the kinds of run :func:`run_on_mesh` hands to :func:`run_script`
+SCRIPT_KINDS = ("session", "partial_fit", "faults", "chaos")
+
+
 def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
     """Rank body: each of ``runs`` on this rank's mesh
-    (``make_mc_mesh(p, device=run.get("device", device))``), in order.
-    A run is a dict with ``kind``:
+    (``make_mc_mesh(run.get("p", p), device=run.get("device", device))``:
+    the first ``p`` ranks of the launch), in order.  A run is a dict with
+    ``kind``:
 
     * ``"engine"``: ``NomadRingEngine(br, k, lam, stepsize, policy,
       mesh=)`` (``br`` a packing or a :func:`~repro_torch.core.partition.
@@ -191,15 +426,19 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
       ``log_steps`` the engine's per-step records come back;
     * ``"solve"``: ``api.solve(problem, config, mesh=)``;
     * ``"errors"``: the messages of ``make_mc_mesh(p + 1)`` and of an
-      engine built on ``br`` (a packing for another ``p``).
+      engine built on ``br`` (a packing for another ``p``);
+    * one of :data:`SCRIPT_KINDS`: :func:`run_script` on the mesh, its
+      result under ``script{i}``.
 
     Returns, for run ``i``: ``digest{i}``, ``trace{i}``, ``finite{i}``,
     the wave kernel wrappers' launches (``launches{i}``) and the plain
     version's calls (``plain{i}``), the train and factors seconds, and
-    ``W{i}``/``H{i}`` unless ``return_factors`` is False; and the mesh's
-    transport, ``ready_at`` (``time.time()`` once the first mesh was
-    made), the card's peak bytes and the process's peak RSS
-    (:class:`HostPeak`)."""
+    ``W{i}``/``H{i}`` unless ``return_factors`` is False; the card's and
+    the process's peaks during the run (``card_peak_bytes{i}``,
+    ``host_peak_rss_gb{i}``) and its ``time.time()`` span (``span{i}``);
+    and the mesh's transport, ``ready_at``
+    (``time.time()`` once the first mesh was made), the card's peak
+    bytes and the process's peak RSS (:class:`HostPeak`) over all runs."""
     import time
 
     import numpy as np
@@ -208,30 +447,31 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
     from . import api
     from .core import partition as part
     from .core.nomad import NomadRingEngine
-    from .kernels import nomad_sgd as ks
     from .launch.mesh import make_mc_mesh
 
     meshes, out = {}, {}
     peak = HostPeak()
+    card_max = 0
 
-    def mesh_for(dev):
-        key = str(dev)
+    def finish(i, on_card, mesh, run_peak):
+        out[f"span{i}"] = (started, time.time())
+        if on_card:
+            out[f"card_peak_bytes{i}"] = torch.cuda.max_memory_allocated(
+                mesh.device)
+        run_peak.close()
+        out[f"host_peak_rss_gb{i}"] = float(run_peak.gb())
+
+    def mesh_for(dev, size):
+        key = (str(dev), size)
         if key not in meshes:
-            meshes[key] = make_mc_mesh(p, device=dev)
+            meshes[key] = make_mc_mesh(size, device=dev)
             out.setdefault("ready_at", time.time())
             out.setdefault("transport", meshes[key].describe())
         return meshes[key]
 
-    plain, calls = ks.block_sgd_waves_csr, [0]
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return plain(*a, **kw)
-
-    ks.block_sgd_waves_csr = counted
-    try:
+    with KernelCounts() as counts:
         for i, run in enumerate(runs):
-            mesh = mesh_for(run.get("device", device))
+            mesh = mesh_for(run.get("device", device), run.get("p", p))
             if run["kind"] == "errors":
                 msgs = []
                 try:
@@ -245,8 +485,18 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
                     msgs.append(str(e))
                 out[f"errors{i}"] = msgs
                 continue
-            ks.reset_launches()
-            calls[0] = 0
+            on_card = mesh.device.type == "cuda"
+            if on_card:
+                card_max = max(card_max, torch.cuda.max_memory_allocated(
+                    mesh.device))
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+            run_peak = HostPeak()
+            counts.reset()
+            started = time.time()
+            if run["kind"] in SCRIPT_KINDS:
+                out[f"script{i}"] = run_script(run, counts, mesh=mesh)
+                finish(i, on_card, mesh, run_peak)
+                continue
             t0 = time.perf_counter()
             if run["kind"] == "engine":
                 br = run["br"]
@@ -265,7 +515,7 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
                 trace = eng.train(run["epochs"], test=test,
                                   dispatch=run.get("dispatch", "fused"),
                                   record_every=run.get("record_every", 1))
-                if mesh.device.type == "cuda":
+                if on_card:
                     torch.cuda.synchronize(mesh.device)
                 train_s = time.perf_counter() - t0
                 t0 = time.perf_counter()
@@ -286,17 +536,16 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
             out[f"digest{i}"] = factor_digest(W, H)
             out[f"trace{i}"] = [(int(e), float(r)) for e, r in trace]
             out[f"finite{i}"] = finite
-            out[f"launches{i}"] = {w.__name__: w.launches
-                                   for w in ks.WRAPPERS}
-            out[f"plain{i}"] = calls[0]
+            out[f"launches{i}"] = counts.launches()
+            out[f"plain{i}"] = counts.plain
+            finish(i, on_card, mesh, run_peak)
             if run.get("return_factors", True):
                 out[f"W{i}"], out[f"H{i}"] = np.asarray(W), np.asarray(H)
             del W, H
-    finally:
-        ks.block_sgd_waves_csr = plain
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
-        out["card_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["card_peak_bytes"] = max(card_max,
+                                     torch.cuda.max_memory_allocated())
     peak.close()
     out["host_peak_rss_gb"] = float(peak.gb())
     return out

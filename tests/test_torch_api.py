@@ -172,16 +172,17 @@ def test_refuses_what_is_not_ported(tiny_mc_problem):
     d = tiny_mc_problem
     tp, _ = _problems(d)
     cfg = tapi.NomadConfig(k=8, p=2, epochs=1)
-    # solve(mesh=) runs (tests/test_torch_spmd.py); the mesh hooks of
-    # streaming and of fault-tolerant solves do not yet
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # mesh= runs on an McMesh in solve, partial_fit and the session
+    # (tests/test_torch_spmd.py, tests/test_torch_spmd_elastic.py);
+    # anything else is refused
+    with pytest.raises(TypeError, match="McMesh"):
         tapi.StreamingSession(tp, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="McMesh"):
         tapi.solve(tp, cfg, mesh=object(), device="cpu",
                    faults=tapi.FaultPolicy(checkpoint_dir="unused"))
     # CCD++ and ALS have no streaming continuation, as in the reference
     res = tapi.solve(tp, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(TypeError, match="McMesh"):
         tapi.partial_fit(res, tp.extend(m_new=1), mesh=object(),
                          device="cpu")
     for other in (tapi.CcdConfig(k=8, epochs=1),

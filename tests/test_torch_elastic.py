@@ -254,7 +254,9 @@ def test_resize_preserves_factors_bitwise(spread):
         sess.resize(join=2, spread=spread)
     assert sess.config.p == 7
     assert np.isfinite(sess.fit().trace_rmse).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    # resize(mesh=) moves onto an McMesh (tests/test_torch_spmd_elastic.py);
+    # anything else is refused before the re-pack
+    with pytest.raises(TypeError, match="McMesh"):
         sess.resize(leave=(0,), mesh=object())
     with pytest.raises(ValueError):
         sess.resize(p_new=3, join=1)
@@ -447,7 +449,9 @@ def test_integrity_gauntlet_recovers():
     """Checkpoint bitflips, kills, a join, a slowdown and a NaN written
     in place into the live shards, through the chaos harness: corrupted
     steps are quarantined, the NaN round rolls back, and the session
-    ends finite."""
+    ends finite.  A ``mesh_factory`` that moves the engine onto the
+    local executor (``None``) at every change gives the same factors
+    bit for bit (an ``McMesh`` factory: tests/test_torch_spmd_elastic.py)."""
     events = [tchaos.ChaosEvent(1, "slow", 1, factor=2.0),
               tchaos.ChaosEvent(2, "bitflip"),
               tchaos.ChaosEvent(2, "kill", 2),
@@ -456,21 +460,27 @@ def test_integrity_gauntlet_recovers():
               tchaos.ChaosEvent(4, "kill", 0),
               tchaos.ChaosEvent(5, "nan")]
     tp, _ = _problems()
-    with tempfile.TemporaryDirectory() as d:
-        sess = _session(tp, faults=tapi.FaultPolicy(
-            checkpoint_dir=d, checkpoint_every=1, monitor=True,
-            divergence=tapi.DivergencePolicy(max_rollbacks=3)))
-        sess.fit()
-        report = tchaos.ChaosHarness(sess, events, seed=5).run()
-        assert np.isfinite(report.rmse).all() and len(report.rmse) == 6
-        assert [r.action for r in report.recoveries] == ["kill", "join",
-                                                         "kill"]
-        assert any(f.endswith(".corrupt") for f in os.listdir(d))
-        assert sess.history[-1].extras["divergence"]["rollbacks"] >= 1
-        W, H = sess._eng.factors()
-        assert np.isfinite(W).all() and np.isfinite(H).all()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            tchaos.ChaosHarness(sess, events, mesh_factory=lambda p: None)
+    factors, rmse = [], []
+    for factory in (None, lambda p: None):
+        with tempfile.TemporaryDirectory() as d:
+            sess = _session(tp, faults=tapi.FaultPolicy(
+                checkpoint_dir=d, checkpoint_every=1, monitor=True,
+                divergence=tapi.DivergencePolicy(max_rollbacks=3)))
+            sess.fit()
+            report = tchaos.ChaosHarness(sess, events, seed=5,
+                                         mesh_factory=factory).run()
+            assert np.isfinite(report.rmse).all() and len(report.rmse) == 6
+            assert [r.action for r in report.recoveries] == ["kill", "join",
+                                                             "kill"]
+            assert any(f.endswith(".corrupt") for f in os.listdir(d))
+            assert sess.history[-1].extras["divergence"]["rollbacks"] >= 1
+            W, H = sess._eng.factors()
+            assert np.isfinite(W).all() and np.isfinite(H).all()
+            factors.append((W, H))
+            rmse.append(report.rmse)
+    tol.assert_bitwise(factors[1][0], factors[0][0], "W")
+    tol.assert_bitwise(factors[1][1], factors[0][1], "H")
+    assert rmse[1] == rmse[0]
 
 
 def test_straggler_policy_through_the_session():

@@ -231,11 +231,23 @@ def test_convert_roundtrip(tiny_mc_problem, packs):
 
 def test_engine_refuses_mesh_and_missing_cuda(packs):
     bt, _ = packs["ring", True]
-    # NomadRingEngine(mesh=) runs (tests/test_torch_spmd.py); migrating
-    # onto a mesh does not yet
+    # NomadRingEngine(mesh=) and migrate(mesh=) run on an McMesh
+    # (tests/test_torch_spmd.py, tests/test_torch_spmd_elastic.py);
+    # anything else is refused, and mesh=None keeps the local executor
     eng = _port(bt, "wave_pallas")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    rng = np.random.default_rng(0)
+    eng.init_factors(rng.uniform(0, 0.3, (bt.m, K)).astype(np.float32),
+                     rng.uniform(0, 0.3, (bt.n, K)).astype(np.float32))
+    with pytest.raises(TypeError, match="McMesh"):
         eng.migrate(bt, mesh=object())
+    with pytest.raises(TypeError, match="McMesh"):
+        tnomad.NomadRingEngine(br=bt, k=K, lam=0.05, stepsize=TPower(),
+                               mesh=object())
+    W, H = eng.factors()
+    eng.migrate(bt, mesh=None)
+    assert eng.mesh is None
+    tol.assert_bitwise(eng.factors()[0], W, "W")
+    tol.assert_bitwise(eng.factors()[1], H, "H")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tnomad.NomadRingEngine(br=bt, k=K, lam=0.05, stepsize=TPower())

@@ -307,8 +307,10 @@ def test_spmd_matches_reference(data, spmd, sched, sub_blocks):
 
 
 def test_mesh_and_engine_errors(data, spmd):
-    """``make_mc_mesh`` refuses a missing process group and a world size
-    other than ``p``; the engine refuses a packing for another ``p``."""
+    """``make_mc_mesh`` refuses a missing process group and a world
+    smaller than ``p`` (a larger one holds a mesh over some of its ranks:
+    tests/test_torch_spmd_elastic.py); the engine refuses a packing for
+    another ``p``."""
     outs, index, _ = spmd
     for o in outs:
         wrong_p, wrong_pack = o[f"errors{index['errors']}"]
