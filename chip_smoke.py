@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
-                                     # Qwen2.5-32B serving; streaming; then
+                                     # Qwen2.5-32B serving and training;
+                                     # streaming; then
                                      # the full Netflix size: NOMAD, its
                                      # SPMD executor in 8 ranks, then the
                                      # paper's baselines
@@ -170,6 +171,28 @@ Phases, one line each (any failure raises and exits non-zero):
    with a leave, a join, a kill and a NaN on a small problem equals the
    same harness on one device in this process.  ``[12.ranks]``: each
    rank's card and host peaks.
+13. LM training (it runs after phase 7's flash checks, phase 7's model
+   freed): Qwen2.5-32B at full width, 2 of its 64 layers, bf16 with an
+   fp32 AdamW state and master copy, ``remat``, through
+   ``repro_torch.launch.train`` (``init_state``, ``make_train_step``
+   with ``impl="pallas"`` and the trainer's schedule, 100 warm-up steps of
+   10,000) on ``TokenPipeline(seed=0)`` batches of 2 x 1,024 tokens, 5
+   steps (``[13.run]``: seconds a step, tokens/s, the
+   loss of each step, the flash kernel's launches, 2 a layer a step (the
+   forward and its recomputation), and 0 plain calls, card and host
+   memory); ``[13.split]``: forward, backward and optimizer of one step
+   by CUDA events; ``[13.kernel.L]``: the kernel's log-normaliser ``L``
+   and output in fp32 and bf16 at the train shape against its plain
+   version, with a control; ``[13.flash]``: the training flash, the
+   kernel's forward with ``L``, the torch-ops backward and SDPA's
+   forward and forward + backward, beside the bound; ``[13.grad]``: one
+   step's loss and every parameter's gradient with the kernel's forward
+   against the plain forward (``impl="xla"``), the same backward, within
+   the bound PERF.md states, with a control (one layer's ``dq`` zeroed);
+   ``[13.accum]``: ``grad_accum=2`` (fp32 accumulation) against 1, with a
+   control (the second microbatch dropped); ``[13.learn]``: one batch
+   repeated for 5 steps at a small learning rate lowers the loss at every
+   step.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -219,6 +242,26 @@ LM_B, LM_P, LM_G = 4, 1024, 32
 #: rms ~1 and ~5x that at the max of 608k of them; the bound is 2.5x that.
 #: A control (one layer's attention unmasked) must exceed it.
 LM_LOGIT_BOUND = 0.25
+#: [13.*]: the training cell: Qwen2.5-32B at full width, TRAIN_LAYERS of
+#: its 64 layers (AdamW's fp32 m, v and master copy of 32.76 B parameters
+#: are ~393 GB, beyond one card; 2 layers hold ~2.53 B parameters, a
+#: ~40 GB state), TRAIN_B sequences of TRAIN_S tokens, TRAIN_STEPS steps
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2, 1024, 5
+#: [13.grad]: the kernel's forward against the plain forward, the same
+#: backward: per parameter tensor ||g_kernel - g_plain|| / ||g_plain||,
+#: and the loss's relative difference (PERF.md states why)
+TRAIN_GRAD_BOUND, TRAIN_LOSS_BOUND = 2.0 ** -4, 2.0 ** -7
+#: [13.accum]: grad_accum=2 (fp32 sums) against 1 (bf16 gradients), the
+#: same norms (PERF.md states why)
+TRAIN_ACCUM_BOUND, TRAIN_ACCUM_LOSS_BOUND = 2.0 ** -6, 2.0 ** -8
+#: [13.learn]'s learning rate, without warm-up: Adam's first step moves
+#: every weight by lr, in the sign of its gradient, so a down projection's
+#: 27,648 inputs move its output by ~lr * 27,648; at the default 3e-4 that
+#: is ~7 and the loss jumps (measured: 12.45 -> 19.82); 3e-6 is what the
+#: trainer's schedule gives step 1 of its 100 warm-up steps
+LEARN_LR = 3e-6
+#: [13.kernel.L]: |L_kernel - L_plain| <= LSE_REL (1 + |L_plain|)
+LSE_REL = 2e-5
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
 #: the tensor cores, dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate)
 PEAK_BW = 3.35e12
@@ -1230,6 +1273,334 @@ def lm_phase(dev):
     if not finite:
         raise AssertionError("non-finite logits")
     return launches
+
+
+# --------------------------------------------------------------------- #
+# 13. LM training                                                       #
+# --------------------------------------------------------------------- #
+
+def lse_within(got, want) -> bool:
+    """The kernel's log-normaliser ``L`` against its plain version's:
+    ``LSE_REL (1 + |want|)``, the fp32 bound of two orders of summation
+    (the tensor-core kernel keeps its running max in log2 units and sums
+    ``exp2``: a few fp32 ulps of ``L`` more)."""
+    w = want.double()
+    return bool(((got.double() - w).abs() <= LSE_REL * (1 + w.abs())).all())
+
+
+def grad_rel(got: dict, want: dict, scale: float = 1.0) -> dict:
+    """``{name: ||scale got - want|| / ||want||}`` in fp32, per tensor."""
+    out = {}
+    for k, w in want.items():
+        wf = w.float()
+        out[k] = float(torch.linalg.vector_norm(got[k].float() * scale - wf)
+                       / torch.linalg.vector_norm(wf))
+    return out
+
+
+def worst(rel: dict, n: int = 3) -> str:
+    """The ``n`` largest entries of ``rel``, largest first."""
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:n]
+    return json.dumps({k: f"{v:.3e}" for k, v in top})
+
+
+def train_flash_checks(dev, chunk: int) -> dict:
+    """[13.kernel.L] and [13.flash]: the flash kernel's forward with its
+    log-normaliser at the train shape (B=TRAIN_B, Hq=40, Hkv=8,
+    S=TRAIN_S, D=128, q/k/v laid out as the layer hands them over), in
+    fp32 and bf16, against its plain version, with a control; then in
+    bf16 its time, the torch-ops backward's (``flash_xla.flash_bwd``
+    over key chunks of ``chunk``), the plain forward's and SDPA's
+    forward and forward + backward, beside the bounds.  Returns the
+    kernel record (``launches`` filled in by the caller)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.models import flash_xla as fx
+    B, Hq, Hkv, S, D = TRAIN_B, 40, 8, TRAIN_S, 128
+    g = torch.Generator(device=dev).manual_seed(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]
+        q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev)
+                    * sc).to(dtype).transpose(1, 2)
+                   for h, sc in ((Hq, 0.3), (Hkv, 0.3), (Hkv, 1.0)))
+        o, L = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        kernel = kfa.KERNELS[kfa.kernel_index(q, k, v, o)]
+        want_o, want_L = kfa.flash_attention_plain(q, k, v, causal=True,
+                                                   return_lse=True)
+        abs_v = (None if dtype == torch.float32 else kfa.flash_attention_plain(
+            q.float(), k.float(), v.abs().float(), causal=True))
+        l_err = float((L.double() - want_L.double()).abs().max())
+        o_err = float((o.double() - want_o.double()).abs().max())
+        ok = lse_within(L, want_L) and flash_within(o, want_o, dtype, abs_v)
+        phase("check", what=f"[13.kernel.L] flash {name} B={B} Hq={Hq} "
+              f"Hkv={Hkv} S={S} D={D} L and o, kernel vs plain",
+              kernel=kernel, max_abs_err_L=f"{l_err:.3e}",
+              max_abs_err_o=f"{o_err:.3e}", within=ok)
+        if not ok:
+            raise AssertionError(f"flash {name}: the kernel's L or o and "
+                                 "its plain version's disagree")
+        _, bad_L = kfa.flash_attention_plain(q, k, v, causal=False,
+                                             return_lse=True)
+        rejected = not lse_within(L, bad_L)
+        phase("control", what=f"[13.kernel.L] flash {name} L of the plain "
+              "version without the causal mask", rejected=rejected)
+        if not rejected:
+            raise AssertionError("the L check cannot tell a missing mask")
+        del want_o, want_L, abs_v, bad_L
+    do = torch.randn(o.shape, generator=g, device=dev).to(o.dtype)
+    k_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v, return_lse=True), 10)
+    p_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v,
+                                                     return_lse=True), 3)
+    b_ms = cuda_ms(lambda: fx.flash_bwd(q, k, v, o, L, do, True, chunk), 5)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                             enable_gqa=True)
+        torch.autograd.grad(out, (qr, kr, vr), do)
+
+    lib_fb_ms = cuda_ms(sdpa_fwd_bwd, 10)
+    f_ms, f_by = flash_bound(B, Hq, Hkv, S, D, torch.bfloat16)
+    # the backward: five products over the keys each query sees, 2.5x the
+    # forward's two, at the bf16 peak; or q, k, v, o, do and L read and
+    # dq, dk, dv written once
+    bwd_flops = 2.5 * 4 * B * Hq * D * (S * (S + 1) // 2)
+    bwd_bytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
+    bb_ms = max(bwd_flops / PEAK_TC16, bwd_bytes / PEAK_BW) * 1e3
+    phase("13.flash", dtype="bf16", kernel=kernel, fwd_lse_ms=f"{k_ms:.4f}",
+          fwd_bound_ms=f"{f_ms:.4f}", fwd_bound_by=f_by,
+          bwd_torch_ops_ms=f"{b_ms:.4f}", bwd_bound_ms=f"{bb_ms:.4f}",
+          plain_fwd_ms=f"{p_ms:.3f}", sdpa_fwd_ms=f"{lib_ms:.4f}",
+          sdpa_fwd_bwd_ms=f"{lib_fb_ms:.4f}", bwd_chunk=min(chunk, S))
+    return dict(
+        name=f"flash_attention[bf16,train,lse,B={B},Hq={Hq},Hkv={Hkv},"
+             f"S={S},D={D}]", route="cuda", source=FLASH_SRC,
+        replaces=FLASH_REPLACES, kernel=kernel, launches=0,
+        launches_on=("[13.run]: the training forward with L, and its "
+                     "recomputation under remat"),
+        max_abs_err=o_err, max_abs_err_lse=l_err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms,
+        backward_torch_ops_ms=b_ms, backward_bound_ms=bb_ms,
+        library_fwd_bwd_ms=lib_fb_ms)
+
+
+def train_phase(dev) -> dict:
+    """[13.*]: Qwen2.5-32B trained on the card through
+    ``repro_torch.launch.train`` (see the module docstring); returns the
+    training flash record."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attn as kfa
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import flash_xla as fx
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as optim
+    from repro_torch.optim.schedule import cosine_warmup
+    from repro_torch.testing import HostPeak
+
+    t_phase = time.perf_counter()
+    peak = HostPeak()
+    cfg = dataclasses.replace(configs.get_config("qwen2_5_32b"),
+                              n_layers=TRAIN_LAYERS)
+    if not (cfg.remat and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"{cfg.name}: want remat and bf16")
+    record = train_flash_checks(dev, cfg.attn_chunk)
+    opt_cfg = optim.AdamWConfig()
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ltrain.init_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, opt_cfg, device=dev)
+    torch.cuda.synchronize()
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    phase("13.init", model=cfg.name, layers=f"{cfg.n_layers} of 64",
+          d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+          d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+          state_bytes=torch.cuda.memory_allocated(),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config has "
+                             f"{cfg.param_count()}")
+
+    # the main path: TRAIN_STEPS steps of make_train_step (impl "pallas")
+    plain, plain_calls = kfa.flash_attention_plain, [0]
+
+    def counted_plain(*a, **kw):
+        plain_calls[0] += 1
+        return plain(*a, **kw)
+
+    step = ltrain.make_train_step(cfg, None, opt_cfg, total_steps=10_000,
+                                  warmup=100)
+    secs, losses, gnorms = [], [], []
+    kfa.flash_attention_plain = counted_plain
+    try:
+        kfa.reset_launches()
+        plain_calls[0] = 0
+        for s in range(TRAIN_STEPS):
+            batch = pipe.batch_at(s)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches, n_plain = kfa.flash_attention.launches, plain_calls[0]
+    finally:
+        kfa.flash_attention_plain = plain
+    want = 2 * cfg.n_layers * TRAIN_STEPS
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    s_step = sum(secs[1:]) / (len(secs) - 1)
+    phase("13.run", batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+          step_s=json.dumps([round(x, 4) for x in secs]),
+          s_per_step=f"{s_step:.4f}", tok_s=f"{TRAIN_B * TRAIN_S / s_step:.1f}",
+          loss=json.dumps([round(x, 4) for x in losses]),
+          grad_norm=json.dumps([round(x, 3) for x in gnorms]),
+          flash_launches=launches, want=want, plain_calls=n_plain,
+          finite=finite, card_peak_bytes=torch.cuda.max_memory_allocated(),
+          host_rss_gb=peak.gb())
+    if launches != want or n_plain or not finite or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"training launched the flash kernel {launches} "
+                             f"times (want {want}), {n_plain} plain calls, "
+                             f"finite={finite}, losses {losses}")
+    record["launches"] = launches
+
+    # one more step in its parts, by CUDA events
+    batch = ltrain.to_device(pipe.batch_at(0), dev)
+    named = dict(model.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in named.values():
+        p.requires_grad_(True)
+    try:
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss, _ = T.loss_and_metrics(model, cfg, batch, impl="pallas")
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(named.values()))
+        ev[2].record()
+    finally:
+        for p in named.values():
+            p.requires_grad_(False)
+    del loss
+    optim.adamw_update(model, dict(zip(named, grads)), state["opt"], opt_cfg,
+                       lr_scale=cosine_warmup(state["opt"]["step"],
+                                              base_lr=1.0, warmup=100,
+                                              total=10_000))
+    ev[3].record()
+    torch.cuda.synchronize()
+    del grads
+    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    attn_bwd = cfg.n_layers * record["backward_torch_ops_ms"]
+    phase("13.split", forward_ms=f"{split[0]:.2f}",
+          backward_ms=f"{split[1]:.2f}", optimizer_ms=f"{split[2]:.2f}",
+          step_ms=f"{sum(split):.2f}",
+          flash_bwd_ms=f"{attn_bwd:.2f}",
+          flash_bwd_share=f"{attn_bwd / sum(split):.4f}",
+          flash_fwd_share=f"{2 * cfg.n_layers * record['ms'] / sum(split):.4f}")
+
+    # [13.grad]: the kernel's forward against the plain one, same backward
+    del state["opt"]
+    torch.cuda.empty_cache()
+    g_pal, m_pal = ltrain.grads_and_metrics(model, cfg, batch, impl="pallas")
+    g_xla, m_xla = ltrain.grads_and_metrics(model, cfg, batch, impl="xla")
+    g_rep, _ = ltrain.grads_and_metrics(model, cfg, batch, impl="xla")
+    rep = grad_rel(g_rep, g_xla)
+    del g_rep
+    rel = grad_rel(g_pal, g_xla)
+    lp, lx = float(m_pal["loss"]), float(m_xla["loss"])
+    ok = (max(rel.values()) <= TRAIN_GRAD_BOUND
+          and abs(lp - lx) <= TRAIN_LOSS_BOUND * abs(lx))
+    phase("13.grad", loss_pallas=f"{lp:.6f}", loss_xla=f"{lx:.6f}",
+          loss_bound=f"{TRAIN_LOSS_BOUND * abs(lx):.4f}",
+          max_rel=worst(rel), bound=TRAIN_GRAD_BOUND,
+          repeat_xla_max_rel=worst(rep), tensors=len(rel), within=ok)
+    if not ok:
+        raise AssertionError("[13.grad]: the kernel's forward moves the loss "
+                             "or a gradient beyond the bound")
+    real_bwd, calls = fx.flash_bwd, [0]
+
+    def first_dq_zeroed(*a, **kw):
+        dq, dk, dv = real_bwd(*a, **kw)
+        calls[0] += 1
+        return (torch.zeros_like(dq) if calls[0] == 1 else dq), dk, dv
+
+    fx.flash_bwd = first_dq_zeroed
+    try:
+        g_bad, _ = ltrain.grads_and_metrics(model, cfg, batch, impl="pallas")
+    finally:
+        fx.flash_bwd = real_bwd
+    bad = grad_rel(g_bad, g_xla)
+    del g_bad
+    rejected = max(bad.values()) > TRAIN_GRAD_BOUND
+    phase("control", what="[13.grad] the last layer's dq zeroed (the "
+          "step's first attention backward)", max_rel=worst(bad),
+          rejected=rejected)
+    if not rejected:
+        raise AssertionError("the gradient check cannot tell a zeroed dq")
+
+    # [13.accum]: two microbatches summed in fp32 against one batch
+    g2, m2 = ltrain.grads_and_metrics(model, cfg, batch, impl="pallas",
+                                      grad_accum=2)
+    acc = grad_rel(g2, g_pal)
+    del g2
+    l2 = float(m2["loss"])
+    ok = (max(acc.values()) <= TRAIN_ACCUM_BOUND
+          and abs(l2 - lp) <= TRAIN_ACCUM_LOSS_BOUND * abs(lp))
+    phase("13.accum", grad_accum=2, loss=f"{l2:.6f}", loss_one=f"{lp:.6f}",
+          loss_bound=f"{TRAIN_ACCUM_LOSS_BOUND * abs(lp):.4f}",
+          max_rel=worst(acc), bound=TRAIN_ACCUM_BOUND, within=ok)
+    if not ok:
+        raise AssertionError("[13.accum]: grad_accum=2 and 1 disagree")
+    g_first, _ = ltrain.grads_and_metrics(
+        model, cfg, {k: x[:TRAIN_B // 2] for k, x in batch.items()},
+        impl="pallas")
+    bad = grad_rel(g_first, g_pal, scale=0.5)
+    del g_first, g_pal, g_xla
+    rejected = max(bad.values()) > TRAIN_ACCUM_BOUND
+    phase("control", what="[13.accum] the second microbatch dropped",
+          max_rel=worst(bad), rejected=rejected)
+    if not rejected:
+        raise AssertionError("the accumulation check cannot tell a dropped "
+                             "microbatch")
+
+    # [13.learn]: one batch, repeated, from a fresh state, at LEARN_LR
+    del model, state, named, batch
+    torch.cuda.empty_cache()
+    learn_cfg = dataclasses.replace(opt_cfg, lr=LEARN_LR)
+    state = ltrain.init_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, learn_cfg, device=dev)
+    step = ltrain.make_train_step(cfg, None, learn_cfg,
+                                  total_steps=TRAIN_STEPS, warmup=0)
+    one = pipe.batch_at(0)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, one)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        losses.append(float(T.loss_and_metrics(
+            state["params"], cfg, ltrain.to_device(one, dev),
+            impl="pallas")[0]))
+    falling = all(b < a for a, b in zip(losses, losses[1:]))
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state["params"].parameters())
+    phase("13.learn", steps=TRAIN_STEPS, lr=LEARN_LR, warmup=0,
+          loss=json.dumps([round(x, 4) for x in losses]), falling=falling,
+          finite=finite)
+    del state
+    torch.cuda.empty_cache()
+    if not (falling and finite):
+        raise AssertionError(f"[13.learn]: losses {losses}, finite={finite}")
+    phase("13.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          host_peak_rss_gb=peak.gb())
+    peak.close()
+    return record
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -2994,6 +3365,8 @@ def main_path(args, api, ks, ref, dev):
     flash_launches = lm_phase(dev)
     torch.cuda.empty_cache()
     kernels.extend(flash_kernel_checks(dev, flash_launches))
+    torch.cuda.empty_cache()
+    kernels.append(train_phase(dev))
     torch.cuda.empty_cache()
     stream, digests = stream_phase(api, ks, ref, problem, config,
                                    routes["grid"]["result"], dev)

@@ -35,6 +35,13 @@ as the JAX package's do, and so does every solver config
 ``HogwildConfig``, ``AsyncSimConfig``); a config name neither package
 defines raises "unknown config".
 
+``save_train_state``/``restore_train_state`` do the same for an LM
+train state (``repro_torch.launch.train``): it is written as the JAX
+package's train-state tree (layers stacked on the period axis, AdamW's
+m, v and master copy beside the parameters, ``opt/step``), through
+``repro_torch.convert.train_state_to_reference``, so a checkpoint
+written by either package's trainer restores in the other.
+
 On an SPMD mesh (``mesh=``, a :class:`repro_torch.launch.mesh.McMesh`;
 every rank of the launch makes the same call with the same, gathered,
 result): :func:`save_fit_result` and :func:`gc_checkpoints` run on the
@@ -314,6 +321,34 @@ def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                                  f"{arr.shape}, want {tuple(leaf.shape)}")
             values[key] = _cast_like(arr, leaf)
     return _unflatten(tree_like, values), step
+
+
+# --------------------------------------------------------------------- #
+# LM train states                                                         #
+# --------------------------------------------------------------------- #
+
+def save_train_state(ckpt_dir: str, step: int, state: dict, cfg,
+                     extra: Optional[dict] = None) -> str:
+    """Save an LM train state (``{"params": Transformer, "opt": ...}``) in
+    the JAX package's train-state layout."""
+    from ..convert import train_state_to_reference
+    return save_checkpoint(ckpt_dir, step,
+                           train_state_to_reference(state, cfg), extra=extra)
+
+
+def restore_train_state(ckpt_dir: str, state_like: dict, cfg,
+                        step: Optional[int] = None):
+    """Restore an LM train state saved by either package into the
+    structure of ``state_like`` (shapes and dtypes must match), on its
+    device.  Returns ``(state, step)``, or ``(None, None)`` when nothing
+    committed exists; corrupted steps as :func:`restore_checkpoint`."""
+    from ..convert import train_state_from_reference, train_state_template
+    tree, step = restore_checkpoint(
+        ckpt_dir, train_state_template(state_like, cfg), step=step)
+    if tree is None:
+        return None, None
+    return train_state_from_reference(
+        tree, cfg, device=state_like["params"].lm_head.w.device), step
 
 
 # --------------------------------------------------------------------- #

@@ -7,7 +7,9 @@ the same global arrays (and an int8 view's scales) into the tensors the
 port's ``FactorStore`` publishes.  For the LM, :func:`lm_params_from_reference`
 unstacks the reference's period-stacked parameter tree into the port's
 ``Transformer`` (one module per layer), and :func:`lm_params_to_reference`
-stacks it back.
+stacks it back; :func:`train_state_from_reference` and
+:func:`train_state_to_reference` carry a whole train state (parameters,
+AdamW's m, v and master copy, the step) the same way.
 
 bf16 travels through an fp32 carrier (numpy has no bfloat16 of its own;
 the reference checkpoint stores bf16 the same way): every bf16 value is
@@ -123,6 +125,21 @@ def _layer_trees(params_np, cfg):
     return [_flatten(t) for t in out]
 
 
+def _lm_flat_from_reference(tree, cfg) -> dict:
+    """A reference LM tree (parameters, or an optimizer tree shaped like
+    them) as ``{port parameter name: leaf}``."""
+    flat = {k: v for k, v in _flatten(tree).items()
+            if not k.startswith(("blocks.", "prologue."))}
+    for i, layer in enumerate(_layer_trees(tree, cfg)):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def _torch_dtype(a) -> torch.dtype:
+    return a.dtype if isinstance(a, torch.Tensor) else getattr(
+        torch, np.asarray(a).dtype.name)
+
+
 def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
     """The JAX package's LM parameter tree (``init_params``'s, as numpy
     arrays: ``jax.tree.map(np.asarray, params)``) as the port's
@@ -133,12 +150,8 @@ def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
     from .models.transformer import Transformer
     dev = resolve_device(device)
     if dtype is None:
-        head = np.asarray(params_np["lm_head"]["w"])
-        dtype = getattr(torch, head.dtype.name)
-    flat = {k: v for k, v in _flatten(params_np).items()
-            if not k.startswith(("blocks.", "prologue."))}
-    for i, tree in enumerate(_layer_trees(params_np, cfg)):
-        flat.update({f"layers.{i}.{k}": v for k, v in tree.items()})
+        dtype = _torch_dtype(params_np["lm_head"]["w"])
+    flat = _lm_flat_from_reference(params_np, cfg)
     model = Transformer(cfg, dtype=dtype, device=dev)
     state = model.state_dict()
     if set(state) != set(flat):
@@ -155,15 +168,12 @@ def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
     return model
 
 
-def lm_params_to_reference(model, cfg) -> dict:
-    """The inverse of :func:`lm_params_from_reference`: the reference's
-    tree of numpy arrays, layers stacked on the period axis again (bf16
-    as its fp32 carrier)."""
-    state = {k: to_numpy(v) for k, v in model.state_dict().items()}
-
-    def nest(flat):
+def _lm_tree(flat: dict, cfg, stack) -> dict:
+    """``{port parameter name: leaf}`` as the reference's tree, layers
+    stacked on the period axis by ``stack``."""
+    def nest(items):
         out: dict = {}
-        for name, a in flat.items():
+        for name, a in items.items():
             *path, leaf = name.split(".")
             node = out
             for p in path:
@@ -171,16 +181,82 @@ def lm_params_to_reference(model, cfg) -> dict:
             node[leaf] = a
         return out
 
-    per_layer = [nest({k[len(f"layers.{i}."):]: v for k, v in state.items()
+    per_layer = [nest({k[len(f"layers.{i}."):]: v for k, v in flat.items()
                        if k.startswith(f"layers.{i}.")})
                  for i in range(cfg.n_layers)]
-    tree = nest({k: v for k, v in state.items()
+    tree = nest({k: v for k, v in flat.items()
                  if not k.startswith("layers.")})
     tree["prologue"] = per_layer[:cfg.n_prologue]
     body = per_layer[cfg.n_prologue:]
     tree["blocks"] = {
-        f"pos{pos}": nest({k: np.stack([_flatten(t)[k]
-                                        for t in body[pos::cfg.period]])
+        f"pos{pos}": nest({k: stack([_flatten(t)[k]
+                                     for t in body[pos::cfg.period]])
                            for k in _flatten(body[pos])})
         for pos in range(cfg.period)}
     return tree
+
+
+def lm_params_to_reference(model, cfg) -> dict:
+    """The inverse of :func:`lm_params_from_reference`: the reference's
+    tree of numpy arrays, layers stacked on the period axis again (bf16
+    as its fp32 carrier)."""
+    return _lm_tree({k: to_numpy(v) for k, v in model.state_dict().items()},
+                    cfg, np.stack)
+
+
+# --------------------------------------------------------------------- #
+# LM train states                                                       #
+# --------------------------------------------------------------------- #
+
+def train_state_from_reference(state_np, cfg, *, device=None) -> dict:
+    """The JAX package's train state (``launch.train.init_state``'s
+    ``{"params", "opt": {"m", "v", "step"[, "master"]}}``, leaves as
+    numpy arrays or CPU tensors, as a reference checkpoint restores) as
+    the port's: ``{"params": Transformer, "opt": {name-keyed tensors,
+    "step": 0-d int32}}`` on ``device`` (``None`` = ``"cuda"``).  Every
+    leaf keeps its dtype (bf16 through its carrier, exactly)."""
+    params_np, opt_np = state_np["params"], state_np["opt"]
+    params = lm_params_from_reference(params_np, cfg, device=device)
+    dev = params.lm_head.w.device
+    names = [k for k, _ in params.named_parameters()]
+
+    def tensors(tree):
+        flat = _lm_flat_from_reference(tree, cfg)
+        if set(flat) != set(names):
+            raise ValueError(f"optimizer names differ from the parameters': "
+                             f"{sorted(set(flat) ^ set(names))}")
+        return {k: serving_array(flat[k], dev) for k in names}
+
+    opt = {"m": tensors(opt_np["m"]), "v": tensors(opt_np["v"]),
+           "step": torch.tensor(int(opt_np["step"]), dtype=torch.int32,
+                                device=dev)}
+    if "master" in opt_np:
+        opt["master"] = tensors(opt_np["master"])
+    return {"params": params, "opt": opt}
+
+
+def _train_tree(state, cfg, leaf, stack) -> dict:
+    opt = state["opt"]
+    out = {"params": _lm_tree({k: leaf(v) for k, v in
+                               state["params"].state_dict().items()},
+                              cfg, stack),
+           "opt": {k: _lm_tree({n: leaf(t) for n, t in opt[k].items()},
+                               cfg, stack)
+                   for k in ("m", "v", "master") if k in opt}}
+    out["opt"]["step"] = leaf(opt["step"])
+    return out
+
+
+def train_state_to_reference(state, cfg) -> dict:
+    """The inverse of :func:`train_state_from_reference`: the reference's
+    train-state tree of numpy arrays (bf16 as its fp32 carrier, the step
+    a 0-d int32 array), what ``repro.checkpoint`` saves."""
+    return _train_tree(state, cfg, to_numpy, np.stack)
+
+
+def train_state_template(state, cfg) -> dict:
+    """:func:`train_state_to_reference`'s tree with meta tensors of each
+    leaf's shape and dtype: a restore template that copies nothing."""
+    return _train_tree(state, cfg,
+                       lambda t: torch.empty_like(t, device="meta"),
+                       torch.stack)

@@ -1,5 +1,5 @@
-from .pipeline import RatingArrivalStream
+from .pipeline import RatingArrivalStream, TokenPipeline
 from .synthetic import netflix_like, synthetic_ratings, train_test_split
 
-__all__ = ["RatingArrivalStream", "netflix_like", "synthetic_ratings",
-           "train_test_split"]
+__all__ = ["RatingArrivalStream", "TokenPipeline", "netflix_like",
+           "synthetic_ratings", "train_test_split"]

@@ -1,15 +1,22 @@
-"""Deterministic, resumable rating streams.
+"""Deterministic, resumable data pipelines.
 
-:class:`RatingArrivalStream` — the streaming matrix-completion workload:
-an initial rating snapshot plus a replayable script of arrival batches
-(new ratings, and optionally new users/items per batch), all drawn from
-one fixed ground-truth factor pair so the stream stays a coherent
-low-rank problem as it grows.  Batch ``t`` is a pure function of
-``(seed, t)``, so resume-after-failure recomputes instead of
-checkpointing pipeline state.  Feeds
-``repro_torch.api.StreamingSession`` / ``partial_fit``; numpy only, the
-JAX package's draws bit for bit.  (That module's ``TokenPipeline`` and
-``lm_input_specs`` are ROADMAP.md Queue 1 item 17.)
+Two generators live here, sharing one design rule — *batch t is a pure
+function of (seed, t)*, so resume-after-failure recomputes instead of
+checkpointing pipeline state:
+
+* :class:`TokenPipeline` — the LM token stream (documents of random
+  length with a Zipfian unigram distribution), per-host sharded and
+  packed into fixed (B, S) batches; feeds ``repro_torch.launch.train``.
+* :class:`RatingArrivalStream` — the streaming matrix-completion
+  workload: an initial rating snapshot plus a replayable script of
+  arrival batches (new ratings, and optionally new users/items per
+  batch), all drawn from one fixed ground-truth factor pair so the
+  stream stays a coherent low-rank problem as it grows.  Feeds
+  ``repro_torch.api.StreamingSession`` / ``partial_fit``.
+
+Numpy only, the JAX package's draws bit for bit.  (That module's
+``lm_input_specs``, the dry-run's input shapes, is ROADMAP.md Queue 1
+item 17.)
 """
 from __future__ import annotations
 
@@ -17,6 +24,65 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    n_shards: int = 1          # data-parallel groups reading disjoint data
+    shard_id: int = 0
+    seed: int = 0
+    embed_input: bool = True   # False: emit stub embeddings (audio/vlm)
+    d_model: int = 0
+    mean_doc_len: int = 512
+
+    @property
+    def local_batch(self) -> int:
+        if self.global_batch % self.n_shards:
+            raise ValueError(f"global_batch {self.global_batch} is not a "
+                             f"multiple of n_shards {self.n_shards}")
+        return self.global_batch // self.n_shards
+
+    def _doc(self, rng):
+        ln = max(8, int(rng.exponential(self.mean_doc_len)))
+        # Zipfian unigrams + EOS
+        toks = rng.zipf(1.3, size=ln) % (self.vocab_size - 1) + 1
+        return np.concatenate([toks, [0]])  # 0 = EOS
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        """Deterministic batch for a given step (resume = recompute):
+        ``{"labels", "inputs"}``, int32 ``(B, S)`` (inputs ``(B, S,
+        d_model)`` fp32 stub embeddings when not ``embed_input``)."""
+        rng = np.random.default_rng(
+            (self.seed, self.shard_id, step, 0xD0C5))
+        need = self.local_batch * (self.seq_len + 1)
+        stream = []
+        tot = 0
+        while tot < need:
+            d = self._doc(rng)
+            stream.append(d)
+            tot += len(d)
+        flat = np.concatenate(stream)[:need].astype(np.int32)
+        arr = flat.reshape(self.local_batch, self.seq_len + 1)
+        tokens, labels = arr[:, :-1], arr[:, 1:]
+        out = {"labels": labels}
+        if self.embed_input:
+            out["inputs"] = tokens
+        else:
+            # modality stub: deterministic pseudo-embeddings per token id
+            emb_rng = np.random.default_rng((self.seed, 0xE4B))
+            table = emb_rng.standard_normal(
+                (self.vocab_size, self.d_model)).astype(np.float32)
+            out["inputs"] = table[tokens]
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
 
 
 @dataclasses.dataclass

@@ -31,7 +31,7 @@ _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: pointer and the stream a ``c_void_p``
 SIGNATURES = {
     "flash_attn": {
-        "flash_attention_fwd": ([_p] * 4 + [_i] * 6 + [_f, _i] + [_ll] * 12
+        "flash_attention_fwd": ([_p] * 5 + [_i] * 6 + [_f, _i] + [_ll] * 12
                                 + [_p], _i),
         "flash_attention_max_d": ([], _i),
         "flash_attention_kernel_attrs": ([_i, _p], _i),

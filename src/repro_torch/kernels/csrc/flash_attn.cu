@@ -10,9 +10,13 @@
 //
 // by the online softmax: a running max m, denominator l and accumulator
 // acc in fp32 over key blocks, finalised as acc / max(l, 1e-30) and cast to
-// the input type.  Masked scores are -1e30 (not -inf), as in the reference;
-// keys past the end of the sequence (a ragged last tile) are -inf, so they
-// weigh exactly 0.
+// the input type.  Given an lse pointer, each row's log-normaliser
+// L = m + ln(max(l, 1e-30)) (natural units) is written as fp32 (B, Hq, S):
+// the training forward saves it, with o, for the torch-ops backward of
+// repro_torch/models/flash_xla.py (the recurrence of the JAX package's
+// models/flash_xla.py::_bwd, which recomputes p = exp(s - L)).  Masked
+// scores are -1e30 (not -inf), as in the reference; keys past the end of
+// the sequence (a ragged last tile) are -inf, so they weigh exactly 0.
 //
 // The TPU kernel's grid is (B * Hq, S / bq, S / bk) with the k axis
 // sequential, carrying m, l and acc in VMEM scratch from one grid step to
@@ -105,7 +109,8 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Hq,
                  int group, int S, int D, int causal, float scale,
                  Strides qs, Strides ks, Strides vs, Strides os) {
   extern __shared__ float smem[];
@@ -233,6 +238,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = tx + 16 * j;
       if (c < D) op[row * os.s + c] = acc[i][j] / den;
     }
+    if (lse != nullptr && tx == 0) lse[(long long)bh * S + row] =
+        m[i] + logf(den);
   }
 }
 
@@ -249,6 +256,7 @@ size_t smem_bytes(int D) {
 constexpr int kWarps = 4;             // 16 query rows each
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the element (r, c) of a tile with kDp columns: 16-byte chunk c / 8 of
 // row r sits at chunk (c / 8) ^ (r % 8)
@@ -381,7 +389,8 @@ constexpr size_t mma_smem_bytes() {  // Q, two K and two V tiles
 template <typename T, bool kVec, int kDp>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Hq,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Hq,
                      int group, int S, int D, int causal, float scale,
                      Strides qs, Strides ks, Strides vs, Strides os) {
   static_assert(kBQ == 16 * kWarps && kDp % 16 == 0 && kDp <= kMaxD, "");
@@ -543,6 +552,16 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     x += __shfl_xor_sync(0xffffffffu, x, 2);
     den[i] = fmaxf(x, 1e-30f);
   }
+  // L = m + ln(l) in natural units (m is kept in log2 units), one lane of
+  // the quad writing each row
+  if (lse != nullptr && tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + wrow + g + 8 * i;
+      if (row < S)
+        lse[(long long)bh * S + row] = m[i] * kLn2 + logf(den[i]);
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < kDp / 8; ++dt)
 #pragma unroll
@@ -589,25 +608,25 @@ cudaError_t set_smem(F* kernel, size_t smem) {
 }
 
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int S, int D, int causal,
-                       float scale, Strides qs, Strides ks, Strides vs,
-                       Strides os, cudaStream_t stream) {
+                       float* lse, int B, int Hq, int Hkv, int S, int D,
+                       int causal, float scale, Strides qs, Strides ks,
+                       Strides vs, Strides os, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   const cudaError_t err = set_smem(flash_fwd_kernel<float>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(B * Hq), (unsigned)((S + kBQ - 1) / kBQ));
   flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, S,
-      D, causal, scale, qs, ks, vs, os);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq,
+      Hq / Hkv, S, D, causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
 template <typename T, bool kVec, int kDp>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int S, int D, int causal,
-                       float scale, Strides qs, Strides ks, Strides vs,
-                       Strides os, cudaStream_t stream) {
+                       float* lse, int B, int Hq, int Hkv, int S, int D,
+                       int causal, float scale, Strides qs, Strides ks,
+                       Strides vs, Strides os, cudaStream_t stream) {
   auto* kernel = flash_fwd_mma_kernel<T, kVec, kDp>;
   const size_t smem = mma_smem_bytes<kDp>();
   const cudaError_t err = set_smem(kernel, smem);
@@ -615,8 +634,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((S + kBQ - 1) / kBQ));
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, S, D,
-      causal, scale, qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hq / Hkv, S,
+      D, causal, scale, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
@@ -659,9 +678,9 @@ cudaError_t fma_attrs(int* out) {
 // the tensor-core kernel for bf16 and fp16, each with 16-byte and with
 // element-wise loads, each with D padded to 128 and to 64.
 struct Kernel {
-  cudaError_t (*launch)(const void*, const void*, const void*, void*, int,
-                        int, int, int, int, int, float, Strides, Strides,
-                        Strides, Strides, cudaStream_t);
+  cudaError_t (*launch)(const void*, const void*, const void*, void*,
+                        float*, int, int, int, int, int, int, float, Strides,
+                        Strides, Strides, Strides, cudaStream_t);
   cudaError_t (*attrs)(int*);
   int max_d;
   bool vec;
@@ -682,14 +701,17 @@ constexpr int kNumKernels = sizeof(kKernels) / sizeof(kKernels[0]);
 
 extern "C" int flash_attention_max_d() { return kMaxD; }
 
-// kernel: the index into kKernels; q, k, v and o of its dtype.  Strides
-// are in elements, for the (b, h, s) axes of each tensor; the feature axis
+// kernel: the index into kKernels; q, k, v and o of its dtype; lse null,
+// or (B, Hq, S) fp32, contiguous, which receives each row's log-normaliser
+// L = m + ln(max(l, 1e-30)) (the training forward saves it for the
+// backward; prefill passes null and writes nothing more).  Strides are in
+// elements, for the (b, h, s) axes of each tensor; the feature axis
 // is contiguous.  A kernel with 16-byte loads needs D % 8 == 0 and every
 // base and stride 16-byte aligned, else cudaErrorMisalignedAddress.
 // Returns a cudaError_t.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int S, int D, int causal, float scale, int kernel,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Hq, int Hkv, int S, int D, int causal, float scale, int kernel,
     long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss,
@@ -707,8 +729,8 @@ extern "C" int flash_attention_fwd(
     if (!ok) return cudaErrorMisalignedAddress;
   }
   return kKernels[kernel].launch(
-      q, k, v, o, B, Hq, Hkv, S, D, causal, scale, {qsb, qsh, qss},
-      {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
+      q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, S, D, causal, scale,
+      {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss}, {osb, osh, oss},
       static_cast<cudaStream_t>(stream_ptr));
 }
 

@@ -34,7 +34,7 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_D = 128
 
 
-def _check(q, k, v, block_q: int, block_k: int) -> None:
+def _check(q, k, v, block_q: int, block_k: int, dtypes=_DTYPES) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, D)")
     B, Hq, S, D = q.shape
@@ -50,10 +50,10 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
     if bq < 1 or bk < 1 or S % bq or S % bk:
         raise ValueError(f"S={S} must be a multiple of block_q={bq} and "
                          f"block_k={bk}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or \
+    if q.dtype not in dtypes or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
-                        f"one of {_DTYPES} for all three")
+                        f"one of {dtypes} for all three")
     dev = q.device
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
@@ -61,28 +61,40 @@ def _check(q, k, v, block_q: int, block_k: int) -> None:
         raise RuntimeError(f"q on {dev}, k on {k.device}, v on {v.device}")
 
 
+def work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions compute in: float64 for float64,
+    else fp32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          block_q: int = 256, block_k: int = 256):
+                          block_q: int = 256, block_k: int = 256,
+                          return_lse: bool = False):
     """Plain PyTorch version of the kernel: the same online softmax, in
     fp32, over key blocks of ``min(block_k, S)``.  Rows that cannot see a
     key block under the causal mask skip it (what skipping the blocks
-    above the diagonal does, exactly: such a block changes nothing)."""
-    _check(q, k, v, block_q, block_k)
+    above the diagonal does, exactly: such a block changes nothing).
+    With ``return_lse`` also each row's log-normaliser ``L = m +
+    log(max(l, 1e-30))``, ``(B, Hq, S)`` in fp32.  It also takes float64
+    (the kernel does not), computing (and returning ``L``) in float64
+    then, for gradient checks."""
+    _check(q, k, v, block_q, block_k, _DTYPES + (torch.float64,))
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     g = Hq // Hkv
     bk = min(block_k, S)
     scale = 1.0 / (D ** 0.5)
     dev = q.device
-    qf = q.float().reshape(B, Hkv, g, S, D)
-    m = torch.full((B, Hkv, g, S), NEG_INF, device=dev)
-    l = torch.zeros((B, Hkv, g, S), device=dev)
-    acc = torch.zeros((B, Hkv, g, S, D), device=dev)
+    work = work_dtype(q.dtype)
+    qf = q.to(work).reshape(B, Hkv, g, S, D)
+    m = torch.full((B, Hkv, g, S), NEG_INF, dtype=work, device=dev)
+    l = torch.zeros((B, Hkv, g, S), dtype=work, device=dev)
+    acc = torch.zeros((B, Hkv, g, S, D), dtype=work, device=dev)
     pos = torch.arange(S, device=dev)
     for k0 in range(0, S, bk):
         lo = k0 if causal else 0
-        kb = k[:, :, k0:k0 + bk].float()
-        vb = v[:, :, k0:k0 + bk].float()
+        kb = k[:, :, k0:k0 + bk].to(work)
+        vb = v[:, :, k0:k0 + bk].to(work)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, lo:], kb) * scale
         if causal:
             see = pos[lo:, None] >= pos[None, k0:k0 + bk]
@@ -95,8 +107,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         acc[..., lo:, :] = (acc[..., lo:, :] * corr[..., None]
                             + torch.einsum("bhgqk,bhkd->bhgqd", p, vb))
         m[..., lo:] = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, Hq, S, D).to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).reshape(B, Hq, S, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l_safe)).reshape(B, Hq, S)
+    return out
 
 
 #: the kernels of ``csrc/flash_attn.cu``, in the numbering of its
@@ -130,7 +145,7 @@ def kernel_index(q, k, v, o) -> int:
             + 2 * (not vector_loads(q, k, v, o)) + (q.shape[-1] <= 64))
 
 
-def _launch(q, k, v, causal: bool):
+def _launch(q, k, v, causal: bool, lse=None):
     lib = _build.load("flash_attn")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
@@ -141,7 +156,8 @@ def _launch(q, k, v, causal: bool):
     dev = q.device
     with torch.cuda.device(dev):
         err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Hq,
             k.shape[1], S, D, int(causal), 1.0 / (D ** 0.5),
             kernel_index(q, k, v, o), *strides,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -169,18 +185,25 @@ def kernel_attrs() -> dict:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 256,
-                    block_k: int = 256):
+                    block_k: int = 256, return_lse: bool = False):
     """Attention of ``q (B, Hq, S, D)`` over ``k, v (B, Hkv, S, D)`` (the
     JAX package's ``flash_attention`` without ``interpret``).  The kernel
     on CUDA tensors, :func:`flash_attention_plain` on CPU tensors.
-    Returns ``(B, Hq, S, D)`` in q's dtype."""
+    Returns ``(B, Hq, S, D)`` in q's dtype; with ``return_lse`` also the
+    kernel's log-normaliser ``L`` (fp32 ``(B, Hq, S)``), which the
+    training forward saves for its backward
+    (``repro_torch.models.flash_xla``)."""
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     block_q=block_q, block_k=block_k)
-    out = _launch(q, k, v, causal)
+                                     block_q=block_q, block_k=block_k,
+                                     return_lse=return_lse)
+    B, Hq, S, _ = q.shape
+    lse = (torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    out = _launch(q, k, v, causal, lse)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

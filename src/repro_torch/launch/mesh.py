@@ -392,9 +392,9 @@ def _rank_main(fn, rank: int, p: int, store: str, tmp: str, device: Device,
             BACKEND[transport], init_method=store, rank=rank, world_size=p,
             timeout=datetime.timedelta(seconds=timeout))
         out = fn(rank, p, *args)
-        results.put((rank, True, _stash(out, tmp, rank)))
+        results.put((rank, True, _stash(out, tmp, rank), time.monotonic()))
     except BaseException:
-        results.put((rank, False, traceback.format_exc()))
+        results.put((rank, False, traceback.format_exc(), time.monotonic()))
         raise
     finally:
         if dist.is_initialized():
@@ -476,14 +476,27 @@ _GRACE_S = 2.0
 
 
 def _collect(procs, results, p: int, timeout: float) -> List[Any]:
+    """Each rank's payload, in rank order, or :class:`RankError`.
+
+    A rank stamps what it sends with ``time.monotonic()`` (one clock for
+    every process of the host), and the deadline is judged by that stamp,
+    not by when this process reads the message: a result or an error
+    sent after the deadline counts as late, even when a starved parent
+    reads it before it has seen the deadline pass (a rank whose collective
+    timed out because another was late then is not reported as the
+    failure), and one sent in time counts, even when read late."""
     deadline = time.monotonic() + timeout
     got: Dict[int, Any] = {}
     gone: Dict[int, float] = {}
     while len(got) < p:
         try:
-            rank, ok, payload = results.get(timeout=0.2)
+            rank, ok, payload, sent = results.get(timeout=0.2)
         except queue.Empty:
             now = time.monotonic()
+            if now > deadline:
+                late = sorted(set(range(p)) - set(got))
+                raise RankError(f"ranks {late} did not finish within "
+                                f"{timeout} s; every rank was killed")
             for r, pr in enumerate(procs):
                 if r in got or pr.exitcode is None:
                     continue
@@ -491,10 +504,8 @@ def _collect(procs, results, p: int, timeout: float) -> List[Any]:
                 if now - gone[r] > _GRACE_S:
                     raise RankError(f"rank {r} exited with code "
                                     f"{pr.exitcode} without a result")
-            if now > deadline:
-                late = sorted(set(range(p)) - set(got))
-                raise RankError(f"ranks {late} did not finish within "
-                                f"{timeout} s; every rank was killed")
+            continue
+        if sent > deadline:
             continue
         if not ok:
             raise RankError(f"rank {rank} raised:\n{payload}")

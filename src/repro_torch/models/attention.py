@@ -1,5 +1,6 @@
-"""Attention: GQA projections, the prefill path (the flash kernel or its
-plain chunked twin) and the decode path against a KV cache.
+"""Attention: GQA projections, the training and prefill path (the flash
+kernel or its plain chunked twin, each differentiable through the flash
+backward of ``flash_xla``) and the decode path against a KV cache.
 
 Decode attention is plain torch ops over the whole cache, positions at
 or past ``cur_len`` masked, as in the JAX package (its einsum + reduction
@@ -17,7 +18,7 @@ from torch import nn
 
 from ..kernels import flash_attn
 from . import layers, rope as rope_mod
-from .flash_xla import flash_attention_xla
+from .flash_xla import flash_attention_kernel, flash_attention_xla
 
 NEG_INF = -1e30
 
@@ -67,10 +68,37 @@ def attn_init(generator, cfg, dtype, device=None) -> Attention:
 def chunked_attention(q, k, v, *, causal=True, chunk=1024):
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D).  Returns (B, Hq, S, D).
 
-    Blockwise online softmax, the same arithmetic as
-    :func:`flash_attention_xla` (the reference differentiates the two
-    differently; their forwards agree)."""
-    return flash_attention_xla(q, k, v, causal, chunk)
+    Blockwise online softmax over key chunks, written as the reference's
+    ``lax.scan`` is (every chunk, no in-place update), so autograd
+    differentiates through it and saves every chunk's probabilities: the
+    baseline without the flash backward (``impl="xla_naive"``)."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    group = Hq // Hkv
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    scale = 1.0 / (D ** 0.5)
+    qg = (q.float() * scale).reshape(B, Hkv, group, S, D)
+    q_pos = torch.arange(S, device=q.device)
+    m = torch.full((B, Hkv, group, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, group, S), device=q.device)
+    acc = torch.zeros((B, Hkv, group, S, D), device=q.device)
+    for k0 in range(0, S, chunk):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                         k[:, :, k0:k0 + chunk].float())
+        if causal:
+            msk = q_pos[:, None] >= q_pos[None, k0:k0 + chunk]
+            s = torch.where(msk, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p, v[:, :, k0:k0 + chunk].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, S, D).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len):
@@ -99,12 +127,16 @@ class KVCache(NamedTuple):
 
 
 def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
-    """Prefill self-attention.  x: (B, S, d).  Returns ``(out (B, S, d),
-    KVCache of this sequence's k, v (B, S, Hkv, D))``.
+    """Training and prefill self-attention.  x: (B, S, d).  Returns
+    ``(out (B, S, d), KVCache of this sequence's k, v (B, S, Hkv, D))``.
 
     ``impl``: ``"pallas"`` is the flash kernel (the CUDA kernel on the
     card, its plain version on the CPU), ``"xla"`` the plain chunked
     flash of ``flash_xla``, ``"xla_naive"`` :func:`chunked_attention`.
+    Where autograd records (grad enabled, an input requiring grad),
+    ``"pallas"`` and ``"xla"`` save ``(q, k, v, o, L)`` for the flash
+    backward of ``flash_xla`` (the kernel then also writes ``L``), and
+    ``"xla_naive"`` is differentiated by autograd through its loop.
     """
     _no_ctx(ctx)
     B, S, _ = x.shape
@@ -118,7 +150,10 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     # (B, H, S, D) views: the kernel reads the projections' layout
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if impl == "pallas":
-        o = flash_attn.flash_attention(qt, kt, vt, causal=True)
+        if any(t.requires_grad for t in (qt, kt, vt)):
+            o = flash_attention_kernel(qt, kt, vt, True, cfg.attn_chunk)
+        else:
+            o = flash_attn.flash_attention(qt, kt, vt, causal=True)
     elif impl == "xla_naive":
         o = chunked_attention(qt, kt, vt, causal=True)
     elif impl == "xla":

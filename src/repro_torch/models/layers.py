@@ -6,7 +6,8 @@ Weights keep the JAX package's layouts (``Dense.w`` is ``(d_in, d_out)``,
 applied as ``x @ w``), so a reference parameter tree maps onto a
 ``state_dict`` name for name (``repro_torch.convert``).  Parameters are
 created with ``requires_grad=False``: the serving path builds no autograd
-graph.
+graph; the trainer (``repro_torch.launch.train``) turns it on for the
+span of a gradient.
 """
 from __future__ import annotations
 
@@ -149,8 +150,38 @@ def swiglu(p, x):
     return dense(p.down, F.silu(dense(p.gate, x)) * dense(p.up, x))
 
 
+class _Embed(torch.autograd.Function):
+    """``table[tokens]``, whose gradient sums each row's occurrences in
+    fp32 and rounds the sum once to the table's dtype.  Autograd's own
+    gradient of the gather (``index_put_`` with ``accumulate``) rounds a
+    bf16 row after every occurrence: with a Zipfian token stream a row
+    is hit hundreds of times a batch, and its gradient drifts by percents
+    (at Qwen2.5-32B's width, beyond ``chip_smoke.py`` ``[13.accum]``'s
+    bound)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        rows, inv = torch.unique(tokens.reshape(-1), return_inverse=True)
+        d = g.shape[-1]
+        sums = torch.zeros((rows.numel(), d), dtype=torch.float32,
+                           device=g.device)
+        sums.index_put_((inv,), g.reshape(-1, d).float(), accumulate=True)
+        out = torch.zeros(ctx.table_shape, dtype=g.dtype, device=g.device)
+        out[rows] = sums.to(g.dtype)
+        return out, None
+
+
 def embed(p, tokens):
-    return p.table[tokens]
+    """``p.table[tokens]``; differentiable in ``table`` with fp32 row
+    sums (:class:`_Embed`)."""
+    return _Embed.apply(p.table, tokens)
 
 
 def cross_entropy(logits, labels, ignore_index=-100):

@@ -1,5 +1,5 @@
 """Decoder-only LM for the attention families (dense, and the vlm/audio
-backbones whose frontends are stubs), for serving: prefill and decode.
+backbones whose frontends are stubs): training, prefill and decode.
 
 One :class:`DecoderLayer` per layer in a ``ModuleList``, run by a Python
 loop where the JAX package scans period-stacked parameters
@@ -8,13 +8,19 @@ parameters onto this layout.  Caches are a list with one
 :class:`~repro_torch.models.attention.KVCache` per layer.
 
 Entry points, as in the reference:
-  forward      — full-sequence forward (logits, optional caches, aux)
-  prefill      — last-position logits and the caches
-  decode_step  — one token against the caches (updated in place)
+  loss_and_metrics — the training objective (flash attention with the
+                     flash backward of ``flash_xla``)
+  forward          — full-sequence forward (logits, optional caches, aux)
+  prefill          — last-position logits and the caches
+  decode_step      — one token against the caches (updated in place)
+
+With ``cfg.remat``, a forward that autograd records runs each layer
+under ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
+layer's input and recomputes the rest in the backward: the counterpart
+of the reference's ``jax.checkpoint`` of its scanned period body.
 
 A config with MoE or SSM layers raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; ``loss_and_metrics`` comes with the training
-slice.
+ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import attention, layers, rope
@@ -170,7 +177,12 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     angles = _angles_for(cfg, positions)
     caches = []
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for layer in params.layers:
+        if remat:
+            x = checkpoint(_layer_out, layer, x, angles, impl,
+                           use_reentrant=False)
+            continue
         x, kv = layer(x, angles=angles, impl=impl)
         if want_cache:
             caches.append(kv)
@@ -179,6 +191,24 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux: Dict[str, Any] = {"aux_loss": zero, "dropped": zero}
     return logits, (caches if want_cache else None), aux
+
+
+def _layer_out(layer: DecoderLayer, x, angles, impl):
+    return layer(x, angles=angles, impl=impl)[0]
+
+
+def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
+                     ctx=None, impl="xla", aux_weight=0.01):
+    """batch: ``{"inputs", "labels", optional "positions"}`` tensors on
+    the model's device.  Returns ``(loss, {"loss", "xent", "aux_loss",
+    "dropped"})``, 0-d fp32 tensors; dense stacks have no auxiliary loss,
+    so ``aux_loss`` and ``dropped`` are zeros."""
+    logits, _, aux = forward(params, cfg, batch["inputs"],
+                             positions=batch.get("positions"), ctx=ctx,
+                             impl=impl)
+    xent = layers.cross_entropy(logits, batch["labels"])
+    loss = xent + aux_weight * aux["aux_loss"]
+    return loss, {"loss": loss, "xent": xent, **aux}
 
 
 def prefill(params: Transformer, cfg: ModelConfig, inputs, *,

@@ -14,9 +14,11 @@ failure cases take one each; every spawn has a hard timeout.
 """
 import multiprocessing
 import os
+import queue
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -346,3 +348,42 @@ def test_spawn_ranks_kills_a_rank_that_hangs(tmp_path):
     assert multiprocessing.active_children() == []
     pids = [int(f.read_text()) for f in tmp_path.glob("rank*.pid")]
     assert not any(_alive(pid) for pid in pids)
+
+
+class _Queue:
+    """A results queue that hands out ``msgs`` in order, each after
+    ``delay`` seconds, then is empty."""
+
+    def __init__(self, msgs, delay=0.0):
+        self.msgs, self.delay = list(msgs), delay
+
+    def get(self, timeout):
+        if not self.msgs:
+            time.sleep(timeout)
+            raise queue.Empty
+        time.sleep(self.delay)
+        return self.msgs.pop(0)
+
+
+class _Running:
+    exitcode = None
+
+
+def test_collect_judges_the_deadline_by_send_time():
+    """Under load the parent may read a message only after the deadline
+    has passed: what a rank sent after the deadline (here rank 1's
+    collective timing out because rank 0 hung) is late, and the call
+    names every late rank; what was sent in time counts."""
+    late = time.monotonic() + 60
+    with pytest.raises(tmesh.RankError,
+                       match=r"ranks \[0, 1\] did not finish within 0.5"):
+        tmesh._collect([_Running(), _Running()],
+                       _Queue([(1, False, "collective timed out", late)]),
+                       2, 0.5)
+    sent = time.monotonic()
+    assert tmesh._collect([_Running(), _Running()], _Queue(
+        [(1, True, "b", sent), (0, True, "a", sent)], delay=0.4),
+        2, 0.5) == ["a", "b"]
+    with pytest.raises(tmesh.RankError, match=r"rank 0 raised:\s+boom"):
+        tmesh._collect([_Running()], _Queue([(0, False, "boom", sent)],
+                                            delay=0.6), 1, 0.5)
