@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving and training;
+                                     # the MoE, SSM and hybrid LMs;
                                      # streaming; then
                                      # the full Netflix size: NOMAD, its
                                      # SPMD executor in 8 ranks, then the
@@ -192,7 +193,44 @@ Phases, one line each (any failure raises and exits non-zero):
    ``[13.accum]``: ``grad_accum=2`` (fp32 accumulation) against 1, with a
    control (the second microbatch dropped); ``[13.learn]``: one batch
    repeated for 5 steps at a small learning rate lowers the loss at every
-   step.
+   step.  ``[13.init]``'s state is the card memory its construction
+   adds.
+14. the MoE, SSM and hybrid LMs (after phase 13), each model at full
+   width, bf16, seeded, freed before the next, its memory the difference
+   ``memory_allocated()`` makes around its construction; the flash
+   kernel's launches counted on each served or trained path, 0 plain
+   calls.  ``[14.moe]``: Qwen3-30B-A3B at full depth (48 layers, 128
+   experts, top-8) through ``launch.serve.generate``, 4 prompts of 1,024
+   tokens and 16 greedy decode steps, twice (warm-up, measured): prefill
+   and decode times beside their bounds (the function's work on the
+   warm-up's routes: kept routes, the experts a decode step reaches),
+   peak memory, the prefill's summed MoE ``aux_loss`` and ``dropped``;
+   ``[14.moe.check]``: 2 of its
+   layers, the kernel's prefill against the plain one (``impl="xla"``):
+   the share of (token, choice) routes whose expert or kept slot differ,
+   and the logits of the tokens whose routes agree, with a control (the
+   first attention layer unmasked); ``[14.moe.train]``: 2 of its layers
+   through ``launch.train`` (the flash kernel's forward with ``L`` at
+   this train shape against its plain version, with a control, as
+   ``[13.kernel.L]``; 3 steps with the trainer's schedule, one
+   split into forward, backward and optimizer, then a repeated batch
+   whose loss must fall); ``[14.kimi]``: Kimi-K2's dense prologue and one
+   384-expert layer with its shared expert, 2 prompts of 1,024 tokens, 4
+   decode steps; ``[14.ssm]``: Falcon-Mamba-7B at full depth (64
+   layers), 4 prompts of 1,024 tokens, 16 decode steps (no TPU kernel:
+   attention-free), and ``[14.ssm.check]``: prefill of 192 tokens and a
+   decode step against the prefill of 193 (logits and each layer's
+   state, printed layer by layer), with a control (the states zeroed),
+   then the same check with the weights cast to fp32; ``[14.hybrid]``:
+   Jamba-1.5-Large's first 4 layers (SSM and attention, dense and MoE
+   FFNs), 2 prompts of 1,024 tokens, 8 decode steps, and its kernel
+   prefill against the plain one as ``[14.moe.check]``; ``[14.profile]``:
+   one Qwen3-MoE and one Falcon-Mamba prefill under ``torch.profiler``;
+   ``[14.flash]``: the flash kernel at each shape phase 14 serves (B=4,
+   Hq=32, Hkv=4 for Qwen3-MoE; B=2, 64/8 for Kimi-K2 and Jamba) against
+   its plain version with two controls, its time beside its bound, the
+   plain version's and SDPA's: each shape a kernel record of its own,
+   whose launches are its models' measured prefills.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -201,6 +239,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -937,95 +976,108 @@ FLASH_CASES = ((torch.bfloat16, LM_P, 128, True),
                (torch.bfloat16, LM_P, 36, False))
 
 
-def flash_kernel_checks(dev, launches: int):
-    """[7.flash]: each kernel of ``csrc/flash_attn.cu`` with its registers,
-    shared memory and spills; then the kernel against its plain version
-    at each of :data:`FLASH_CASES`, on q/k/v laid out as the prefill
-    hands them over ((B, S, H, D) projections viewed as (B, H, S, D)),
-    fp32 also against the materialized oracle, and two controls the
-    check must reject; at the served shape its time beside its bound,
-    the plain version's and SDPA's.  Returns the kernel records
-    (``launches`` is the main path's count, bf16)."""
+def flash_case(dev, g, dtype, B, Hq, Hkv, S, D, tag="7.flash",
+               timed_case=True):
+    """One shape of the flash kernel, on q/k/v laid out as the prefill
+    hands them over ((B, S, H, D) projections viewed as (B, H, S, D)):
+    the kernel against its plain version, fp32 also against the
+    materialized oracle, and two controls the check must reject; if
+    ``timed_case``, its time beside its bound, the plain version's and
+    SDPA's, and its kernel record (``launches`` 0: the caller's)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as kfa
     from repro_torch.kernels import ref
+    name = {torch.bfloat16: "bf16", torch.float16: "fp16",
+            torch.float32: "fp32"}[dtype]
+    q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev)
+                * sc).to(dtype).transpose(1, 2)
+               for h, sc in ((Hq, 0.3), (Hkv, 0.3), (Hkv, 1.0)))
+    got = kfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    kernel = kfa.KERNELS[kfa.kernel_index(q, k, v, got)]
+    want = kfa.flash_attention_plain(q, k, v, causal=True)
+    abs_v = (None if dtype == torch.float32 else kfa.flash_attention_plain(
+        q.float(), k.float(), v.abs().float(), causal=True))
+    err = float((got.double() - want.double()).abs().max())
+    ok = flash_within(got, want, dtype, abs_v)
+    phase("check", what=f"flash_attention {name} B={B} Hq={Hq} Hkv={Hkv} "
+          f"S={S} D={D} kernel vs plain", kernel=kernel,
+          max_abs_err=f"{err:.3e}", within=ok)
+    if not ok:
+        raise AssertionError(f"flash_attention {name} B={B} Hq={Hq} "
+                             f"Hkv={Hkv} S={S} D={D}: kernel and plain "
+                             "version disagree")
+    if dtype == torch.float32:
+        # a second witness: the materialized oracle (in bf16 it rounds
+        # the probabilities to bf16, which the fp32 kernel does not)
+        oracle = ref.flash_attention_ref(q, k, v, causal=True)
+        ok = flash_within(got, oracle, dtype)
+        phase("check", what=f"flash_attention {name} kernel vs "
+              "materialized oracle", max_abs_err=(
+                  f"{float((got.double() - oracle.double()).abs().max()):.3e}"),
+              within=ok)
+        del oracle
+        if not ok:
+            raise AssertionError("flash_attention fp32: kernel and "
+                                 "materialized oracle disagree")
+    # wrong results the check must reject: no causal mask, and query
+    # head h reading KV head h % Hkv instead of h // (Hq / Hkv)
+    wrong_heads = torch.arange(Hq, device=dev) % Hkv
+    for what, bad in (
+            ("plain without the causal mask",
+             kfa.flash_attention_plain(q, k, v, causal=False)),
+            ("plain with KV head h % Hkv",
+             kfa.flash_attention_plain(q, k[:, wrong_heads],
+                                       v[:, wrong_heads], causal=True))):
+        rejected = not flash_within(got, bad, dtype, abs_v)
+        phase("control", what=f"flash {name} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+              f"D={D} {what}", rejected=rejected)
+        if not rejected:
+            raise AssertionError(f"the flash check cannot tell {what}")
+    del want, abs_v
+    if not timed_case:
+        return None
+    k_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v), 10)
+    p_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10)
+    b_ms, b_by = flash_bound(B, Hq, Hkv, S, D, dtype)
+    phase(tag, dtype=name, shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={D}",
+          kernel=kernel, kernel_ms=f"{k_ms:.4f}", bound_ms=f"{b_ms:.4f}",
+          bound_by=b_by, plain_ms=f"{p_ms:.3f}", sdpa_ms=f"{lib_ms:.4f}")
+    return dict(
+        name=f"flash_attention[{name},B={B},Hq={Hq},Hkv={Hkv},S={S},D={D}]",
+        route="cuda", source=FLASH_SRC, replaces=FLASH_REPLACES,
+        kernel=kernel, launches=0, launches_on=None, max_abs_err=err,
+        ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms)
+
+
+def flash_kernel_checks(dev, launches: int):
+    """[7.flash]: each kernel of ``csrc/flash_attn.cu`` with its registers,
+    shared memory and spills; then :func:`flash_case` at each of
+    :data:`FLASH_CASES` (B, Hq, Hkv as [7.lm] serves them).  Returns the
+    timed cases' kernel records (``launches`` is the main path's count,
+    bf16)."""
+    from repro_torch.kernels import flash_attn as kfa
     for name, attrs in kfa.kernel_attrs().items():
         phase("7.flash", kernel=name, **attrs)
         if attrs["local_bytes"]:
             raise AssertionError(f"{name} spills {attrs['local_bytes']} "
                                  "bytes per thread")
-    B, Hq, Hkv = LM_B, 40, 8
     g = torch.Generator(device=dev).manual_seed(3)
     records = []
     for dtype, S, D, timed_case in FLASH_CASES:
-        name = {torch.bfloat16: "bf16", torch.float16: "fp16",
-                torch.float32: "fp32"}[dtype]
-        q, k, v = ((torch.randn((B, S, h, D), generator=g, device=dev)
-                    * sc).to(dtype).transpose(1, 2)
-                   for h, sc in ((Hq, 0.3), (Hkv, 0.3), (Hkv, 1.0)))
-        got = kfa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        kernel = kfa.KERNELS[kfa.kernel_index(q, k, v, got)]
-        want = kfa.flash_attention_plain(q, k, v, causal=True)
-        abs_v = (None if dtype == torch.float32 else kfa.flash_attention_plain(
-            q.float(), k.float(), v.abs().float(), causal=True))
-        err = float((got.double() - want.double()).abs().max())
-        ok = flash_within(got, want, dtype, abs_v)
-        phase("check", what=f"flash_attention {name} B={B} Hq={Hq} Hkv={Hkv} "
-              f"S={S} D={D} kernel vs plain", kernel=kernel,
-              max_abs_err=f"{err:.3e}", within=ok)
-        if not ok:
-            raise AssertionError(f"flash_attention {name} S={S} D={D}: "
-                                 "kernel and plain version disagree")
-        if dtype == torch.float32:
-            # a second witness: the materialized oracle (in bf16 it rounds
-            # the probabilities to bf16, which the fp32 kernel does not)
-            oracle = ref.flash_attention_ref(q, k, v, causal=True)
-            ok = flash_within(got, oracle, dtype)
-            phase("check", what=f"flash_attention {name} kernel vs "
-                  "materialized oracle", max_abs_err=(
-                      f"{float((got.double() - oracle.double()).abs().max()):.3e}"),
-                  within=ok)
-            del oracle
-            if not ok:
-                raise AssertionError("flash_attention fp32: kernel and "
-                                     "materialized oracle disagree")
-        # wrong results the check must reject: no causal mask, and query
-        # head h reading KV head h % Hkv instead of h // (Hq / Hkv)
-        wrong_heads = torch.arange(Hq, device=dev) % Hkv
-        for what, bad in (
-                ("plain without the causal mask",
-                 kfa.flash_attention_plain(q, k, v, causal=False)),
-                ("plain with KV head h % Hkv",
-                 kfa.flash_attention_plain(q, k[:, wrong_heads],
-                                           v[:, wrong_heads], causal=True))):
-            rejected = not flash_within(got, bad, dtype, abs_v)
-            phase("control", what=f"flash {name} S={S} D={D} {what}",
-                  rejected=rejected)
-            if not rejected:
-                raise AssertionError(f"the flash check cannot tell {what}")
-        del want, abs_v
-        if not timed_case:
+        rec = flash_case(dev, g, dtype, LM_B, 40, 8, S, D,
+                         timed_case=timed_case)
+        if rec is None:
             continue
-        k_ms = cuda_ms(lambda: kfa.flash_attention(q, k, v), 10)
-        p_ms = cuda_ms(lambda: kfa.flash_attention_plain(q, k, v), 3)
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10)
-        b_ms, b_by = flash_bound(B, Hq, Hkv, S, D, dtype)
-        phase("7.flash", dtype=name, kernel=kernel, kernel_ms=f"{k_ms:.4f}",
-              bound_ms=f"{b_ms:.4f}", bound_by=b_by, plain_ms=f"{p_ms:.3f}",
-              sdpa_ms=f"{lib_ms:.4f}")
-        records.append(dict(
-            name=f"flash_attention[{name},B={B},Hq={Hq},Hkv={Hkv},S={S},"
-                 f"D={D}]", route="cuda", source=FLASH_SRC,
-            replaces=FLASH_REPLACES, kernel=kernel,
-            launches=launches if dtype == torch.bfloat16 else 0,
-            launches_on=("[7.lm] prefill" if dtype == torch.bfloat16
-                         else f"[7.lm] prefill (bf16 only; {name} is not "
-                              "served)"),
-            max_abs_err=err, ms=k_ms,
-            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        unserved = {torch.float16: "fp16", torch.float32: "fp32"}.get(dtype)
+        rec["launches"] = 0 if unserved else launches
+        rec["launches_on"] = ("[7.lm] prefill" + (
+            f" (bf16 only; {unserved} is not served)" if unserved else ""))
+        records.append(rec)
     return records
 
 
@@ -1048,6 +1100,104 @@ def check_logits(what, got, want, bound: float) -> None:
     if not logits_agree(what, got, want, bound):
         raise AssertionError(f"{what}: logits differ beyond {bound} or a "
                              "clear argmax differs")
+
+
+def free_cuda() -> None:
+    """Drop what Python still holds and return the cached blocks."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_on_card(fn):
+    """``(fn(), seconds, bytes)``: the card memory ``fn``'s result holds,
+    the difference of ``memory_allocated()`` around it (memory that
+    earlier phases still hold is not counted)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.memory_allocated() - before)
+
+
+class FlashCounts:
+    """Over a ``with`` block: the flash kernel's launches (its wrapper's
+    own count, zeroed on entry) and the calls of its plain version."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn as kfa
+        self._kfa, self._plain = kfa, kfa.flash_attention_plain
+        self.launches = self.plain_calls = 0
+
+        def counted(*a, **kw):
+            self.plain_calls += 1
+            return self._plain(*a, **kw)
+
+        kfa.flash_attention_plain = counted
+        kfa.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self._kfa.flash_attention.launches
+        self._kfa.flash_attention_plain = self._plain
+        return False
+
+
+class FirstAttentionUnmasked:
+    """Over a ``with`` block, the first attention call of each prefill
+    runs without the causal mask (its plain version); the others through
+    the kernel: the control of the prefill checks."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attn as kfa
+        from repro_torch.models import attention as A
+        self._A, self._kfa, self.calls = A, kfa, 0
+
+        def first_unmasked(q, k, v, *, causal=True, **kw):
+            self.calls += 1
+            if self.calls == 1:
+                return kfa.flash_attention_plain(q, k, v, causal=False)
+            return kfa.flash_attention(q, k, v, causal=causal, **kw)
+
+        A.flash_attn = types.SimpleNamespace(flash_attention=first_unmasked)
+        return self
+
+    def __exit__(self, *exc):
+        self._A.flash_attn = self._kfa
+        return False
+
+
+def train_split(model, cfg, batch, opt_state, opt_cfg):
+    """One more step in its parts by CUDA events: ``[forward, backward,
+    optimizer]`` ms (the trainer's schedule at ``opt_state``'s step)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as optim
+    from repro_torch.optim.schedule import cosine_warmup
+    named = dict(model.named_parameters())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in named.values():
+        p.requires_grad_(True)
+    try:
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss, _ = T.loss_and_metrics(model, cfg, batch, impl="pallas")
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(named.values()))
+        ev[2].record()
+    finally:
+        for p in named.values():
+            p.requires_grad_(False)
+    del loss
+    optim.adamw_update(model, dict(zip(named, grads)), opt_state, opt_cfg,
+                       lr_scale=cosine_warmup(opt_state["step"],
+                                              base_lr=1.0, warmup=100,
+                                              total=10_000))
+    ev[3].record()
+    torch.cuda.synchronize()
+    del grads
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
 def device_busy(fn, counts=None):
@@ -1125,98 +1275,174 @@ def lm_profile(model, cfg, prompts, dev, unprofiled_ms) -> None:
                 del state["pre"]
 
 
-def lm_phase(dev):
-    """[7.lm]: Qwen2.5-32B served end to end on the card: init, prefill
-    of B prompts, merge into the decode caches, greedy decode steps, all
-    through ``repro_torch.launch.serve``; then checks on the same
-    weights.  Returns the flash kernel's launches in the prefill."""
-    from repro_torch import configs
-    from repro_torch.kernels import flash_attn as kfa
-    from repro_torch.launch import serve as lserve
-    from repro_torch.models import attention as A
-    from repro_torch.models import transformer as T
+class RouteLog:
+    """Over a ``with`` block, each MoE call's routes as
+    ``models/moe.py``'s own ``routes`` decides them: ``(experts (T, k),
+    kept (T, k))``."""
 
-    cfg = configs.get_config("qwen2_5_32b")
-    B, P, G = LM_B, LM_P, LM_G
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                          device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._routes = moe, moe.routes
+        self.calls = []
+
+        def recorded(*a, **kw):
+            out = self._routes(*a, **kw)
+            self.calls.append((out[2], out[4]))
+            return out
+
+        moe.routes = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.routes = self._routes
+        return False
+
+
+def family_model(tag: str, arch: str, dev, layers=None):
+    """``(model, cfg)``: the config of ``arch`` (cut to ``layers``) with
+    seeded weights on the card, and its ``[<tag>.init]`` line:
+    parameters, weight bytes, the card memory it holds (a difference),
+    seconds."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    full = configs.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    model, secs, held = build_on_card(lambda: T.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, device=dev))
     n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    phase("7.init", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-          params=n_params, weight_bytes=weight_bytes, seconds=f"{init_s:.2f}",
-          mem_bytes=torch.cuda.memory_allocated())
+    phase(f"{tag}.init", model=cfg.name,
+          layers=f"{cfg.n_layers} of {full.n_layers}", d_model=cfg.d_model,
+          params=n_params, weight_bytes=sum(p.numel() * p.element_size()
+                                            for p in model.parameters()),
+          state_bytes=held, seconds=f"{secs:.2f}")
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} parameters, the config has "
                              f"{cfg.param_count()}")
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+    return model, cfg
+
+
+def prompts_for(cfg, B: int, P: int, dev, seed: int = 0):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (B, P))).to(dev)
 
-    # instrument: calls of the kernel's plain version (the wrapper's
-    # launch count stays its own)
-    plain, plain_calls = kfa.flash_attention_plain, [0]
 
-    def counted_plain(*a, **kw):
-        plain_calls[0] += 1
-        return plain(*a, **kw)
+def lm_bounds(model, cfg, B: int, P: int, G: int, calls):
+    """``(prefill bound ms, decode bound ms a step)`` of the function on
+    this run's routes (``calls``: a :class:`RouteLog` of one prefill of
+    B x P tokens and G decode steps).  Prefill: 2 flops a token for every
+    weight but the embedding table (a gather), the lm_head and the
+    routed experts; 2 x 3 d ff for each kept route; the lm_head for the B
+    last positions only (prefill returns their logits); the causal
+    attention products; at the bf16 tensor-core peak.  Decode: a step
+    reads every weight but the embedding table (B rows of it) and the
+    routed experts, and of those only the experts its kept routes reach
+    (at most min(E, B k) a layer), the valid part of the KV caches and
+    the SSM states read and written, over HBM bandwidth."""
+    from repro_torch.models.moe import MoE
+    elem = model.lm_head.w.element_size()
+    emb = cfg.vocab_size * cfg.d_model
+    per_expert = 3 * cfg.d_model * cfg.d_expert
+    routed = sum(t.numel() for m in model.modules() if isinstance(m, MoE)
+                 for t in (m.gate, m.up, m.down))
+    rest = [(p.numel(), p.element_size())
+            for p in model.parameters()]
+    dense = sum(n for n, _ in rest) - 2 * emb - routed
+    dense_bytes = sum(n * e for n, e in rest) - (2 * emb + routed) * elem
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    pre = [kept for topi, kept in calls if topi.shape[0] == B * P]
+    dec = [topi[kept] for topi, kept in calls if topi.shape[0] == B]
+    if (len(pre), len(dec)) != (n_moe, n_moe * G):
+        raise AssertionError(f"{len(pre)} prefill and {len(dec)} decode "
+                             f"MoE calls, want {n_moe} and {n_moe * G}")
+    kept_routes = sum(int(k.sum()) for k in pre)
+    reached = sum(int(torch.unique(e).numel()) for e in dec) / G
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_ssm = cfg.n_layers - n_attn
+    flops = (2 * dense * B * P + 2 * per_expert * kept_routes + 2 * emb * B
+             + n_attn * 4 * B * cfg.n_heads * cfg.head_dim
+             * (P * (P + 1) // 2))
+    cache = (2 * n_attn * B * (P + G // 2) * cfg.n_kv_heads
+             * cfg.head_dim * elem
+             + n_ssm * B * cfg.d_inner * (2 * 4 * cfg.ssm_state
+                                          + 2 * elem * (cfg.ssm_conv - 1)))
+    dec_bytes = (dense_bytes + emb * elem + B * cfg.d_model * elem
+                 + reached * per_expert * elem + cache)
+    return flops / PEAK_TC16 * 1e3, dec_bytes / PEAK_BW * 1e3
 
-    kfa.flash_attention_plain = counted_plain
-    runs = []
-    try:
-        with torch.inference_mode():
-            for run in ("warm-up", "measured"):
-                kfa.reset_launches()
-                plain_calls[0] = 0
-                torch.cuda.reset_peak_memory_stats()
-                toks, t = lserve.generate(model, cfg, prompts, G + 1)
-                runs.append((toks, t, kfa.flash_attention.launches,
-                             plain_calls[0],
-                             torch.cuda.max_memory_allocated()))
-                phase("7.run", run=run, prefill_s=f"{t['prefill_s']:.4f}",
-                      decode_s=f"{t['decode_s']:.4f}",
-                      flash_launches=runs[-1][2], plain_calls=runs[-1][3])
-    finally:
-        kfa.flash_attention_plain = plain
+
+def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int):
+    """``[<tag>.run]`` (a warm-up and a measured run of
+    ``launch.serve.generate``: prefill, merge, G greedy decode steps,
+    each with the flash kernel's launches and plain calls counted; the
+    warm-up's MoE routes logged for the bounds) and ``[<tag>]``: times
+    beside their bounds (:func:`lm_bounds`), peak memory, and the summed
+    MoE aux of a forward of the same prompts.  Returns the measured
+    run's ``launches``, ``tokens`` and ``timings``."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    runs, routes = [], RouteLog()
+    for run in ("warm-up", "measured"):
+        torch.cuda.reset_peak_memory_stats()
+        log = routes if run == "warm-up" else contextlib.nullcontext()
+        with torch.inference_mode(), FlashCounts() as fc, log:
+            toks, t = lserve.generate(model, cfg, prompts, G + 1)
+        runs.append((toks, t, fc.launches, fc.plain_calls,
+                     torch.cuda.max_memory_allocated()))
+        phase(f"{tag}.run", run=run, prefill_s=f"{t['prefill_s']:.4f}",
+              decode_s=f"{t['decode_s']:.4f}", flash_launches=fc.launches,
+              want=want_launches, plain_calls=fc.plain_calls)
+    if any(r[2] != want_launches or r[3] for r in runs):
+        raise AssertionError(f"{tag}: flash launches "
+                             f"{[r[2] for r in runs]} (want {want_launches}),"
+                             f" plain calls {[r[3] for r in runs]}")
     toks, t, launches, n_plain, peak = runs[-1]
-    if any(r[2] != cfg.n_layers or r[3] != 0 for r in runs):
-        raise AssertionError(f"prefill launched the flash kernel "
-                             f"{[r[2] for r in runs]} times (want "
-                             f"{cfg.n_layers}), plain calls "
-                             f"{[r[3] for r in runs]}")
     if not (toks.shape == (B, G + 1) and bool((toks >= 0).all())
             and bool((toks < cfg.vocab_size).all())
             and torch.equal(toks, runs[0][0])):
-        raise AssertionError("generated tokens misshapen, out of range or "
+        raise AssertionError(f"{tag}: tokens misshapen, out of range or "
                              "not the same in both runs")
-
-    # what decode must read per step: every weight but the embedding
-    # table (B rows of it), and the valid part of every layer's KV cache
-    kv_step = 2 * cfg.n_layers * B * (P + G // 2) * cfg.n_kv_heads * \
-        cfg.head_dim * 2
-    dec_bytes = (weight_bytes - cfg.vocab_size * cfg.d_model * 2
-                 + B * cfg.d_model * 2 + kv_step)
-    dec_bound_ms = dec_bytes / PEAK_BW * 1e3
-    # prefill: 2 flops per weight per token, plus the attention products
-    pre_flops = (2 * (n_params - cfg.vocab_size * cfg.d_model) * B * P
-                 + cfg.n_layers * 4 * B * cfg.n_heads * cfg.head_dim
-                 * (P * (P + 1) // 2))
-    pre_bound_ms = pre_flops / PEAK_TC16 * 1e3
+    with torch.inference_mode():
+        logits, _, aux = T.forward(model, cfg, prompts, impl="pallas")
+        finite = bool(torch.isfinite(logits.float()).all())
+        del logits
+    pre_ms, dec_ms = lm_bounds(model, cfg, B, P, G, routes.calls)
     step_ms = t["decode_s"] / G * 1e3
-    phase("7.lm", batch=B, prompt=P, decode_steps=G,
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    phase(tag, batch=B, prompt=P, decode_steps=G,
           prefill_ms=f"{t['prefill_s'] * 1e3:.2f}",
           prefill_tok_s=f"{B * P / t['prefill_s']:.1f}",
-          prefill_bound_ms=f"{pre_bound_ms:.2f}",
+          prefill_bound_ms=f"{pre_ms:.2f}",
           decode_ms_per_step=f"{step_ms:.3f}",
           decode_tok_s=f"{B * G / t['decode_s']:.1f}",
-          decode_bound_ms_per_step=f"{dec_bound_ms:.3f}",
-          peak_mem_bytes=peak, flash_launches=launches, plain_calls=n_plain,
-          tokens=json.dumps(toks[:, :8].tolist()))
+          decode_bound_ms_per_step=f"{dec_ms:.3f}", peak_mem_bytes=peak,
+          flash_launches=launches, plain_calls=n_plain,
+          moe_layers=n_moe, aux_loss=f"{float(aux['aux_loss']):.4f}",
+          dropped=f"{float(aux['dropped']):.4f}", finite=finite,
+          tokens=json.dumps(toks[:, :6].tolist()))
+    if not (finite and np.isfinite(float(aux["aux_loss"]))):
+        raise AssertionError(f"{tag}: non-finite logits or aux")
+    return {"launches": launches, "tokens": toks, "timings": t}
+
+
+def lm_phase(dev):
+    """[7.lm]: Qwen2.5-32B served end to end on the card by
+    :func:`serve_family` (init, prefill of B prompts, merge into the
+    decode caches, greedy decode steps, all through
+    ``repro_torch.launch.serve``), its profile; then checks on the same
+    weights.  Returns the flash kernel's launches in the prefill."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import transformer as T
+
+    B, P = LM_B, LM_P
+    model, cfg = family_model("7", "qwen2_5_32b", dev)
+    prompts = prompts_for(cfg, B, P, dev)
+    served = serve_family("7.lm", model, cfg, prompts, LM_G, cfg.n_layers)
+    t = served["timings"]
     lm_profile(model, cfg, prompts, dev,
-               {"prefill": t["prefill_s"] * 1e3, "decode": step_ms})
+               {"prefill": t["prefill_s"] * 1e3,
+                "decode": t["decode_s"] / LM_G * 1e3})
 
     # the same weights: the prefill's last logits with the kernel and
     # with the plain chunked flash; then decode after prefill against the
@@ -1226,27 +1452,15 @@ def lm_phase(dev):
             model, {"inputs": prompts})
         xla, _ = lserve.make_prefill(cfg, impl="xla")(
             model, {"inputs": prompts})
-        if not torch.equal(pal.argmax(-1), toks[:, 0]):
+        if not torch.equal(pal.argmax(-1), served["tokens"][:, 0]):
             raise AssertionError("the prefill's greedy token differs from "
                                  "the served one")
         check_logits("prefill last logits pallas vs xla", pal, xla,
                      LM_LOGIT_BOUND)
         # control: the first layer's attention without the causal mask
         # (its plain version), every other layer through the kernel
-        calls = [0]
-
-        def first_layer_unmasked(q, k, v, *, causal=True, **kw):
-            calls[0] += 1
-            if calls[0] == 1:
-                return kfa.flash_attention_plain(q, k, v, causal=False)
-            return kfa.flash_attention(q, k, v, causal=causal, **kw)
-
-        A.flash_attn = types.SimpleNamespace(
-            flash_attention=first_layer_unmasked)
-        try:
+        with FirstAttentionUnmasked():
             bad, _ = lserve.make_prefill(cfg)(model, {"inputs": prompts})
-        finally:
-            A.flash_attn = kfa
         if logits_agree("prefill, layer 0 unmasked, vs xla", bad, xla,
                         LM_LOGIT_BOUND, tag="control"):
             raise AssertionError("the logits check cannot tell one layer's "
@@ -1272,7 +1486,7 @@ def lm_phase(dev):
         del full
     if not finite:
         raise AssertionError("non-finite logits")
-    return launches
+    return served["launches"]
 
 
 # --------------------------------------------------------------------- #
@@ -1304,20 +1518,23 @@ def worst(rel: dict, n: int = 3) -> str:
     return json.dumps({k: f"{v:.3e}" for k, v in top})
 
 
-def train_flash_checks(dev, chunk: int) -> dict:
-    """[13.kernel.L] and [13.flash]: the flash kernel's forward with its
-    log-normaliser at the train shape (B=TRAIN_B, Hq=40, Hkv=8,
-    S=TRAIN_S, D=128, q/k/v laid out as the layer hands them over), in
-    fp32 and bf16, against its plain version, with a control; then in
-    bf16 its time, the torch-ops backward's (``flash_xla.flash_bwd``
-    over key chunks of ``chunk``), the plain forward's and SDPA's
-    forward and forward + backward, beside the bounds.  Returns the
-    kernel record (``launches`` filled in by the caller)."""
+def train_flash_checks(dev, cfg, tag: str, launches_on: str) -> dict:
+    """[<tag>.kernel.L] and [<tag>.flash]: the flash kernel's forward
+    with its log-normaliser at the train shape of ``cfg`` (B=TRAIN_B,
+    its Hq, Hkv and D, S=TRAIN_S, q/k/v laid out as the layer hands them
+    over), in fp32 and bf16, against its plain version, with a control;
+    then in bf16 its time, the torch-ops backward's
+    (``flash_xla.flash_bwd`` over key chunks of ``cfg.attn_chunk``), the
+    plain forward's and SDPA's forward and forward + backward, beside
+    the bounds.  Returns the kernel record (``launches`` filled in by the
+    caller)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as kfa
     from repro_torch.models import flash_xla as fx
-    B, Hq, Hkv, S, D = TRAIN_B, 40, 8, TRAIN_S, 128
+    B, Hq, Hkv, S, D = (TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S,
+                        cfg.head_dim)
+    chunk = cfg.attn_chunk
     g = torch.Generator(device=dev).manual_seed(13)
     for dtype in (torch.float32, torch.bfloat16):
         name = {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]
@@ -1334,7 +1551,7 @@ def train_flash_checks(dev, chunk: int) -> dict:
         l_err = float((L.double() - want_L.double()).abs().max())
         o_err = float((o.double() - want_o.double()).abs().max())
         ok = lse_within(L, want_L) and flash_within(o, want_o, dtype, abs_v)
-        phase("check", what=f"[13.kernel.L] flash {name} B={B} Hq={Hq} "
+        phase("check", what=f"[{tag}.kernel.L] flash {name} B={B} Hq={Hq} "
               f"Hkv={Hkv} S={S} D={D} L and o, kernel vs plain",
               kernel=kernel, max_abs_err_L=f"{l_err:.3e}",
               max_abs_err_o=f"{o_err:.3e}", within=ok)
@@ -1344,7 +1561,7 @@ def train_flash_checks(dev, chunk: int) -> dict:
         _, bad_L = kfa.flash_attention_plain(q, k, v, causal=False,
                                              return_lse=True)
         rejected = not lse_within(L, bad_L)
-        phase("control", what=f"[13.kernel.L] flash {name} L of the plain "
+        phase("control", what=f"[{tag}.kernel.L] flash {name} L of the plain "
               "version without the causal mask", rejected=rejected)
         if not rejected:
             raise AssertionError("the L check cannot tell a missing mask")
@@ -1371,7 +1588,9 @@ def train_flash_checks(dev, chunk: int) -> dict:
     bwd_flops = 2.5 * 4 * B * Hq * D * (S * (S + 1) // 2)
     bwd_bytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S
     bb_ms = max(bwd_flops / PEAK_TC16, bwd_bytes / PEAK_BW) * 1e3
-    phase("13.flash", dtype="bf16", kernel=kernel, fwd_lse_ms=f"{k_ms:.4f}",
+    phase(f"{tag}.flash", dtype="bf16",
+          shape=f"B={B},Hq={Hq},Hkv={Hkv},S={S},D={D}", kernel=kernel,
+          fwd_lse_ms=f"{k_ms:.4f}",
           fwd_bound_ms=f"{f_ms:.4f}", fwd_bound_by=f_by,
           bwd_torch_ops_ms=f"{b_ms:.4f}", bwd_bound_ms=f"{bb_ms:.4f}",
           plain_fwd_ms=f"{p_ms:.3f}", sdpa_fwd_ms=f"{lib_ms:.4f}",
@@ -1380,12 +1599,60 @@ def train_flash_checks(dev, chunk: int) -> dict:
         name=f"flash_attention[bf16,train,lse,B={B},Hq={Hq},Hkv={Hkv},"
              f"S={S},D={D}]", route="cuda", source=FLASH_SRC,
         replaces=FLASH_REPLACES, kernel=kernel, launches=0,
-        launches_on=("[13.run]: the training forward with L, and its "
-                     "recomputation under remat"),
+        launches_on=launches_on,
         max_abs_err=o_err, max_abs_err_lse=l_err, ms=k_ms, plain_ms=p_ms,
         bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms,
         backward_torch_ops_ms=b_ms, backward_bound_ms=bb_ms,
         library_fwd_bwd_ms=lib_fb_ms)
+
+
+def timed_steps(step, state, pipe, n: int,
+                keys=("loss", "grad_norm")):
+    """``n`` steps of a ``make_train_step`` on ``pipe``'s batches
+    ``0..n-1`` under :class:`FlashCounts`, each timed between device
+    synchronisations: ``(state, seconds, [{key: value}], counts)``."""
+    secs, ms = [], []
+    with FlashCounts() as fc:
+        for s in range(n):
+            batch = pipe.batch_at(s)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            ms.append({k: float(m[k]) for k in keys})
+    return state, secs, ms, fc
+
+
+def learn(cfg, opt_cfg, batch, steps: int, dev, tag: str) -> None:
+    """[<tag>]: ``steps`` steps at LEARN_LR without warm-up from a fresh
+    state on one repeated ``batch``, then that batch's loss: it must fall
+    at every step, and the parameters stay finite."""
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import transformer as T
+    learn_cfg = dataclasses.replace(opt_cfg, lr=LEARN_LR)
+    state = ltrain.init_state(torch.Generator(device=dev).manual_seed(0),
+                              cfg, learn_cfg, device=dev)
+    step = ltrain.make_train_step(cfg, None, learn_cfg, total_steps=steps,
+                                  warmup=0)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        losses.append(float(T.loss_and_metrics(
+            state["params"], cfg, ltrain.to_device(batch, dev),
+            impl="pallas")[0]))
+    falling = all(b < a for a, b in zip(losses, losses[1:]))
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state["params"].parameters())
+    phase(tag, steps=steps, lr=LEARN_LR, warmup=0,
+          loss=json.dumps([round(x, 4) for x in losses]), falling=falling,
+          finite=finite)
+    del state, step
+    free_cuda()
+    if not (falling and finite):
+        raise AssertionError(f"[{tag}]: losses {losses}, finite={finite}")
 
 
 def train_phase(dev) -> dict:
@@ -1394,12 +1661,9 @@ def train_phase(dev) -> dict:
     training flash record."""
     from repro_torch import configs
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import flash_attn as kfa
     from repro_torch.launch import train as ltrain
     from repro_torch.models import flash_xla as fx
-    from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as optim
-    from repro_torch.optim.schedule import cosine_warmup
     from repro_torch.testing import HostPeak
 
     t_phase = time.perf_counter()
@@ -1408,52 +1672,32 @@ def train_phase(dev) -> dict:
                               n_layers=TRAIN_LAYERS)
     if not (cfg.remat and cfg.dtype == "bfloat16"):
         raise AssertionError(f"{cfg.name}: want remat and bf16")
-    record = train_flash_checks(dev, cfg.attn_chunk)
+    record = train_flash_checks(dev, cfg, "13", (
+        "[13.run]: the training forward with L, and its recomputation "
+        "under remat"))
     opt_cfg = optim.AdamWConfig()
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
                          global_batch=TRAIN_B, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state = ltrain.init_state(torch.Generator(device=dev).manual_seed(0),
-                              cfg, opt_cfg, device=dev)
-    torch.cuda.synchronize()
+    state, secs, held = build_on_card(lambda: ltrain.init_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg,
+        device=dev))
     model = state["params"]
     n_params = sum(p.numel() for p in model.parameters())
     phase("13.init", model=cfg.name, layers=f"{cfg.n_layers} of 64",
           d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
           d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
-          state_bytes=torch.cuda.memory_allocated(),
-          seconds=f"{time.perf_counter() - t0:.2f}")
+          state_bytes=held, seconds=f"{secs:.2f}")
     if n_params != cfg.param_count():
         raise AssertionError(f"{n_params} parameters, the config has "
                              f"{cfg.param_count()}")
 
     # the main path: TRAIN_STEPS steps of make_train_step (impl "pallas")
-    plain, plain_calls = kfa.flash_attention_plain, [0]
-
-    def counted_plain(*a, **kw):
-        plain_calls[0] += 1
-        return plain(*a, **kw)
-
     step = ltrain.make_train_step(cfg, None, opt_cfg, total_steps=10_000,
                                   warmup=100)
-    secs, losses, gnorms = [], [], []
-    kfa.flash_attention_plain = counted_plain
-    try:
-        kfa.reset_launches()
-        plain_calls[0] = 0
-        for s in range(TRAIN_STEPS):
-            batch = pipe.batch_at(s)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, m = step(state, batch)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t)
-            losses.append(float(m["loss"]))
-            gnorms.append(float(m["grad_norm"]))
-        launches, n_plain = kfa.flash_attention.launches, plain_calls[0]
-    finally:
-        kfa.flash_attention_plain = plain
+    state, secs, ms, fc = timed_steps(step, state, pipe, TRAIN_STEPS)
+    launches, n_plain = fc.launches, fc.plain_calls
+    losses = [x["loss"] for x in ms]
     want = 2 * cfg.n_layers * TRAIN_STEPS
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
     s_step = sum(secs[1:]) / (len(secs) - 1)
@@ -1461,7 +1705,7 @@ def train_phase(dev) -> dict:
           step_s=json.dumps([round(x, 4) for x in secs]),
           s_per_step=f"{s_step:.4f}", tok_s=f"{TRAIN_B * TRAIN_S / s_step:.1f}",
           loss=json.dumps([round(x, 4) for x in losses]),
-          grad_norm=json.dumps([round(x, 3) for x in gnorms]),
+          grad_norm=json.dumps([round(x["grad_norm"], 3) for x in ms]),
           flash_launches=launches, want=want, plain_calls=n_plain,
           finite=finite, card_peak_bytes=torch.cuda.max_memory_allocated(),
           host_rss_gb=peak.gb())
@@ -1474,29 +1718,7 @@ def train_phase(dev) -> dict:
 
     # one more step in its parts, by CUDA events
     batch = ltrain.to_device(pipe.batch_at(0), dev)
-    named = dict(model.named_parameters())
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    for p in named.values():
-        p.requires_grad_(True)
-    try:
-        torch.cuda.synchronize()
-        ev[0].record()
-        loss, _ = T.loss_and_metrics(model, cfg, batch, impl="pallas")
-        ev[1].record()
-        grads = torch.autograd.grad(loss, list(named.values()))
-        ev[2].record()
-    finally:
-        for p in named.values():
-            p.requires_grad_(False)
-    del loss
-    optim.adamw_update(model, dict(zip(named, grads)), state["opt"], opt_cfg,
-                       lr_scale=cosine_warmup(state["opt"]["step"],
-                                              base_lr=1.0, warmup=100,
-                                              total=10_000))
-    ev[3].record()
-    torch.cuda.synchronize()
-    del grads
-    split = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    split = train_split(model, cfg, batch, state["opt"], opt_cfg)
     attn_bwd = cfg.n_layers * record["backward_torch_ops_ms"]
     phase("13.split", forward_ms=f"{split[0]:.2f}",
           backward_ms=f"{split[1]:.2f}", optimizer_ms=f"{split[2]:.2f}",
@@ -1571,36 +1793,345 @@ def train_phase(dev) -> dict:
                              "microbatch")
 
     # [13.learn]: one batch, repeated, from a fresh state, at LEARN_LR
-    del model, state, named, batch
+    del model, state, batch
     torch.cuda.empty_cache()
-    learn_cfg = dataclasses.replace(opt_cfg, lr=LEARN_LR)
-    state = ltrain.init_state(torch.Generator(device=dev).manual_seed(0),
-                              cfg, learn_cfg, device=dev)
-    step = ltrain.make_train_step(cfg, None, learn_cfg,
-                                  total_steps=TRAIN_STEPS, warmup=0)
-    one = pipe.batch_at(0)
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        state, m = step(state, one)
-        losses.append(float(m["loss"]))
-    with torch.no_grad():
-        losses.append(float(T.loss_and_metrics(
-            state["params"], cfg, ltrain.to_device(one, dev),
-            impl="pallas")[0]))
-    falling = all(b < a for a, b in zip(losses, losses[1:]))
-    finite = all(bool(torch.isfinite(p).all())
-                 for p in state["params"].parameters())
-    phase("13.learn", steps=TRAIN_STEPS, lr=LEARN_LR, warmup=0,
-          loss=json.dumps([round(x, 4) for x in losses]), falling=falling,
-          finite=finite)
-    del state
-    torch.cuda.empty_cache()
-    if not (falling and finite):
-        raise AssertionError(f"[13.learn]: losses {losses}, finite={finite}")
+    learn(cfg, opt_cfg, pipe.batch_at(0), TRAIN_STEPS, dev, "13.learn")
     phase("13.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
           host_peak_rss_gb=peak.gb())
     peak.close()
     return record
+
+
+# --------------------------------------------------------------------- #
+# 14. MoE, SSM and hybrid LMs                                           #
+# --------------------------------------------------------------------- #
+
+#: [14.moe]: Qwen3-30B-A3B at full width and depth, MOE_B prompts of
+#: MOE_P tokens, MOE_G greedy decode steps
+MOE_B, MOE_P, MOE_G = 4, 1024, 16
+#: [14.moe.check], [14.hybrid]: the kernel's prefill against the plain
+#: one on the same weights.  At most this share of (token, choice) routes
+#: may differ in expert or in kept slot (PERF.md states why); the logits
+#: of the tokens whose routes agree in every MoE layer are held to
+#: LM_LOGIT_BOUND.  MOE_CHECK_LAYERS of Qwen3-30B-A3B's 48 layers
+ROUTE_SHARE_BOUND, MOE_CHECK_LAYERS = 0.05, 2
+#: [14.moe.train]: Qwen3-30B-A3B at full width, TRAIN_LAYERS of its 48
+#: layers, TRAIN_B x TRAIN_S tokens, MOE_TRAIN_STEPS steps with the
+#: trainer's schedule, then MOE_LEARN_STEPS on one repeated batch at
+#: LEARN_LR from a fresh state
+MOE_TRAIN_STEPS, MOE_LEARN_STEPS = 3, 3
+#: [14.kimi]: Kimi-K2 at full width, its dense prologue and one MoE layer
+KIMI_LAYERS, KIMI_B, KIMI_P, KIMI_G = 2, 2, 1024, 4
+#: [14.ssm]: Falcon-Mamba-7B at full width and depth
+SSM_B, SSM_P, SSM_G = 4, 1024, 16
+#: [14.ssm.check]: prefill(P) and one decode step against prefill(P + 1),
+#: both within one scan chunk
+SSM_CHECK_P = 192
+#: [14.ssm.check]: each layer's SSM state after the decode step against
+#: the prefill's, ||h_decode - h_prefill|| / ||h_prefill|| (PERF.md states
+#: why)
+SSM_STATE_BOUND = 2.0 ** -3
+#: [14.ssm.check] with the weights cast to fp32
+SSM_STATE_BOUND_FP32 = 2.0 ** -10
+#: [14.hybrid]: Jamba-1.5-Large at full width, its first 4 layers (ssm +
+#: dense, ssm + moe, ssm + dense, attention + moe)
+HYB_LAYERS, HYB_B, HYB_P, HYB_G = 4, 2, 1024, 8
+
+
+def family_profile(model, cfg, prompts) -> None:
+    """[14.profile]: one prefill under the profiler: device busy share and
+    the largest device ops."""
+    from repro_torch.launch import serve as lserve
+    prefill = lserve.make_prefill(cfg)
+    with torch.inference_mode():
+        prefill(model, {"inputs": prompts})
+        wall, busy, by_name = device_busy(
+            lambda: prefill(model, {"inputs": prompts}))
+    if not busy > 0:
+        raise AssertionError(f"{cfg.name}: the profiler saw no kernel run "
+                             "on the card")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    phase("14.profile", model=cfg.name, what="prefill",
+          batch=prompts.shape[0], prompt=prompts.shape[1],
+          wall_ms=f"{wall:.2f}", device_busy_ms=f"{busy:.2f}",
+          busy_share=f"{busy / wall:.3f}",
+          top_kernels_ms=json.dumps({n[:60]: round(ms, 3)
+                                     for n, ms in top}))
+
+
+def route_agreement(a, b):
+    """``(share of (token, choice) routes whose expert or kept slot
+    differ over all MoE calls, tokens whose routes agree in every call)``
+    between two :class:`RouteLog` ``calls`` lists of one forward each."""
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"MoE calls {len(a)} and {len(b)}")
+    differ = [(ea != eb) | (ka != kb) for (ea, ka), (eb, kb) in zip(a, b)]
+    share = float(torch.stack(differ).float().mean())
+    agree = ~torch.stack([d.any(-1) for d in differ]).any(0)
+    return share, agree
+
+
+def routes_and_logits_agree(what, got, want, tag="check") -> bool:
+    """The kernel's forward (logits, routes) against the plain one's:
+    the route share within ROUTE_SHARE_BOUND, the logits of the tokens
+    whose routes agree within LM_LOGIT_BOUND (``logits_agree``)."""
+    (g_logits, g_calls), (w_logits, w_calls) = got, want
+    share, agree = route_agreement(g_calls, w_calls)
+    n = int(agree.sum())
+    V = g_logits.shape[-1]
+    ok = share <= ROUTE_SHARE_BOUND and n > 0
+    phase(tag, what=f"{what}: routes", route_share_differing=f"{share:.5f}",
+          bound=ROUTE_SHARE_BOUND,
+          per_layer=json.dumps([round(float(((ea != eb) | (ka != kb))
+                                             .float().mean()), 5)
+                                for (ea, ka), (eb, kb) in zip(g_calls,
+                                                              w_calls)]),
+          tokens_agreeing=f"{n}/{agree.numel()}", within=ok)
+    if n:
+        ok = logits_agree(f"{what}: logits of the {n} tokens whose routes "
+                          "agree", g_logits.reshape(-1, V)[agree],
+                          w_logits.reshape(-1, V)[agree], LM_LOGIT_BOUND,
+                          tag=tag) and ok
+    return ok
+
+
+def prefill_routes(model, cfg, prompts, impl: str):
+    """``(logits (B, S, V), RouteLog calls)`` of one forward."""
+    from repro_torch.models import transformer as T
+    with torch.inference_mode(), RouteLog() as log:
+        logits = T.forward(model, cfg, prompts, impl=impl)[0]
+    return logits, log.calls
+
+
+def kernel_vs_plain_routes(what: str, model, cfg, prompts) -> None:
+    """The kernel's forward against the plain one's by
+    :func:`routes_and_logits_agree`, and its control: the first attention
+    layer without the causal mask must be rejected."""
+    plain = prefill_routes(model, cfg, prompts, "xla")
+    got = prefill_routes(model, cfg, prompts, "pallas")
+    if not routes_and_logits_agree(f"{what} pallas vs xla", got, plain):
+        raise AssertionError(f"{what}: the kernel's prefill moves routes "
+                             "or logits beyond the bounds")
+    del got
+    with FirstAttentionUnmasked():
+        bad = prefill_routes(model, cfg, prompts, "pallas")
+    rejected = not routes_and_logits_agree(
+        f"{what}, the first attention layer unmasked, vs xla", bad, plain,
+        tag="control")
+    phase("control", what=f"{what}: the first attention layer unmasked",
+          rejected=rejected)
+    if not rejected:
+        raise AssertionError(f"{what}: the check cannot tell one attention "
+                             "layer without the causal mask")
+
+
+def moe_train_phase(dev) -> dict:
+    """[14.moe.train]: Qwen3-30B-A3B at full width, TRAIN_LAYERS layers,
+    through ``launch/train.py``: the flash kernel's forward with L at its
+    train shape against the plain version (:func:`train_flash_checks`),
+    MOE_TRAIN_STEPS steps with the trainer's schedule (flash launches
+    with L, 2 a layer a step under remat; the loss and aux finite), one
+    step split into its parts, then MOE_LEARN_STEPS steps from a fresh
+    state on one repeated batch, whose loss must fall every step.
+    Returns the training flash record at this shape."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as ltrain
+    from repro_torch.optim import adamw as optim
+
+    cfg = dataclasses.replace(configs.get_config("qwen3_moe_30b_a3b"),
+                              n_layers=TRAIN_LAYERS)
+    if not (cfg.remat and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"{cfg.name}: want remat and bf16")
+    record = train_flash_checks(dev, cfg, "14.moe.train", (
+        "[14.moe.train]: the training forward with L, and its "
+        "recomputation under remat"))
+    opt_cfg = optim.AdamWConfig()
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         global_batch=TRAIN_B, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    state, secs, held = build_on_card(lambda: ltrain.init_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg,
+        device=dev))
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    phase("14.moe.train.init", model=cfg.name, layers=f"{cfg.n_layers} of 48",
+          params=n_params, state_bytes=held, seconds=f"{secs:.2f}")
+    step = ltrain.make_train_step(cfg, None, opt_cfg, total_steps=10_000,
+                                  warmup=100)
+    state, secs, ms, fc = timed_steps(
+        step, state, pipe, MOE_TRAIN_STEPS,
+        keys=("loss", "aux_loss", "dropped", "grad_norm"))
+    want = 2 * cfg.n_layers * MOE_TRAIN_STEPS
+    finite = all(np.isfinite(list(x.values())).all() for x in ms) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters())
+    s_step = sum(secs[1:]) / (len(secs) - 1)
+    phase("14.moe.train", batch=TRAIN_B, seq=TRAIN_S, steps=MOE_TRAIN_STEPS,
+          step_s=json.dumps([round(x, 4) for x in secs]),
+          s_per_step=f"{s_step:.4f}", tok_s=f"{TRAIN_B * TRAIN_S / s_step:.1f}",
+          **{k: json.dumps([round(x[k], 4) for x in ms]) for k in ms[0]},
+          flash_launches=fc.launches, want=want,
+          plain_calls=fc.plain_calls, finite=finite,
+          card_peak_bytes=torch.cuda.max_memory_allocated())
+    if fc.launches != want or fc.plain_calls or not finite:
+        raise AssertionError(f"[14.moe.train]: flash launches {fc.launches} "
+                             f"(want {want}), {fc.plain_calls} plain calls, "
+                             f"finite={finite}")
+    record["launches"] = fc.launches
+    split = train_split(model, cfg, ltrain.to_device(pipe.batch_at(0), dev),
+                        state["opt"], opt_cfg)
+    phase("14.moe.train.split", forward_ms=f"{split[0]:.2f}",
+          backward_ms=f"{split[1]:.2f}", optimizer_ms=f"{split[2]:.2f}",
+          step_ms=f"{sum(split):.2f}")
+    del model, state, step
+    free_cuda()
+    learn(cfg, opt_cfg, pipe.batch_at(0), MOE_LEARN_STEPS, dev,
+          "14.moe.train.learn")
+    return record
+
+
+def ssm_state_rel(got, want) -> list:
+    """Each layer's ``||h_got - h_want|| / ||h_want||`` of the SSM
+    states."""
+    return [float(torch.linalg.vector_norm(a.ssm - b.ssm)
+                  / torch.linalg.vector_norm(b.ssm))
+            for a, b in zip(got, want)]
+
+
+def ssm_check(model, cfg, prompts, dev) -> None:
+    """[14.ssm.check]: prefill of SSM_CHECK_P tokens and one decode step
+    against the prefill of the same SSM_CHECK_P + 1 tokens (both within
+    one scan chunk): the logits by ``logits_agree`` at LM_LOGIT_BOUND,
+    and every layer's SSM state after the step (:func:`ssm_state_rel`,
+    each layer's reading printed) within SSM_STATE_BOUND.  Control: the
+    states zeroed before the decode step, which the check must reject.
+    Then the same check with the weights cast to fp32 (the model is
+    left in fp32), within SSM_STATE_BOUND_FP32: what the bf16 reading
+    owes to bf16 rounding."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.mamba import SSMState
+    B, P = prompts.shape[0], SSM_CHECK_P
+    if P + 1 > cfg.ssm_chunk:
+        raise AssertionError("the check must stay within one scan chunk")
+    ids = prompts[:, :P + 1]
+
+    def held(cfg, tag, what, states, want, full, bound) -> bool:
+        cache = lserve._merge_prefill_cache(
+            T.init_cache(cfg, B, P + 1, device=dev), states, cfg, P)
+        logits, new = lserve.make_decode_step(cfg)(
+            model, {"inputs": ids[:, P:]}, cache, P)
+        rel = ssm_state_rel(new, full)
+        ok = logits_agree(f"{what}: logits", logits, want, LM_LOGIT_BOUND,
+                          tag=tag)
+        worst_layer = int(np.argmax(rel))
+        phase(tag, what=f"{what}: SSM states after the step",
+              max_rel_state_diff=f"{max(rel):.3e}", bound=bound,
+              worst_layer=worst_layer, within=max(rel) <= bound,
+              per_layer=json.dumps([float(f"{x:.2e}") for x in rel]))
+        return ok and max(rel) <= bound
+
+    def prefills(cfg):
+        want, full = lserve.make_prefill(cfg)(model, {"inputs": ids})
+        _, pre = lserve.make_prefill(cfg)(model, {"inputs": ids[:, :P]})
+        return want, full, pre
+
+    what = (f"[14.ssm.check] decode(prefill(x[:{P}]), x[{P}]) vs "
+            f"prefill(x[:{P + 1}])")
+    with torch.inference_mode():
+        want, full, pre = prefills(cfg)
+        if not held(cfg, "check", f"{what} bf16", pre, want, full,
+                    SSM_STATE_BOUND):
+            raise AssertionError(f"{what}: beyond the bounds")
+        zeroed = [SSMState(conv=s.conv, ssm=torch.zeros_like(s.ssm))
+                  for s in pre]
+        rejected = not held(cfg, "control", "[14.ssm.check] the SSM states "
+                            "zeroed before the decode step", zeroed, want,
+                            full, SSM_STATE_BOUND)
+        phase("control", what="[14.ssm.check] states zeroed",
+              rejected=rejected)
+        if not rejected:
+            raise AssertionError("the SSM check cannot tell a lost state")
+        del want, full, pre, zeroed
+    model.float()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        want, full, pre = prefills(cfg32)
+        if not held(cfg32, "check", f"{what} fp32 (the bf16 weights cast)",
+                    pre, want, full, SSM_STATE_BOUND_FP32):
+            raise AssertionError(f"{what} fp32: beyond the bounds")
+
+
+def lm_families_phase(dev) -> list:
+    """Phase 14 (see the module docstring).  Returns the flash kernel's
+    records at this phase's shapes: one for each served shape (Qwen3-MoE;
+    Kimi-K2 and Jamba share theirs), each held against the plain
+    version (:func:`flash_case`), with the prefill launches of its
+    models' measured runs, and [14.moe.train]'s."""
+    t_phase = time.perf_counter()
+    served = {}                       # (B, Hq, Hkv, S, D) -> [launches, tags]
+
+    def serve(tag, model, cfg, B, P, G):
+        n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        prompts = prompts_for(cfg, B, P, dev)
+        out = serve_family(tag, model, cfg, prompts, G, n_attn)
+        if n_attn:
+            shape = (B, cfg.n_heads, cfg.n_kv_heads, P, cfg.head_dim)
+            entry = served.setdefault(shape, [0, []])
+            entry[0] += out["launches"]
+            entry[1].append(f"[{tag}]")
+        return prompts
+
+    # [14.moe]: Qwen3-30B-A3B, full width and depth
+    model, cfg = family_model("14.moe", "qwen3_moe_30b_a3b", dev)
+    prompts = serve("14.moe", model, cfg, MOE_B, MOE_P, MOE_G)
+    family_profile(model, cfg, prompts)
+    del model
+    free_cuda()
+    # [14.moe.check]: the same width, MOE_CHECK_LAYERS layers
+    model, cfg = family_model("14.moe.check", "qwen3_moe_30b_a3b", dev,
+                              MOE_CHECK_LAYERS)
+    kernel_vs_plain_routes("[14.moe.check]", model, cfg, prompts)
+    del model
+    free_cuda()
+    records = [moe_train_phase(dev)]
+
+    # [14.kimi]: the dense prologue, then 384 experts with a shared one
+    model, cfg = family_model("14.kimi", "kimi_k2_1t_a32b", dev,
+                              KIMI_LAYERS)
+    serve("14.kimi", model, cfg, KIMI_B, KIMI_P, KIMI_G)
+    del model
+    free_cuda()
+
+    # [14.ssm]: Falcon-Mamba-7B, full width and depth: no TPU kernel
+    model, cfg = family_model("14.ssm", "falcon_mamba_7b", dev)
+    prompts = serve("14.ssm", model, cfg, SSM_B, SSM_P, SSM_G)
+    phase("14.ssm.kernels", tpu_kernels="none: attention-free, so no flash "
+          "launch; the scan and the state hand-off are torch ops")
+    family_profile(model, cfg, prompts)
+    ssm_check(model, cfg, prompts, dev)
+    del model
+    free_cuda()
+
+    # [14.hybrid]: Jamba-1.5-Large's first HYB_LAYERS layers
+    model, cfg = family_model("14.hybrid", "jamba_1_5_large_398b", dev,
+                              HYB_LAYERS)
+    prompts = serve("14.hybrid", model, cfg, HYB_B, HYB_P, HYB_G)
+    kernel_vs_plain_routes("[14.hybrid]", model, cfg, prompts)
+    del model, prompts
+    free_cuda()
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    for (B, Hq, Hkv, S, D), (launches, tags) in served.items():
+        rec = flash_case(dev, g, torch.bfloat16, B, Hq, Hkv, S, D,
+                         tag="14.flash")
+        rec["launches"] = launches
+        rec["launches_on"] = " and ".join(tags) + " prefill"
+        records.append(rec)
+    phase("14.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          flash_launches=json.dumps({r["name"]: r["launches"]
+                                     for r in records}))
+    return records
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -3368,6 +3899,7 @@ def main_path(args, api, ks, ref, dev):
     torch.cuda.empty_cache()
     kernels.append(train_phase(dev))
     torch.cuda.empty_cache()
+    kernels.extend(lm_families_phase(dev))
     stream, digests = stream_phase(api, ks, ref, problem, config,
                                    routes["grid"]["result"], dev)
     for rec in kernels:

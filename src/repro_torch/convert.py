@@ -145,8 +145,10 @@ def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
     arrays: ``jax.tree.map(np.asarray, params)``) as the port's
     ``Transformer`` on ``device`` (``None`` = ``"cuda"``).  The period axis
     is unstacked into one module per layer.  Weights are stored in
-    ``dtype`` (``None``: the dtype of the reference's ``lm_head``), norm
-    scales in fp32; bf16 comes through its fp32 carrier, exactly."""
+    ``dtype`` (``None``: the dtype of the reference's ``lm_head``); the
+    leaves the reference keeps in fp32 whatever the model's dtype (norm
+    scales, the MoE router, Mamba's ``dt_bias``, ``A_log`` and ``D``)
+    stay fp32; bf16 comes through its fp32 carrier, exactly."""
     from .models.transformer import Transformer
     dev = resolve_device(device)
     if dtype is None:

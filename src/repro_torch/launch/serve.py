@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as T
+from ..models.attention import KVCache
 from ..models.config import ModelConfig
 
 
@@ -42,10 +43,14 @@ def make_decode_step(cfg: ModelConfig, ctx=None):
 
 def _merge_prefill_cache(full_cache, pre_cache, cfg, P):
     """Write the prefill's KV (length ``P``) into the zero-initialised
-    full-length caches, in place; returns them."""
-    for dst, src in zip(full_cache, pre_cache):
-        dst.k[:, :P] = src.k.to(dst.k.dtype)
-        dst.v[:, :P] = src.v.to(dst.v.dtype)
+    full-length caches, in place; an SSM layer's state carries over
+    unchanged (its slot in the list is replaced).  Returns the list."""
+    for i, (dst, src) in enumerate(zip(full_cache, pre_cache)):
+        if isinstance(dst, KVCache):
+            dst.k[:, :P] = src.k.to(dst.k.dtype)
+            dst.v[:, :P] = src.v.to(dst.v.dtype)
+        else:
+            full_cache[i] = src
     return full_cache
 
 

@@ -102,7 +102,6 @@ def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
     numpy arrays or tensors; they are moved to the model's device.
     Metrics are 0-d tensors: ``loss``, ``xent``, ``aux_loss``,
     ``dropped``, ``grad_norm``, ``lr``."""
-    T._check_supported(cfg)
     _no_ctx(ctx)
 
     def train_step(state, batch):

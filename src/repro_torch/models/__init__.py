@@ -1,3 +1,3 @@
-"""The dense decoder-only LM: config, layers, RoPE, attention and the
-transformer, mirroring the JAX package's ``repro.models`` for the serving
-path (prefill and decode)."""
+"""The decoder-only LM: config, layers, RoPE, attention, the MoE and
+Mamba blocks and the transformer that stacks them, mirroring the JAX
+package's ``repro.models`` (training, prefill and decode)."""

@@ -1,0 +1,207 @@
+"""Mamba-1 block (Falcon-Mamba's and Jamba's SSM layers) as torch ops.
+
+The selective scan ``h_t = a_t h_{t-1} + b_t`` runs in two levels, as in
+the JAX package: an outer loop over chunks of the sequence carries the
+``(B, d_inner, N)`` fp32 state; inside a chunk a Hillis–Steele scan of
+``log2(chunk)`` tensor steps (step ``s`` folds in the element ``2^s``
+back) takes the place of ``jax.lax.associative_scan``, which torch
+lacks.  Both apply the same combine, ``(a_r a_l, a_r b_l + b_r)``, over
+another tree, so fp32 results differ by rounding
+(``tests/test_torch_mamba.py`` states the bound).  The chunk materializes
+``(B, chunk, d_inner, N)`` fp32 tensors; ``S`` must be a multiple of
+``min(chunk, S)`` (the reference asserts; the port raises
+``ValueError``).
+
+The causal depthwise convolution is a Python sum of ``K`` shifted
+products in the input dtype, in the reference's order, not
+``F.conv1d``, whose fp32 accumulation departs from the reference in bf16.
+``dt_bias``, ``A_log`` and ``D`` are fp32 whatever the model's dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor   # (B, K-1, d_inner): the last K-1 pre-conv inputs
+    ssm: torch.Tensor    # (B, d_inner, N): the recurrent state, fp32
+
+
+class Mamba(nn.Module):
+    """The weights, named as the reference's: ``in_proj`` ``(d, 2 di)``,
+    ``conv_w`` ``(K, di)``, ``conv_b``, ``x_proj`` ``(di, r + 2N)``,
+    ``dt_proj`` ``(r, di)``, ``out_proj`` ``(di, d)`` in the model's
+    dtype; ``dt_bias`` ``(di,)``, ``A_log`` ``(di, N)`` and ``D``
+    ``(di,)`` in fp32."""
+
+    def __init__(self, cfg, *, dtype=None, device=None):
+        super().__init__()
+        d, di, N, r, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.dt_rank, cfg.ssm_conv)
+        kw = dict(dtype=dtype, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.cfg = cfg
+        self.in_proj = layers.Dense(d, 2 * di, **kw)
+        self.conv_w = layers._param(torch.empty((K, di), **kw))
+        self.conv_b = layers._param(torch.zeros((di,), **kw))
+        self.x_proj = layers.Dense(di, r + 2 * N, **kw)
+        self.dt_proj = layers.Dense(r, di, **kw)
+        self.dt_bias = layers._param(torch.empty((di,), **f32))
+        self.A_log = layers._param(torch.empty((di, N), **f32))
+        self.D = layers._param(torch.ones((di,), **f32))
+        self.out_proj = layers.Dense(di, d, **kw)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        """The reference's ``mamba_init``: ``dt`` log-uniform in [1e-3,
+        0.1] and ``dt_bias`` its inverse softplus, ``A_log = log(1..N)``
+        on every row, ``D`` ones, truncated normals elsewhere."""
+        K, N = self.cfg.ssm_conv, self.cfg.ssm_state
+        u = torch.rand(self.dt_bias.shape, generator=generator,
+                       device=self.dt_bias.device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        self.dt_bias.copy_(dt + torch.log1p(-torch.exp(-dt)))
+        self.A_log.copy_(torch.log(torch.arange(
+            1, N + 1, dtype=torch.float32, device=self.A_log.device))
+            .expand_as(self.A_log))
+        self.D.fill_(1.0)
+        self.conv_b.zero_()
+        layers.truncated_normal_(self.conv_w, 1.0 / math.sqrt(K), generator)
+        for lin in (self.in_proj, self.x_proj, self.dt_proj, self.out_proj):
+            lin.reset_parameters(generator)
+
+    def forward(self, x, *, state: Optional[SSMState] = None,
+                chunk: int = 256):
+        return mamba_apply(self, x, self.cfg, state=state, chunk=chunk)
+
+
+def mamba_init(generator, cfg, dtype, device=None) -> Mamba:
+    p = Mamba(cfg, dtype=dtype, device=device)
+    p.reset_parameters(generator)
+    return p
+
+
+def _scan_in_chunk(a, b):
+    """Inclusive Hillis–Steele scan along axis 1 of ``(a, b)`` under
+    ``(a_l, b_l) . (a_r, b_r) = (a_r a_l, a_r b_l + b_r)``: after it,
+    ``b[:, t]`` is ``h_t`` from a zero state and ``a[:, t]`` the product
+    of ``a`` up to ``t``."""
+    Q = a.shape[1]
+    shift = 1
+    while shift < Q:
+        b = torch.cat([b[:, :shift], a[:, shift:] * b[:, :-shift]
+                       + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
+        shift *= 2
+    return a, b
+
+
+def _ssm_scan_chunked(a, b, h0, chunk: int):
+    """First-order recurrence ``h_t = a_t h_{t-1} + b_t`` over axis 1.
+
+    a, b: (B, S, d, N) fp32; h0: (B, d, N) fp32.  Returns (h at every t
+    (B, S, d, N), the final state)."""
+    S = a.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    h, out = h0, []
+    for c0 in range(0, S, chunk):
+        A_pref, B_pref = _scan_in_chunk(a[:, c0:c0 + chunk],
+                                        b[:, c0:c0 + chunk])
+        h_all = A_pref * h[:, None] + B_pref
+        out.append(h_all)
+        h = h_all[:, -1]
+    # the final state a copy: as a view it would hold its whole chunk
+    return torch.cat(out, dim=1), h.clone()
+
+
+def _causal_conv(x, w, b, K: int, history=None):
+    """Depthwise causal conv, width K.  x: (B, S, di); w: (K, di);
+    history: (B, K-1, di) previous inputs (decode/prefill chaining).
+    A sum of K shifted products in x's dtype, in the reference's order."""
+    if history is None:
+        history = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([history, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(K))
+    return out + b
+
+
+def _ssm_inputs(p: Mamba, x_conv, cfg):
+    """``(dt (.., di) fp32, B_t, C_t)`` from the convolved inputs."""
+    r, N = cfg.dt_rank, cfg.ssm_state
+    dbl = layers.dense(p.x_proj, x_conv)
+    dt_r, B_t, C_t = torch.split(dbl, [r, N, N], dim=-1)
+    dt = F.softplus(layers.dense(p.dt_proj, dt_r).float()
+                    + p.dt_bias.float())
+    return dt, B_t, C_t
+
+
+def _ssm_out(p: Mamba, y, x_conv, z, dtype):
+    y = y + p.D * x_conv.float()
+    y = (y * F.silu(z.float())).to(dtype)
+    return layers.dense(p.out_proj, y)
+
+
+def mamba_apply(p: Mamba, x, cfg, *, state: Optional[SSMState] = None,
+                chunk: int = 256) -> Tuple[torch.Tensor, SSMState]:
+    """Full-sequence forward.  x: (B, S, d).  Returns (y, final state);
+    the state's ``conv`` is a copy, so it holds no view of this call's
+    activations."""
+    B, S, _ = x.shape
+    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    xz = layers.dense(p.in_proj, x)
+    x_in, z = torch.split(xz, di, dim=-1)                   # (B, S, di)
+    hist = None if state is None else state.conv
+    x_conv = F.silu(_causal_conv(x_in, p.conv_w, p.conv_b, K, hist))
+
+    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg)
+    A = -torch.exp(p.A_log)                                  # (di, N)
+    a = torch.exp(dt[..., None] * A)                         # (B,S,di,N)
+    b = (dt * x_conv.float())[..., None] * B_t.float()[..., None, :]
+    h0 = (x.new_zeros((B, di, N), dtype=torch.float32) if state is None
+          else state.ssm)
+    h, h_fin = _ssm_scan_chunked(a, b, h0, chunk)
+    del a, b
+    y = torch.einsum("bsdn,bsn->bsd", h, C_t.float())
+    del h
+    out = _ssm_out(p, y, x_conv, z, x.dtype)
+    new_state = SSMState(conv=x_in[:, S - (K - 1):, :].clone(), ssm=h_fin)
+    return out, new_state
+
+
+def mamba_decode(p: Mamba, x, state: SSMState, cfg
+                 ) -> Tuple[torch.Tensor, SSMState]:
+    """Single-token decode.  x: (B, 1, d).  Returns (y (B, 1, d), the
+    new state)."""
+    di, K = cfg.d_inner, cfg.ssm_conv
+    xz = layers.dense(p.in_proj, x[:, 0])
+    x_in, z = torch.split(xz, di, dim=-1)                    # (B, di)
+    conv_hist = torch.cat([state.conv, x_in[:, None]], dim=1)
+    x_conv = sum(conv_hist[:, i] * p.conv_w[i] for i in range(K))
+    x_conv = F.silu(x_conv + p.conv_b)
+
+    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg)
+    A = -torch.exp(p.A_log)
+    a = torch.exp(dt[..., None] * A)                         # (B, di, N)
+    b = (dt * x_conv.float())[..., None] * B_t.float()[:, None, :]
+    h = a * state.ssm + b
+    y = torch.einsum("bdn,bn->bd", h, C_t.float())
+    out = _ssm_out(p, y, x_conv, z, x.dtype)
+    return out[:, None], SSMState(conv=conv_hist[:, 1:], ssm=h)
+
+
+def init_ssm_state(cfg, B: int, dtype, device=None) -> SSMState:
+    return SSMState(
+        conv=torch.zeros((B, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((B, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
+                        device=device))

@@ -1,0 +1,180 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch, on one device.
+
+Routing, dispatch, the expert products and the combine are torch ops, as
+they are XLA ops (not Pallas) in the JAX package: an fp32 router and
+softmax, the top ``k`` experts of each token renormalised, ranks within
+each expert by a stable sort (``_ranks_by_sort``), a capacity of
+``C = ceil(T k / E * capacity_factor)`` slots an expert (entries past it
+are dropped: their combine weight is zero), the experts as batched
+matrix products over an ``(E, C, d)`` buffer, and a Switch-style
+load-balance loss with the dropped share as diagnostics.
+
+Where the reference leaves an order to XLA, the port fixes it so that
+the result does not depend on the device:
+- the top ``k`` comes from a stable descending sort, so equal
+  probabilities (a zero row of ``x`` makes every logit equal) keep the
+  lower expert first, as ``jax.lax.top_k`` does; ``torch.topk`` makes no
+  such promise;
+- the dispatch writes each kept entry to its own ``(expert, slot)``
+  once, by indexing, and the dropped ones to a spare slot that is cut
+  off (the reference adds zeros into a clipped slot, which leaves the
+  same values); nothing waits on the device for a count;
+- the combine sums each token's ``k`` contiguous entries with
+  ``view(T, k, d).sum(1)``, not an atomic ``index_add_``; in bf16 it
+  accumulates in fp32 and rounds once, where XLA's ``segment_sum`` rounds
+  after each add (``tests/test_torch_moe.py`` states the tolerance);
+- the dispatch counts are exact: an integer ``scatter_add_`` (a
+  ``bincount`` on the card would read its maximum back to the host).
+
+The reference's expert-parallel branch (``ctx`` not ``None``: a
+``shard_map`` over the ``model`` axis) is ROADMAP Queue 1 item 15; a
+``ctx`` raises as attention's does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import layers
+from .attention import _no_ctx
+
+
+class MoE(nn.Module):
+    """The weights: ``router`` (a ``Dense`` ``(d, E)`` kept in fp32
+    whatever the model's dtype), ``gate`` and ``up`` ``(E, d, ff)``,
+    ``down`` ``(E, ff, d)``, and ``shared`` (a ``SwiGLU`` of width
+    ``n_shared_experts * ff``) when the config has shared experts: the
+    reference's parameter names, flattened."""
+
+    def __init__(self, cfg, *, dtype=None, device=None):
+        super().__init__()
+        d, E, ff = cfg.d_model, cfg.n_experts, cfg.d_expert
+        kw = dict(dtype=dtype, device=device)
+        self.cfg = cfg
+        self.router = layers.Dense(d, E, dtype=torch.float32, device=device)
+        self.gate = layers._param(torch.empty((E, d, ff), **kw))
+        self.up = layers._param(torch.empty((E, d, ff), **kw))
+        self.down = layers._param(torch.empty((E, ff, d), **kw))
+        self.shared = (layers.SwiGLU(d, cfg.n_shared_experts * ff, **kw)
+                       if cfg.n_shared_experts else None)
+
+    def reset_parameters(self, generator=None) -> None:
+        d, ff = self.cfg.d_model, self.cfg.d_expert
+        self.router.reset_parameters(generator)
+        layers.truncated_normal_(self.gate, 1.0 / d ** 0.5, generator)
+        layers.truncated_normal_(self.up, 1.0 / d ** 0.5, generator)
+        layers.truncated_normal_(self.down, 1.0 / ff ** 0.5, generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+
+    def forward(self, x, ctx=None):
+        return moe_apply(self, x, self.cfg, ctx)
+
+
+def moe_init(generator, cfg, dtype, device=None) -> MoE:
+    p = MoE(cfg, dtype=dtype, device=device)
+    p.reset_parameters(generator)
+    return p
+
+
+def _ranks_by_sort(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Rank of each entry within its expert group (0-based, in entry
+    order), via a stable argsort: ``O(Tk log Tk)``, no ``(T, E)``
+    one-hot."""
+    Tk = flat_e.shape[0]
+    perm = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[perm]
+    idx = torch.arange(Tk, device=flat_e.device)
+    is_start = torch.ones(Tk, dtype=torch.bool, device=flat_e.device)
+    is_start[1:] = sorted_e[1:] != sorted_e[:-1]
+    group_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
+    rank = torch.empty_like(idx)
+    rank[perm] = idx - group_start
+    return rank
+
+
+def route(x2d: torch.Tensor, router_w: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(probs (T, E) fp32, topw (T, k) renormalised, topi (T, k))``:
+    the top ``k`` of each row by a stable descending sort, so ties keep
+    the lower expert index first (``jax.lax.top_k``'s order)."""
+    logits = x2d.float() @ router_w
+    probs = torch.softmax(logits, dim=-1)
+    topi = torch.sort(probs, dim=-1, descending=True,
+                      stable=True).indices[:, :k]
+    topw = probs.gather(-1, topi)
+    return probs, topw / topw.sum(-1, keepdim=True), topi
+
+
+def capacity(T: int, cfg) -> int:
+    """Slots an expert for a call of ``T`` tokens: ``ceil(T k / E *
+    capacity_factor)``, at least 1."""
+    return max(1, math.ceil(T * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor))
+
+
+def routes(x2d: torch.Tensor, router_w: torch.Tensor, cfg
+           ) -> Tuple[torch.Tensor, ...]:
+    """The dispatch policy of a call of ``T = x2d.shape[0]`` tokens:
+    ``(probs, topw, topi, rank, kept)``, :func:`route`'s three, each
+    entry's rank within its expert ``(T, k)`` (:func:`_ranks_by_sort`, in
+    token order) and whether that rank is within :func:`capacity`."""
+    probs, topw, topi = route(x2d, router_w, cfg.top_k)
+    rank = _ranks_by_sort(topi.reshape(-1), cfg.n_experts).view_as(topi)
+    return probs, topw, topi, rank, rank < capacity(x2d.shape[0], cfg)
+
+
+def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Route + dispatch + expert FFN + combine for experts
+    ``[e_offset, e_offset + E_local)``.  Returns ``(partial_out (T, d),
+    aux)``."""
+    T, d = x2d.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(T, cfg)
+
+    probs, topw, topi, rank, kept = routes(x2d, router_w, cfg)
+    flat_e, rank = topi.reshape(-1), rank.reshape(-1)        # (T*k,)
+    local = (flat_e >= e_offset) & (flat_e < e_offset + E_local)
+    keep = kept.reshape(-1) & local
+    e_loc = torch.clamp(flat_e - e_offset, 0, E_local - 1)
+    slot = torch.clamp(rank, 0, C - 1)
+
+    # each kept entry to its own (expert, slot); the others to a spare
+    # slot C that is cut off: written, never accumulated, never read
+    tok = torch.arange(T, device=x2d.device).repeat_interleave(k)
+    buf = x2d.new_zeros((E_local, C + 1, d)).index_put(
+        (e_loc, torch.where(keep, rank, C)), x2d[tok])[:, :C]
+    h = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    y = torch.bmm(F.silu(h) * u, wd)                          # (E_l, C, d)
+
+    weight = (topw.reshape(-1) * keep).to(y.dtype)
+    out_k = y[e_loc, slot] * weight[:, None]
+    partial = out_k.view(T, k, d).sum(1)
+
+    # Switch-style load-balance aux loss + drop fraction (diagnostics)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat_e.device)
+    frac_dispatch = counts.scatter_add_(0, flat_e, torch.ones_like(
+        flat_e)).float() / T
+    frac_prob = probs.mean(0)
+    aux_loss = E * torch.sum(frac_dispatch * frac_prob) / k
+    dropped = 1.0 - keep.sum().float() / torch.clamp(local.sum(), min=1)
+    return partial.to(x2d.dtype), {"aux_loss": aux_loss, "dropped": dropped}
+
+
+def moe_apply(p: MoE, x, cfg, ctx=None):
+    """x: (B, S, d) -> ``((B, S, d), aux)``, aux ``{"aux_loss",
+    "dropped"}`` 0-d fp32 tensors; all experts on this device."""
+    _no_ctx(ctx)
+    B, S, d = x.shape
+    out2d, aux = _moe_math(x.reshape(-1, d), p.router.w, p.gate, p.up,
+                           p.down, cfg, 0, cfg.n_experts)
+    out = out2d.reshape(B, S, d)
+    if p.shared is not None:
+        out = out + layers.swiglu(p.shared, x)
+    return out, aux

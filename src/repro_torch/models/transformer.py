@@ -1,26 +1,35 @@
-"""Decoder-only LM for the attention families (dense, and the vlm/audio
+"""Decoder-only LM for every family of the configs: dense, MoE, the
+attention-free SSM stack and the hybrid interleave (and the vlm/audio
 backbones whose frontends are stubs): training, prefill and decode.
 
 One :class:`DecoderLayer` per layer in a ``ModuleList``, run by a Python
 loop where the JAX package scans period-stacked parameters
 (``lax.scan``); ``repro_torch.convert`` unstacks the reference's
-parameters onto this layout.  Caches are a list with one
-:class:`~repro_torch.models.attention.KVCache` per layer.
+parameters onto this layout (Kimi's dense prologue layer is
+``layers.0``).  A layer's mixer is attention or Mamba
+(``cfg.layer_kind``), its FFN a SwiGLU, an MoE or none
+(``cfg.mlp_kind``; Falcon-Mamba has none, and no ``norm2``).  Caches are
+a list with one :class:`~repro_torch.models.attention.KVCache` or
+:class:`~repro_torch.models.mamba.SSMState` per layer.  Nothing here
+needs whole periods (``cfg.n_periods``): a stack cut to any depth runs;
+only ``convert``'s stacking does.
 
 Entry points, as in the reference:
   loss_and_metrics — the training objective (flash attention with the
                      flash backward of ``flash_xla``)
   forward          — full-sequence forward (logits, optional caches, aux)
   prefill          — last-position logits and the caches
-  decode_step      — one token against the caches (updated in place)
+  decode_step      — one token against the caches (KV caches updated in
+                     place, SSM states replaced)
 
-With ``cfg.remat``, a forward that autograd records runs each layer
-under ``torch.utils.checkpoint`` (non-reentrant), which keeps only the
-layer's input and recomputes the rest in the backward: the counterpart
-of the reference's ``jax.checkpoint`` of its scanned period body.
-
-A config with MoE or SSM layers raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+``aux`` sums each MoE layer's ``aux_loss`` and ``dropped`` over the
+layers, as the reference does (dense and SSM layers add zeros).  With
+``cfg.remat``, a forward that autograd records runs each layer under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the layer's
+input and recomputes the rest in the backward: the counterpart of the
+reference's ``jax.checkpoint`` of its scanned period body.  The
+checkpointed function returns the layer's aux with its output, so remat
+leaves ``aux_loss`` as it is.
 """
 from __future__ import annotations
 
@@ -31,22 +40,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from . import attention, layers, rope
+from . import attention, layers, mamba, moe, rope
 from .attention import KVCache, _no_ctx
 from .config import ModelConfig
-
-MOE_ITEM = "ROADMAP Queue 1 item 13 (models/moe.py)"
-SSM_ITEM = "ROADMAP Queue 1 item 14 (models/mamba.py and hybrid stacks)"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) != "attn" or cfg.mlp_kind(i) == "none":
-            raise NotImplementedError(
-                f"{cfg.name}: SSM layers are not ported yet: {SSM_ITEM}")
-        if cfg.mlp_kind(i) == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet: {MOE_ITEM}")
+from .mamba import SSMState
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -54,34 +51,64 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention and SwiGLU, each added to the residual."""
+    """Pre-norm mixer (attention or Mamba) and FFN (SwiGLU ``mlp``, MoE
+    ``moe``, or none), each added to the residual."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype=None, device=None):
+    def __init__(self, cfg: ModelConfig, idx: int, *, dtype=None,
+                 device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.cfg = cfg
+        self.kind, self.mlp_kind = cfg.layer_kind(idx), cfg.mlp_kind(idx)
         self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mixer = attention.Attention(cfg, **kw)
-        self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        self.mixer = (attention.Attention(cfg, **kw) if self.kind == "attn"
+                      else mamba.Mamba(cfg, **kw))
+        if self.mlp_kind != "none":
+            self.norm2 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        if self.mlp_kind == "moe":
+            self.moe = moe.MoE(cfg, **kw)
+        elif self.mlp_kind == "dense":
+            self.mlp = layers.SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
     def reset_parameters(self, generator=None) -> None:
         self.mixer.reset_parameters(generator)
-        self.mlp.reset_parameters(generator)
+        if self.mlp_kind == "moe":
+            self.moe.reset_parameters(generator)
+        elif self.mlp_kind == "dense":
+            self.mlp.reset_parameters(generator)
+
+    def _ffn(self, x, ctx=None):
+        """``(x + FFN(norm2(x)), aux or None)``."""
+        if self.mlp_kind == "none":
+            return x, None
+        h = self.norm2(x)
+        if self.mlp_kind == "moe":
+            y, aux = self.moe(h, ctx)
+            return x + y, aux
+        return x + self.mlp(h), None
 
     def forward(self, x, *, angles=None, impl="xla", ctx=None):
-        """Full sequence; returns ``(x, KVCache of this sequence)``."""
-        mix, kv = self.mixer(self.norm1(x), angles=angles, impl=impl,
-                             ctx=ctx)
-        x = x + mix
-        return x + self.mlp(self.norm2(x)), kv
+        """Full sequence; returns ``(x, cache of this sequence, aux or
+        None)``: a KVCache of its k, v or the SSM state after it."""
+        h = self.norm1(x)
+        if self.kind == "attn":
+            mix, cache = self.mixer(h, angles=angles, impl=impl, ctx=ctx)
+        else:
+            _no_ctx(ctx)
+            mix, cache = self.mixer(h, chunk=self.cfg.ssm_chunk)
+        x, aux = self._ffn(x + mix, ctx)
+        return x, cache, aux
 
-    def decode(self, x, cache: KVCache, pos: int, *, angles=None, ctx=None):
-        mix, cache = attention.attn_decode(self.mixer, self.norm1(x), cache,
-                                           self.cfg, pos=pos, angles=angles,
-                                           ctx=ctx)
-        x = x + mix
-        return x + self.mlp(self.norm2(x)), cache
+    def decode(self, x, cache, pos: int, *, angles=None, ctx=None):
+        h = self.norm1(x)
+        if self.kind == "attn":
+            mix, cache = attention.attn_decode(self.mixer, h, cache,
+                                               self.cfg, pos=pos,
+                                               angles=angles, ctx=ctx)
+        else:
+            _no_ctx(ctx)
+            mix, cache = mamba.mamba_decode(self.mixer, h, cache, self.cfg)
+        return self._ffn(x + mix, ctx)[0], cache
 
 
 class Transformer(nn.Module):
@@ -90,14 +117,13 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, dtype=None, device=None):
         super().__init__()
-        _check_supported(cfg)
         dt = dtype if dtype is not None else _dtype(cfg)
         kw = dict(dtype=dt, device=device)
         self.cfg = cfg
         self.embed = (layers.Embedding(cfg.vocab_size, cfg.d_model, **kw)
                       if cfg.embed_input else None)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, i, **kw)
+                                    for i in range(cfg.n_layers))
         self.final_norm = layers.RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.lm_head = layers.Dense(cfg.d_model, cfg.vocab_size, **kw)
 
@@ -134,16 +160,19 @@ def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, *, device=None,
-               dtype=None) -> List[KVCache]:
-    """Zero KV caches ``(B, S_max, Hkv, D)``, one per layer, on
-    ``device`` (``None`` = ``"cuda"``) in ``dtype`` (the config's by
-    default)."""
+               dtype=None) -> List[Union[KVCache, SSMState]]:
+    """One cache a layer, on ``device`` (``None`` = ``"cuda"``): for an
+    attention layer zero KV caches ``(B, S_max, Hkv, D)`` in ``dtype``
+    (the config's by default), for an SSM layer a zero
+    :class:`SSMState` (its ``conv`` in ``dtype``, its ``ssm`` fp32)."""
     dev = resolve_device(device)
     dt = dtype if dtype is not None else _dtype(cfg)
     shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
     return [KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                     v=torch.zeros(shape, dtype=dt, device=dev))
-            for _ in range(cfg.n_layers)]
+            if cfg.layer_kind(i) == "attn"
+            else mamba.init_ssm_state(cfg, B, dt, device=dev)
+            for i in range(cfg.n_layers)]
 
 
 def _angles_for(cfg: ModelConfig, positions):
@@ -177,32 +206,38 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     angles = _angles_for(cfg, positions)
     caches = []
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_sum: Dict[str, Any] = {"aux_loss": zero, "dropped": zero}
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     for layer in params.layers:
         if remat:
-            x = checkpoint(_layer_out, layer, x, angles, impl,
-                           use_reentrant=False)
-            continue
-        x, kv = layer(x, angles=angles, impl=impl)
-        if want_cache:
-            caches.append(kv)
+            x, aux = checkpoint(_layer_out, layer, x, angles, impl,
+                                use_reentrant=False)
+        else:
+            x, cache, aux = layer(x, angles=angles, impl=impl)
+            if want_cache:
+                caches.append(cache)
+        if aux is not None:
+            aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = layers.dense(params.lm_head, x)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux: Dict[str, Any] = {"aux_loss": zero, "dropped": zero}
-    return logits, (caches if want_cache else None), aux
+    return logits, (caches if want_cache else None), aux_sum
 
 
 def _layer_out(layer: DecoderLayer, x, angles, impl):
-    return layer(x, angles=angles, impl=impl)[0]
+    """The layer's output and aux (remat's checkpointed function: the
+    aux must come out of it, or remat would drop the MoE's loss)."""
+    x, _, aux = layer(x, angles=angles, impl=impl)
+    return x, aux
 
 
 def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
                      ctx=None, impl="xla", aux_weight=0.01):
     """batch: ``{"inputs", "labels", optional "positions"}`` tensors on
     the model's device.  Returns ``(loss, {"loss", "xent", "aux_loss",
-    "dropped"})``, 0-d fp32 tensors; dense stacks have no auxiliary loss,
-    so ``aux_loss`` and ``dropped`` are zeros."""
+    "dropped"})``, 0-d fp32 tensors; ``aux_loss`` and ``dropped`` are
+    summed over the MoE layers (zeros without any), and ``loss`` is
+    ``xent + aux_weight * aux_loss``."""
     logits, _, aux = forward(params, cfg, batch["inputs"],
                              positions=batch.get("positions"), ctx=ctx,
                              impl=impl)
@@ -221,12 +256,14 @@ def prefill(params: Transformer, cfg: ModelConfig, inputs, *,
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, inputs,
-                cache: List[KVCache], pos: int, *, ctx=None):
+                cache: List[Union[KVCache, SSMState]], pos: int, *,
+                ctx=None):
     """One decode step.
 
     inputs: (B, 1) tokens or (B, 1, d) embeddings; pos: the current
     position (the number of tokens already in the cache).  Writes the
-    step's k, v into ``cache`` in place.  Returns (logits (B, V), cache).
+    step's k, v into the attention layers' caches in place and replaces
+    the SSM layers' states.  Returns (logits (B, V), the new caches).
     """
     _no_ctx(ctx)
     x = _embed_inputs(params, cfg, inputs)
