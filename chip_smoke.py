@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving and training;
                                      # the MoE, SSM and hybrid LMs;
+                                     # Qwen2.5-32B on 4 ranks;
                                      # streaming; then
                                      # the full Netflix size: NOMAD, its
                                      # SPMD executor in 8 ranks, then the
@@ -231,6 +232,25 @@ Phases, one line each (any failure raises and exits non-zero):
    its plain version with two controls, its time beside its bound, the
    plain version's and SDPA's: each shape a kernel record of its own,
    whose launches are its models' measured prefills.
+15. sharded LM serving (after phase 14): Qwen2.5-32B at full width, 4 of
+   its 64 layers, bf16, seeded, served unsharded in this process
+   (``launch.serve.generate``, 4 prompts of 1,024 tokens, 8 greedy
+   decode steps, every step's logits kept), then by 4 ranks on a (2, 2)
+   (data, model) mesh started by ``launch.mesh.spawn_ranks`` (they share
+   the card: staged gloo), each drawing the same model and keeping its
+   blocks (``convert.shard_lm_params``), through ``generate(ctx=)``
+   under ``tp_collectives="manual"`` and ``"gspmd"`` (``[15.tp]``: each
+   rank's prefill and decode seconds, its collectives' calls, bytes and
+   host seconds of staging and wire, its card peak, its flash launches
+   and plain calls); the ranks' blocks against the unsharded weights
+   (``[15.weights]``), the logits of the prefill and every decode step
+   and the greedy tokens against the unsharded run, "manual" against
+   "gspmd" (``LM_TP_LOGIT_BOUND``), and a control it must reject
+   (layer 0's wo blocks of the two model ranks swapped); then the flash
+   kernel at the ranks' shape (B=2, Hq=20, Hkv=4) against its plain
+   version with two controls, beside its bound and SDPA's time, a
+   kernel record whose launches are the "gspmd" run's, summed over the
+   ranks.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -1122,29 +1142,6 @@ def build_on_card(fn):
             torch.cuda.memory_allocated() - before)
 
 
-class FlashCounts:
-    """Over a ``with`` block: the flash kernel's launches (its wrapper's
-    own count, zeroed on entry) and the calls of its plain version."""
-
-    def __enter__(self):
-        from repro_torch.kernels import flash_attn as kfa
-        self._kfa, self._plain = kfa, kfa.flash_attention_plain
-        self.launches = self.plain_calls = 0
-
-        def counted(*a, **kw):
-            self.plain_calls += 1
-            return self._plain(*a, **kw)
-
-        kfa.flash_attention_plain = counted
-        kfa.reset_launches()
-        return self
-
-    def __exit__(self, *exc):
-        self.launches = self._kfa.flash_attention.launches
-        self._kfa.flash_attention_plain = self._plain
-        return False
-
-
 class FirstAttentionUnmasked:
     """Over a ``with`` block, the first attention call of each prefill
     runs without the causal mask (its plain version); the others through
@@ -1381,6 +1378,7 @@ def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int):
     run's ``launches``, ``tokens`` and ``timings``."""
     from repro_torch.launch import serve as lserve
     from repro_torch.models import transformer as T
+    from repro_torch.testing import FlashCounts
     B, P = prompts.shape
     runs, routes = [], RouteLog()
     for run in ("warm-up", "measured"):
@@ -1611,6 +1609,7 @@ def timed_steps(step, state, pipe, n: int,
     """``n`` steps of a ``make_train_step`` on ``pipe``'s batches
     ``0..n-1`` under :class:`FlashCounts`, each timed between device
     synchronisations: ``(state, seconds, [{key: value}], counts)``."""
+    from repro_torch.testing import FlashCounts
     secs, ms = [], []
     with FlashCounts() as fc:
         for s in range(n):
@@ -2132,6 +2131,203 @@ def lm_families_phase(dev) -> list:
           flash_launches=json.dumps({r["name"]: r["launches"]
                                      for r in records}))
     return records
+
+
+# --------------------------------------------------------------------- #
+# 15. sharded LM serving on a (data, model) mesh of ranks                #
+# --------------------------------------------------------------------- #
+
+#: [15.tp]: Qwen2.5-32B at full width, TP_LAYERS of its 64 layers, bf16,
+#: served by TP_MESH = (data, model) ranks that share the card, LM_B
+#: prompts of LM_P tokens and TP_G greedy decode steps
+TP_LAYERS, TP_MESH, TP_G = 4, (2, 2), 8
+TP_SEED, TP_TIMEOUT = 15, 600
+#: max |logit difference| of the sharded run against the unsharded one
+#: (and of "manual" against "gspmd") on the same bf16 weights, derived as
+#: LM_LOGIT_BOUND is: 8 residual additions instead of 128 walk to a
+#: quarter of its ~2 % (sqrt(8/128)); a sharded sublayer rounds each
+#: rank's partial product to bf16 before the sum over the model axis and
+#: the sum once more, two roundings where one rank makes one, which at
+#: most doubles that walk's variance: ~0.7 % of the final norm's input,
+#: ~0.007 rms in logits of rms ~1, ~5x that at the max of 608k of them;
+#: the bound is 2.5x that, rounded up to a power of two (the bf16 step of
+#: a logit in [4, 8) is 2^-5).  A control (two ranks' wo blocks of layer
+#: 0 swapped) must exceed it.
+LM_TP_LOGIT_BOUND = 2.0 ** -3
+
+
+def tp_agree(what, got, toks, want, want_toks, bound, tag="check") -> bool:
+    """Two runs' logits ``(steps, B, V)`` (step 0 the prefill's) and
+    greedy tokens ``(B, steps)``: every step's max abs difference ``d``
+    over the rows still on the same tokens within ``bound``, and a token
+    may differ only where ``want``'s top-2 margin is within ``2 d`` (a
+    near tie, as :func:`logits_agree` allows); the row leaves the
+    comparison after it.  Prints each step's ``d`` and the flipped rows'
+    margins."""
+    live = torch.ones(got.shape[1], dtype=torch.bool)
+    diffs, margins, ok = [], [], True
+    for s in range(got.shape[0]):
+        d = float((got[s][live] - want[s][live]).abs().max()) if bool(
+            live.any()) else 0.0
+        diffs.append(round(d, 4))
+        top2 = torch.topk(want[s], 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        differ = (toks[:, s] != want_toks[:, s]) & live
+        ok &= not bool((differ & (margin > 2 * d)).any())
+        margins += [round(float(m), 4) for m in margin[differ]]
+        live &= ~differ
+    within = ok and max(diffs) <= bound
+    phase(tag, what=what, max_abs_diff=json.dumps(diffs), bound=bound,
+          tokens_equal=bool(torch.equal(toks, want_toks)),
+          near_tie_flips=len(margins), flip_margins=json.dumps(margins),
+          within=within)
+    return within
+
+
+def tp_phase(dev) -> dict:
+    """[15.tp]: Qwen2.5-32B at full width and TP_LAYERS layers, bf16,
+    served unsharded in this process (``launch.serve.generate``, logits of
+    every step kept), then by TP_MESH ranks started by
+    ``launch.mesh.spawn_ranks`` (they share the card: transport
+    ``gloo-staged``), each drawing the same model from the seed and
+    keeping its blocks (``convert.shard_lm_params``): ``generate(ctx=)``
+    under ``tp_collectives="manual"`` (first, also the ranks' warm-up),
+    ``"gspmd"`` (the config's default, the timed main path), and the
+    control (layer 0's wo blocks of the two model ranks swapped, prefill
+    only).  Checks: each rank's blocks are the unsharded model's (their
+    fingerprints), the logits of the prefill and every decode step and
+    the greedy tokens against the unsharded run and "manual" against
+    "gspmd" (:func:`tp_agree`, LM_TP_LOGIT_BOUND), the control rejected,
+    TP_LAYERS flash launches a prefill on every rank and 0 plain calls.
+    Prints each rank's prefill and decode seconds, its collectives'
+    calls, bytes and host seconds (staging, wire), its card peak; then
+    the flash kernel at the ranks' shape (B/dp, Hq/tp, Hkv/tp) against
+    its plain version.  Returns that shape's kernel record."""
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import (make_ctx, shard_tensor,
+                                                  spec_for)
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch.mesh import LmMesh, spawn_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import (FlashCounts, param_fingerprint,
+                                     run_lm_on_mesh)
+
+    t_phase = time.perf_counter()
+    full = configs.get_config("qwen2_5_32b")
+    cfg = dataclasses.replace(full, n_layers=TP_LAYERS)
+    B, P, world = LM_B, LM_P, TP_MESH[0] * TP_MESH[1]
+    model, secs, held = build_on_card(lambda: T.init_params(
+        torch.Generator(device=dev).manual_seed(TP_SEED), cfg, device=dev))
+    prompts = prompts_for(cfg, B, P, dev)
+    with torch.inference_mode(), FlashCounts() as fc:
+        toks, t = lserve.generate(model, cfg, prompts, TP_G + 1,
+                                  keep_logits=True)
+    want = torch.stack([x.float().cpu() for x in t["logits"]])
+    want_toks = toks.cpu()
+    phase("15.unsharded", model=cfg.name,
+          layers=f"{cfg.n_layers} of {full.n_layers}", state_bytes=held,
+          init_s=f"{secs:.2f}", prefill_ms=f"{t['prefill_s'] * 1e3:.2f}",
+          decode_ms_per_step=f"{t['decode_s'] / TP_G * 1e3:.3f}",
+          flash_launches=fc.launches, plain_calls=fc.plain_calls,
+          tokens=json.dumps(want_toks[:, :6].tolist()))
+    # the blocks each rank must hold: the spec's slices of these weights
+    state = model.state_dict()
+    want_fp = []
+    for rank in range(world):
+        ctx = make_ctx(LmMesh(("data", "model"), TP_MESH, tuple(
+            int(c) for c in np.unravel_index(rank, TP_MESH)), dev,
+            "gloo-staged"))
+        want_fp.append(param_fingerprint({n: shard_tensor(
+            w, spec_for(n, w.dim(), ctx), ctx) for n, w in state.items()}))
+    del model, state
+    free_cuda()
+
+    common = dict(kind="serve", mesh=TP_MESH, cfg=cfg, seed=TP_SEED,
+                  weights="seeded", prompts=prompts.cpu().numpy())
+    runs = [dict(common, name="manual", mode="manual", gen=TP_G + 1),
+            dict(common, name="gspmd", mode="gspmd", gen=TP_G + 1),
+            dict(common, name="control", mode="manual", gen=1,
+                 swap_wo=True)]
+    t_spawn = time.time()
+    t0 = time.perf_counter()
+    outs = spawn_ranks(run_lm_on_mesh, world, runs, None, timeout=TP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    fps = [o["gspmd.fingerprint"] for o in outs]
+    phase("15.weights", ranks=world, equal=fps == want_fp,
+          fingerprints=json.dumps(fps))
+    if fps != want_fp:
+        raise AssertionError(f"[15.tp] the ranks' blocks {fps} are not the "
+                             f"unsharded weights' {want_fp}")
+
+    def gathered(name):
+        # rank (i, 0) holds rows i of the batch, the whole vocabulary
+        rows = [torch.from_numpy(outs[i * TP_MESH[1]][f"{name}.logits"])
+                for i in range(TP_MESH[0])]
+        tk = [torch.from_numpy(o[f"{name}.tokens"]).long() for o in outs]
+        if any(not torch.equal(x, tk[0]) for x in tk):
+            raise AssertionError(f"[15.tp] {name}: the ranks' tokens differ")
+        return torch.cat(rows, dim=1), tk[0]
+
+    got = {}
+    for name in ("manual", "gspmd"):
+        got[name] = gathered(name)
+        launches = [o[f"{name}.flash_launches"] for o in outs]
+        plain = [o[f"{name}.plain_calls"] for o in outs]
+        phase("15.tp", run=name, transport=repr(outs[0]["transport"]),
+              mesh="x".join(map(str, TP_MESH)), batch=B, prompt=P,
+              decode_steps=TP_G,
+              prefill_ms=json.dumps([round(o[f"{name}.prefill_s"] * 1e3, 2)
+                                     for o in outs]),
+              decode_ms_per_step=json.dumps(
+                  [round(o[f"{name}.decode_s"] / TP_G * 1e3, 2)
+                   for o in outs]),
+              collective_calls=json.dumps([o[f"{name}.calls"] for o in outs]),
+              bytes_in=json.dumps([o[f"{name}.bytes_in"] for o in outs]),
+              bytes_out=json.dumps([o[f"{name}.bytes_out"] for o in outs]),
+              stage_s=json.dumps([round(o[f"{name}.stage_s"], 3)
+                                  for o in outs]),
+              wire_s=json.dumps([round(o[f"{name}.wire_s"], 3)
+                                 for o in outs]),
+              card_peak_bytes=json.dumps([o[f"{name}.card_peak_bytes"]
+                                          for o in outs]),
+              flash_launches=json.dumps(launches), want=TP_LAYERS,
+              plain_calls=json.dumps(plain))
+        if launches != [TP_LAYERS] * world or any(plain):
+            raise AssertionError(f"[15.tp] {name}: flash launches {launches} "
+                                 f"(want {TP_LAYERS} a rank), plain calls "
+                                 f"{plain}")
+        if not tp_agree(f"[15.tp] {name} vs unsharded, prefill and "
+                        f"{TP_G} decode steps", *got[name], want, want_toks,
+                        LM_TP_LOGIT_BOUND):
+            raise AssertionError(f"[15.tp] {name}: logits or tokens differ "
+                                 "from the unsharded run's")
+    if not tp_agree("[15.tp] manual vs gspmd", *got["manual"], *got["gspmd"],
+                    LM_TP_LOGIT_BOUND):
+        raise AssertionError("[15.tp] manual and gspmd disagree")
+    bad, bad_toks = gathered("control")
+    if tp_agree("[15.tp] layer 0's wo blocks of the two model ranks "
+                "swapped, prefill vs unsharded", bad, bad_toks, want[:1],
+                want_toks[:, :1], LM_TP_LOGIT_BOUND, tag="control"):
+        raise AssertionError("the sharded logits check cannot tell two "
+                             "swapped wo blocks")
+    phase("control", what="[15.tp] swapped wo blocks", rejected=True)
+    finite = all(bool(torch.isfinite(g[0]).all()) for g in got.values())
+    if not finite:
+        raise AssertionError("[15.tp] non-finite logits")
+
+    # the flash kernel at the shape every rank's prefill runs it at
+    g = torch.Generator(device=dev).manual_seed(15)
+    rec = flash_case(dev, g, torch.bfloat16, B // TP_MESH[0],
+                     cfg.n_heads // TP_MESH[1], cfg.n_kv_heads // TP_MESH[1],
+                     P, cfg.head_dim, tag="15.flash")
+    rec["launches"] = sum(o["gspmd.flash_launches"] for o in outs)
+    rec["launches_on"] = (f"[15.tp] gspmd prefill, summed over its {world} "
+                          "ranks")
+    phase("15.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          spawn_s=f"{spawn_s:.1f}", spawn_to_ready_s=(
+              f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
+          finite=finite)
+    return rec
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -3900,6 +4096,8 @@ def main_path(args, api, ks, ref, dev):
     kernels.append(train_phase(dev))
     torch.cuda.empty_cache()
     kernels.extend(lm_families_phase(dev))
+    free_cuda()
+    kernels.append(tp_phase(dev))
     stream, digests = stream_phase(api, ks, ref, problem, config,
                                    routes["grid"]["result"], dev)
     for rec in kernels:

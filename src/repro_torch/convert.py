@@ -7,7 +7,8 @@ the same global arrays (and an int8 view's scales) into the tensors the
 port's ``FactorStore`` publishes.  For the LM, :func:`lm_params_from_reference`
 unstacks the reference's period-stacked parameter tree into the port's
 ``Transformer`` (one module per layer), and :func:`lm_params_to_reference`
-stacks it back; :func:`train_state_from_reference` and
+stacks it back; :func:`shard_lm_params` cuts one rank's blocks out of
+either for sharded serving; :func:`train_state_from_reference` and
 :func:`train_state_to_reference` carry a whole train state (parameters,
 AdamW's m, v and master copy, the step) the same way.
 
@@ -167,6 +168,36 @@ def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
                 raise ValueError(f"{name}: shape {tuple(src.shape)}, the "
                                  f"model wants {tuple(t.shape)}")
             t.copy_(src)
+    return model
+
+
+def shard_lm_params(full, cfg, ctx, *, device=None):
+    """This rank's blocks of an LM's parameters under ``ctx`` (a
+    ``distributed.sharding.ShardingCtx``): each tensor cut by its spec
+    (``sharding.spec_for``, the reference's rules), so a sharded run
+    computes with exactly the weights of the unsharded one.  ``full`` is
+    the port's ``Transformer`` or the reference's numpy tree (as
+    :func:`lm_params_from_reference` takes it, built on the CPU first).
+    Returns a ``Transformer`` whose parameters are the blocks, copies on
+    ``device`` (``None``: ``full``'s device, or ``"cuda"`` for a tree) in
+    their own dtypes.  Raises ``ValueError`` when the mesh
+    does not divide the config (``sharding.check_divisible``)."""
+    from .distributed.sharding import check_divisible, shard_tensor, spec_for
+    from .models.transformer import Transformer
+    check_divisible(cfg, ctx)
+    if isinstance(full, dict):
+        full = lm_params_from_reference(full, cfg, device="cpu")
+        dev = resolve_device(device)
+    else:
+        dev = full.lm_head.w.device if device is None else resolve_device(
+            device)
+    model = Transformer(cfg, dtype=full.dtype, device="meta")
+    with torch.no_grad():
+        for name, t in full.state_dict().items():
+            block = shard_tensor(t, spec_for(name, t.dim(), ctx), ctx)
+            path, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(path), leaf, torch.nn.Parameter(
+                block.to(dev, copy=True).contiguous(), requires_grad=False))
     return model
 
 

@@ -1,0 +1,173 @@
+"""Sharding rules: the mesh context and path-based parameter specs.
+
+The layout is the JAX package's (``src/repro/distributed/sharding.py``):
+
+* dp axes — ``("pod", "data")`` multi-pod, ``"data"`` single-pod: the
+  batch and FSDP axis.  Parameters are sharded over dp along a
+  dimension that tensor parallelism leaves whole; a layer gathers its
+  weights over dp just before it uses them and drops them after (ZeRO-3).
+* tp axis — ``"model"``: Megatron column and row parallelism for the
+  attention projections and the MLP, the vocabulary-parallel embedding
+  and LM head.
+
+A spec is a tuple with one entry per dimension of a parameter: ``None``
+(whole), an axis name, or a tuple of names (one dimension over several
+axes, row-major).  The rules match the parameter's path, the port's
+``state_dict`` name with ``/`` for ``.``, which ends as the reference's
+path does (``repro_torch.convert`` maps the two), so every tensor gets
+the reference's spec.  GSPMD inserts the collectives the specs imply;
+the port calls them itself (``repro_torch.distributed.tp``), and unlike
+GSPMD it does not pad uneven shards: :func:`check_divisible` refuses
+them.  The rules run without a process group (a mesh of one rank, or
+one made for its layout only).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from ..launch.mesh import LmMesh
+
+Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
+
+#: what a sharding context still waits for: MoE and SSM layers, and
+#: training
+EP_ITEM = ("ROADMAP Queue 1 item 24 (expert-parallel MoE and the SSM's "
+           "d_inner parallelism)")
+TRAIN_ITEM = "ROADMAP Queue 1 item 25 (training with a sharding context)"
+
+
+def no_ctx(ctx, what: str, item: str = EP_ITEM) -> None:
+    """Raise ``NotImplementedError`` naming ``item`` when ``ctx`` is
+    given to ``what``, which does not take one yet."""
+    if ctx is not None:
+        raise NotImplementedError(f"{what} with a sharding context (ctx) is "
+                                  f"not ported yet: {item}; pass ctx=None")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    mesh: LmMesh
+    dp: Union[str, Tuple[str, ...]]   # data/FSDP axes
+    tp: str                           # tensor axis
+
+    @property
+    def dp_size(self) -> int:
+        return self.mesh.size(self.dp)
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.size(self.tp)
+
+    @property
+    def dp_index(self) -> int:
+        return self.mesh.index(self.dp)
+
+    @property
+    def tp_index(self) -> int:
+        return self.mesh.index(self.tp)
+
+
+def make_ctx(mesh: LmMesh) -> ShardingCtx:
+    if not isinstance(mesh, LmMesh):
+        raise TypeError(f"make_ctx takes an LmMesh, got {type(mesh).__name__}")
+    if "pod" in mesh.axis_names:
+        return ShardingCtx(mesh=mesh, dp=("pod", "data"), tp="model")
+    return ShardingCtx(mesh=mesh, dp="data", tp="model")
+
+
+#: (regex on the joined path, base spec); ``"dp"``/``"tp"`` stand for the
+#: context's axes (the reference's ``_RULES``, :60-84)
+_RULES = [
+    (r"embed/table$",        ("tp", "dp")),
+    (r"lm_head/w$",          ("dp", "tp")),
+    (r"(wq|wk|wv)/w$",       ("dp", "tp")),
+    (r"(wq|wk|wv)/b$",       ("tp",)),
+    (r"wo/w$",               ("tp", "dp")),
+    (r"wo/b$",               (None,)),
+    (r"(gate|up)/w$",        ("dp", "tp")),
+    (r"down/w$",             ("tp", "dp")),
+    (r"(gate|up|down)/b$",   (None,)),
+    (r"router/w$",           (None, None)),
+    (r"moe/gate$",           ("tp", "dp", None)),   # experts (E, d, ff)
+    (r"moe/up$",             ("tp", "dp", None)),
+    (r"moe/down$",           ("tp", None, "dp")),
+    (r"in_proj/w$",          ("dp", "tp")),
+    (r"conv_w$",             (None, "tp")),
+    (r"conv_b$",             ("tp",)),
+    (r"x_proj/w$",           ("tp", None)),
+    (r"dt_proj/w$",          (None, "tp")),
+    (r"dt_bias$",            ("tp",)),
+    (r"A_log$",              ("tp", None)),
+    (r"D$",                  ("tp",)),
+    (r"out_proj/w$",         ("tp", "dp")),
+    (r"scale$",              (None,)),
+]
+
+
+def spec_for(path: str, ndim: int, ctx: ShardingCtx) -> Spec:
+    """The spec of the parameter at ``path`` (a ``state_dict`` name, ``.``
+    or ``/`` separated) with ``ndim`` dimensions: the first rule that
+    matches, with leading dimensions beyond it whole; no rule: whole."""
+    path = path.replace(".", "/")
+    for pat, base in _RULES:
+        if re.search(pat, path):
+            spec = [ctx.dp if s == "dp" else ctx.tp if s == "tp" else None
+                    for s in base]
+            if len(spec) > ndim:
+                raise ValueError(f"{path}: rule {base} has more dimensions "
+                                 f"than the tensor's {ndim}")
+            return (None,) * (ndim - len(spec)) + tuple(spec)
+    return (None,) * ndim
+
+
+def param_specs(model: torch.nn.Module, ctx: ShardingCtx
+                ) -> Dict[str, Spec]:
+    """``{state_dict name: spec}`` for a model's parameters."""
+    return {name: spec_for(name, t.dim(), ctx)
+            for name, t in model.state_dict().items()}
+
+
+def shard_tensor(t: torch.Tensor, spec: Spec, ctx: ShardingCtx,
+                 coords: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """The block of ``t`` (a view) that the rank at ``coords`` (default:
+    this rank's) holds under ``spec``: along each sharded dimension, the
+    rank's index along its axes, of their product equal parts."""
+    mesh = ctx.mesh
+    if coords is not None:
+        mesh = dataclasses.replace(mesh, coords=tuple(coords), groups={})
+    if len(spec) != t.dim():
+        raise ValueError(f"spec {spec} for a {t.dim()}-d tensor")
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        n = mesh.size(axes)
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} is not "
+                             f"divisible by {n} ({axes})")
+        step = t.shape[dim] // n
+        t = t.narrow(dim, mesh.index(axes) * step, step)
+    return t
+
+
+#: the dimensions that a sharded dense model splits evenly, and the axis
+#: each is split over
+_EVEN = (("n_heads", "tp"), ("n_kv_heads", "tp"), ("d_ff", "tp"),
+         ("vocab_size", "tp"), ("d_model", "dp"))
+
+
+def check_divisible(cfg, ctx: ShardingCtx) -> None:
+    """Raise ``ValueError`` naming the first of the config's ``n_heads``,
+    ``n_kv_heads``, ``d_ff``, ``vocab_size`` (over tp) and ``d_model``
+    (over dp, the FSDP axis) that the axis does not divide.  GSPMD pads an
+    uneven shard; the port does not."""
+    for field, axis in _EVEN:
+        n = ctx.tp_size if axis == "tp" else ctx.dp_size
+        val = getattr(cfg, field)
+        if val % n:
+            raise ValueError(f"{field}={val} is not divisible by the "
+                             f"{axis} size {n} (the port does not pad "
+                             "uneven shards)")

@@ -1,5 +1,6 @@
-"""The worker mesh of NOMAD's SPMD executor over ``torch.distributed``,
-and a launcher that starts one process per rank.
+"""The worker mesh of NOMAD's SPMD executor and the LM's (data, model)
+mesh over ``torch.distributed``, and a launcher that starts one process
+per rank.
 
 The JAX package's ``launch/mesh.py::make_mc_mesh`` builds a 1-D device
 mesh with the axis ``"workers"`` for ``shard_map``.  Here one process is
@@ -23,6 +24,13 @@ topology of the launch, and never changes:
   pinned host buffer on a copy stream;
 * ``"gloo"`` — ``device="cpu"``: gloo on CPU tensors.
 
+The LM's mesh (:class:`LmMesh`, :func:`make_test_mesh`, the JAX
+package's ``make_test_mesh``) lays the launch's ranks out row-major on
+``(data, model)`` (or ``(pod, data, model)``) axes and makes one process
+group per data row and per model column (and one over all ranks), every
+rank in the same order; its collectives take the axes they run over.
+Its transport is :func:`choose_transport`'s, as above.
+
 :func:`spawn_ranks` runs a function in ``p`` processes started with the
 ``spawn`` method (never ``fork``), each in a process group over a
 ``file://`` store, and returns what each rank returned; it kills every
@@ -42,6 +50,7 @@ import queue
 import tempfile
 import time
 import traceback
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -86,6 +95,12 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the collectives carry it: 16-bit floats as int16 (their
     bytes, exactly), everything else as it is."""
     return t.view(torch.int16) if t.element_size() == 2 else t
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous ``t`` as a flat view of its bytes (gloo carries no
+    16-bit integers; bytes travel exactly in any type)."""
+    return t.reshape(-1).view(torch.uint8)
 
 
 class Transfer:
@@ -347,6 +362,294 @@ def make_mc_mesh(p: int, *, ranks: Optional[Sequence[int]] = None,
                   device=dev, transport=transport, ranks=ranks, world=world,
                   me=me, shared_dir=shared_dir or os.environ.get(
                       SHARED_DIR_ENV))
+
+
+# ---------------------------------------------------------------------- #
+# The LM's (data, model) mesh                                              #
+# ---------------------------------------------------------------------- #
+
+Axes = Union[str, Tuple[str, ...]]
+
+
+@dataclasses.dataclass(eq=False)
+class LmMesh:
+    """A mesh of ranks for the LM, as one rank sees it: the axes
+    (``axis_names``, the model axis last) and their sizes (``shape``),
+    this rank's coordinate on each (``coords``; global rank = the
+    row-major index of ``coords``, so the ranks of one model group are
+    neighbours), its device and the transport (:func:`choose_transport`).
+    ``groups`` holds, for the dp axes, the model axis and all axes, the
+    process group of the ranks that share this rank's other coordinates
+    (none where that group has one rank).
+
+    The collectives (:meth:`all_reduce`, :meth:`all_gather`,
+    :meth:`reduce_scatter`, :meth:`all_to_all`, :meth:`send_recv`) run
+    over the group of the ``axes`` they are given; over one rank they
+    return their input.  Under ``"gloo-staged"`` every operand is copied
+    to a pinned host buffer and the result back; where nothing is summed
+    the tensors travel as their bytes.  ``stats`` counts the calls, the
+    bytes handed in and out, and the host seconds of staging (``stage_s``)
+    and of the collective itself (``wire_s``; under ``"nccl"`` the time
+    to enqueue it)."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    coords: Tuple[int, ...]
+    device: torch.device
+    transport: str
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict, repr=False)
+    stats: Dict[str, float] = dataclasses.field(default_factory=lambda: dict(
+        calls=0, bytes_in=0, bytes_out=0, stage_s=0.0, wire_s=0.0))
+    _pinned: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    def _key(self, axes: Axes) -> Tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} are not all of the mesh's "
+                             f"{self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def size(self, axes: Axes) -> int:
+        """The number of ranks along ``axes`` (a name or a tuple)."""
+        return int(np.prod([self.shape[self.axis_names.index(a)]
+                            for a in self._key(axes)]))
+
+    def index(self, axes: Axes) -> int:
+        """This rank's row-major index along ``axes``: its rank in their
+        group (``P(("pod", "data"))`` numbers shards the same way)."""
+        key = self._key(axes)
+        pos = [self.axis_names.index(a) for a in key]
+        return int(np.ravel_multi_index([self.coords[i] for i in pos],
+                                        [self.shape[i] for i in pos]))
+
+    def describe(self) -> str:
+        shape = "x".join(map(str, self.shape))
+        names = ",".join(self.axis_names)
+        if self.transport == "gloo":
+            return f"gloo, ({names})={shape} on the CPU"
+        n = torch.cuda.device_count()
+        cards = f"{n} card{'s' if n > 1 else ''}"
+        staged = "" if self.transport == "nccl" else " staged,"
+        return (f"{BACKEND[self.transport]},{staged} ({names})={shape} "
+                f"on {cards}")
+
+    # -- staging ---------------------------------------------------------
+    def _group(self, key):
+        if key not in self.groups:
+            raise RuntimeError(f"the mesh holds no process group for {key} "
+                               "(a mesh made without one spans one rank)")
+        return self.groups[key]
+
+    def _buffer(self, role: str, shape, dtype) -> torch.Tensor:
+        """A pinned host buffer, one per (role, shape, dtype), kept for the
+        mesh's life."""
+        key = (role, tuple(shape), dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(shape, dtype=dtype,
+                                                  pin_memory=True)
+        return buf
+
+    def _host(self, t: torch.Tensor, role: str) -> torch.Tensor:
+        """``t`` where the collective reads it: a pinned host copy under
+        ``"gloo-staged"``, else ``t`` itself (contiguous)."""
+        t = t.contiguous()
+        if self.transport != "gloo-staged":
+            return t
+        buf = self._buffer(role, t.shape, t.dtype)
+        t0 = time.perf_counter()
+        buf.copy_(t)
+        self.stats["stage_s"] += time.perf_counter() - t0
+        return buf
+
+    def _back(self, host: torch.Tensor) -> torch.Tensor:
+        """A collective's result on this rank's device."""
+        if self.transport != "gloo-staged":
+            return host
+        t0 = time.perf_counter()
+        out = host.to(self.device)
+        self.stats["stage_s"] += time.perf_counter() - t0
+        return out
+
+    def _run(self, fn, inp: torch.Tensor, out: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            # newer torch names all_gather_into_tensor/reduce_scatter_tensor
+            # otherwise; these names hold on every version the port runs on
+            warnings.simplefilter("ignore", FutureWarning)
+            fn()
+        self.stats["wire_s"] += time.perf_counter() - t0
+        self.stats["calls"] += 1
+        self.stats["bytes_in"] += inp.numel() * inp.element_size()
+        self.stats["bytes_out"] += out.numel() * out.element_size()
+
+    # -- collectives -----------------------------------------------------
+    def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``t`` summed (``op="sum"``) or maxed (``"max"``) over the group
+        of ``axes``, in ``t``'s dtype; a new tensor."""
+        key = self._key(axes)
+        if self.size(key) == 1:
+            return t
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        buf = self._host(t, "reduce")
+        if buf is t:
+            buf = t.clone()
+        self._run(lambda: dist.all_reduce(buf, op=red,
+                                          group=self._group(key)), buf, buf)
+        return self._back(buf)
+
+    def all_gather(self, t: torch.Tensor, axes: Axes, dim: int = 0
+                   ) -> torch.Tensor:
+        """Every rank's ``t`` of the group of ``axes``, concatenated along
+        ``dim`` in group order."""
+        key = self._key(axes)
+        n = self.size(key)
+        if n == 1:
+            return t
+        src = self._host(t, "gather_in")
+        out = self._out((n, *src.shape), src, "gather_out")
+        self._run(lambda: dist.all_gather_into_tensor(
+            _flat(out), _flat(src), group=self._group(key)), src, out)
+        dim %= t.dim()
+        out = self._back(out).movedim(0, dim)
+        shape = list(t.shape)
+        shape[dim] *= n
+        return out.reshape(shape)
+
+    def reduce_scatter(self, t: torch.Tensor, axes: Axes, dim: int = 0
+                       ) -> torch.Tensor:
+        """``t`` summed over the group of ``axes`` (in ``t``'s dtype), this
+        rank's block of it along ``dim``."""
+        key = self._key(axes)
+        n = self.size(key)
+        if n == 1:
+            return t
+        dim %= t.dim()
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} is not "
+                             f"divisible by the group's {n} ranks")
+        src = self._host(t.movedim(dim, 0), "scatter_in")
+        out = self._out((src.shape[0] // n, *src.shape[1:]), src,
+                        "scatter_out")
+        self._run(lambda: dist.reduce_scatter_tensor(
+            out.view(-1), src.view(-1), group=self._group(key)), src, out)
+        return self._back(out).movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``t``'s dim 0 holds one block for each rank of the group of
+        ``axes``, in group order; returns the blocks the ranks sent this
+        rank, in the same order (block ``i`` from rank ``i``)."""
+        key = self._key(axes)
+        n = self.size(key)
+        if n == 1:
+            return t
+        if t.shape[0] != n:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} must be the "
+                             f"group's {n} ranks")
+        src = self._host(t, "a2a_in")
+        out = self._out(src.shape, src, "a2a_out")
+        self._run(lambda: dist.all_to_all_single(
+            _flat(out), _flat(src), group=self._group(key)), src, out)
+        return self._back(out)
+
+    def send_recv(self, send: torch.Tensor, axes: Axes, dst: int,
+                  src: int) -> torch.Tensor:
+        """Send ``send`` to the rank of index ``dst`` along ``axes`` and
+        receive a tensor of its shape from the rank of index ``src``
+        (``batch_isend_irecv`` over the group)."""
+        key = self._key(axes)
+        group = self._group(key)
+        peers = dist.get_process_group_ranks(group)
+        s = self._host(send, "p2p_in")
+        out = self._out(s.shape, s, "p2p_out")
+
+        def post():
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, _flat(s), peers[dst], group=group),
+                    dist.P2POp(dist.irecv, _flat(out), peers[src],
+                               group=group)]):
+                w.wait()
+        self._run(post, s, out)
+        return self._back(out)
+
+    def _out(self, shape, like: torch.Tensor, role: str) -> torch.Tensor:
+        """An output buffer for a collective over ``like``: pinned and kept
+        under ``"gloo-staged"``, else new on ``like``'s device."""
+        if self.transport == "gloo-staged":
+            return self._buffer(role, shape, like.dtype)
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _lm_groups(axis_names, shape, me: int) -> Dict[Tuple[str, ...], Any]:
+    """The process groups of an LM mesh that hold rank ``me``: for the dp
+    axes (all but the last), the model axis and all axes, every group of
+    ranks that differ only along them, made by every rank in one order
+    (``dist.new_group`` is collective); a group of one rank is skipped."""
+    coords = np.array(np.unravel_index(np.arange(int(np.prod(shape))),
+                                       shape)).T
+    out = {}
+    for key in dict.fromkeys((tuple(axis_names[:-1]), (axis_names[-1],),
+                              tuple(axis_names))):
+        along = [axis_names.index(a) for a in key]
+        if int(np.prod([shape[i] for i in along])) == 1:
+            continue
+        rest = [i for i in range(len(shape)) if i not in along]
+        seen = {}
+        for r, c in enumerate(coords):
+            seen.setdefault(tuple(c[rest]), []).append(r)
+        for ranks in seen.values():
+            g = dist.new_group(ranks)
+            if me in ranks:
+                out[key] = g
+    return out
+
+
+def make_lm_mesh(axes: Dict[str, int], *, device: Device = None) -> LmMesh:
+    """An LM mesh of the sizes ``axes`` (``{"data": D, "model": M}``, or
+    with ``"pod"`` first), the model axis last, over the whole default
+    process group, whose size must be their product; with none
+    initialised, a mesh of one rank (no group, no collective).  The rank's
+    device and transport come from :func:`choose_transport` (``None`` =
+    CUDA; it raises when there is none: no fallback).  Collective: every
+    rank of the launch calls it with the same sizes."""
+    names, shape = tuple(axes), tuple(int(n) for n in axes.values())
+    if not names or names[-1] != "model" or len(set(names)) != len(names) \
+            or not all(n >= 1 for n in shape):
+        raise ValueError(f"LM mesh axes {axes}: the last must be 'model', "
+                         "each size at least 1")
+    n = int(np.prod(shape))
+    if not (dist.is_available() and dist.is_initialized()):
+        if n != 1:
+            raise RuntimeError(f"an LM mesh of {n} ranks needs an "
+                               "initialised default process group "
+                               "(spawn_ranks, torchrun or "
+                               "init_process_group)")
+        transport, dev = choose_transport(1, 0, device)
+        return LmMesh(names, shape, (0,) * len(shape), dev, transport)
+    world, me = dist.get_world_size(), dist.get_rank()
+    if world != n:
+        raise ValueError(f"the LM mesh {dict(axes)} holds {n} ranks, the "
+                         f"process group {world}")
+    transport, dev = choose_transport(world, me, device)
+    backend = dist.get_backend()
+    if backend != BACKEND[transport]:
+        raise RuntimeError(f"transport {transport!r} needs the "
+                           f"{BACKEND[transport]!r} backend, the process "
+                           f"group runs {backend!r}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    groups = _lm_groups(names, shape, me)
+    coords = tuple(int(c) for c in np.unravel_index(me, shape))
+    return LmMesh(names, shape, coords, dev, transport, groups)
+
+
+def make_test_mesh(n_data: int, n_model: int, *, device: Device = None
+                   ) -> LmMesh:
+    """The ``(data, model)`` mesh of ``n_data x n_model`` ranks
+    (:func:`make_lm_mesh`), as the JAX package's ``make_test_mesh``."""
+    return make_lm_mesh({"data": n_data, "model": n_model}, device=device)
 
 
 # ---------------------------------------------------------------------- #

@@ -3,12 +3,18 @@
     python -m repro_torch.launch.serve --arch qwen2_5_32b --batch 4 \\
         --prompt-len 1024 --gen 32 --temperature 0
     python -m repro_torch.launch.serve --smoke --device cpu --temperature 0
+    python -m repro_torch.launch.serve --smoke --device cpu --mesh 2x2 \\
+        --temperature 0
 
-Runs on the card (``--device`` defaults to ``cuda``).  Unlike the JAX
-package's CLI, whose ``make_prefill`` defaults to ``impl="xla"``, the
-port's prefill defaults to ``impl="pallas"``: on the card every layer's
-prefill attention is the CUDA flash kernel (ROADMAP Queue 3 lists the
-difference).  The matrix-completion serving CLI is
+Runs on the card (``--device`` defaults to ``cuda``).  ``--mesh DxM``
+serves on a (data, model) mesh of ``D x M`` ranks, one process each
+(``launch.mesh.spawn_ranks``): every rank draws the whole model from the
+seed and keeps its blocks (``convert.shard_lm_params``); rank 0 prints.
+
+Unlike the JAX package's CLI, whose ``make_prefill`` defaults to
+``impl="xla"``, the port's prefill defaults to ``impl="pallas"``: on the
+card every layer's prefill attention is the CUDA flash kernel (ROADMAP
+Queue 3 lists the difference).  The matrix-completion serving CLI is
 :mod:`repro_torch.launch.serve_mc`.
 """
 from __future__ import annotations
@@ -21,9 +27,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed import tp
 from ..models import transformer as T
 from ..models.attention import KVCache
 from ..models.config import ModelConfig
+
+
+#: seconds the ranks of ``--mesh`` may take before they are killed
+MESH_TIMEOUT = 3600.0
 
 
 def make_prefill(cfg: ModelConfig, ctx=None, *, impl: str = "pallas"):
@@ -41,16 +52,46 @@ def make_decode_step(cfg: ModelConfig, ctx=None):
     return decode_fn
 
 
-def _merge_prefill_cache(full_cache, pre_cache, cfg, P):
+def _merge_prefill_cache(full_cache, pre_cache, cfg, P, *, ctx=None,
+                         batch=None):
     """Write the prefill's KV (length ``P``) into the zero-initialised
     full-length caches, in place; an SSM layer's state carries over
-    unchanged (its slot in the list is replaced).  Returns the list."""
+    unchanged (its slot in the list is replaced).  Returns the list.
+
+    With ``ctx`` (a batch of ``batch``): the prefill's KV holds the rank's
+    ``Hkv/tp`` heads of every position, the caches the rank's slice of the
+    positions with every head (``launch.specs``); one all-to-all over the
+    model axis carries every layer's k and v slice to the rank that holds
+    it."""
+    if ctx is not None:
+        return _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch)
     for i, (dst, src) in enumerate(zip(full_cache, pre_cache)):
         if isinstance(dst, KVCache):
             dst.k[:, :P] = src.k.to(dst.k.dtype)
             dst.v[:, :P] = src.v.to(dst.v.dtype)
         else:
             full_cache[i] = src
+    return full_cache
+
+
+def _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch):
+    S_loc, m = full_cache[0].k.shape[1], ctx.tp_size
+    # the positions of this model group's m slices start at base: with the
+    # batch replicated the slices run over every rank, dp's first
+    base = 0 if tp.batch_sharded(batch, ctx) else ctx.dp_index * m * S_loc
+    kv = torch.stack([t for c in pre_cache for t in (c.k, c.v)])
+    L2, Bl, _, h, D = kv.shape                  # (2 L, B, P, Hkv/tp, D)
+    send = kv.new_zeros((L2, Bl, m * S_loc, h, D),
+                        dtype=full_cache[0].k.dtype)
+    hi = min(P, base + m * S_loc)
+    if hi > base:
+        send[:, :, :hi - base] = kv[:, :, base:hi]
+    send = send.reshape(L2, Bl, m, S_loc, h, D).movedim(2, 0).contiguous()
+    got = ctx.mesh.all_to_all(send, ctx.tp)     # (m, 2 L, B, S_loc, h, D)
+    got = got.permute(1, 2, 3, 0, 4, 5).reshape(L2, Bl, S_loc, m * h, D)
+    for i, c in enumerate(full_cache):
+        c.k.copy_(got[2 * i])
+        c.v.copy_(got[2 * i + 1])
     return full_cache
 
 
@@ -66,32 +107,50 @@ def _next_token(logits, temperature: float, generator):
     return torch.argmax(logits, dim=-1)
 
 
+def _all_rows(tok, ctx, B: int):
+    """The whole batch's tokens from this rank's rows (gathered over dp
+    when the batch is sharded)."""
+    if ctx is None or not tp.batch_sharded(B, ctx):
+        return tok
+    return ctx.mesh.all_gather(tok, ctx.dp, dim=0)
+
+
 def generate(params, cfg: ModelConfig, prompts, gen: int, *,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, ctx=None,
+             keep_logits: bool = False):
     """Serve one batch as the CLI does: prefill ``prompts`` (B, P), move
     its KV into caches of the ``P + gen - 1`` positions decode writes,
     take the first token from the prefill's logits (greedy) and then
     ``gen - 1`` decode steps, each sampling at ``temperature`` (0 =
     greedy) from ``generator``.  Returns ``(tokens (B, gen), timings)``
     with ``prefill_s`` (prefill and merge) and ``decode_s``, each ended
-    by a device synchronisation."""
+    by a device synchronisation; with ``keep_logits`` also ``logits``,
+    each step's (B, V).
+
+    With ``ctx``: every rank passes the whole batch and its blocks of the
+    weights (``convert.shard_lm_params``); the logits are gathered over
+    the model axis where a token is chosen, the tokens over dp, so every
+    rank returns the whole batch's tokens (and its rows' ``logits``).
+    Sampling then needs ``generator`` seeded alike on every rank."""
     B, P = prompts.shape[:2]
     dev = prompts.device
-    prefill_fn = make_prefill(cfg)
-    decode_fn = make_decode_step(cfg)
+    prefill_fn = make_prefill(cfg, ctx)
+    decode_fn = make_decode_step(cfg, ctx)
 
     _sync(dev)
     t0 = time.perf_counter()
     logits, pre_cache = prefill_fn(params, {"inputs": prompts})
     cache = T.init_cache(cfg, B, P + gen - 1, device=dev,
-                         dtype=params.dtype)
-    cache = _merge_prefill_cache(cache, pre_cache, cfg, P)
+                         dtype=params.dtype, ctx=ctx)
+    cache = _merge_prefill_cache(cache, pre_cache, cfg, P, ctx=ctx, batch=B)
     del pre_cache
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
-    tok = torch.argmax(logits, dim=-1)
+    logits = T.gather_logits(logits, ctx)
+    kept = [logits]
+    tok = _all_rows(torch.argmax(logits, dim=-1), ctx, B)
     out = [tok]
     eye = torch.arange(cfg.d_model, device=dev)
     t0 = time.perf_counter()
@@ -99,17 +158,80 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
         inp = (tok[:, None] if cfg.embed_input
                else (tok[:, None] == eye).to(params.dtype)[:, None])
         logits, cache = decode_fn(params, {"inputs": inp}, cache, P + i)
-        tok = _next_token(logits, temperature, generator)
+        logits = T.gather_logits(logits, ctx)
+        if keep_logits:
+            kept.append(logits)
+        tok = _all_rows(_next_token(logits, temperature, generator), ctx, B)
         out.append(tok)
     toks = torch.stack(out, dim=1)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    return toks, {"prefill_s": t_prefill, "decode_s": t_decode}
+    timings = {"prefill_s": t_prefill, "decode_s": t_decode}
+    if keep_logits:
+        timings["logits"] = kept
+    return toks, timings
+
+
+def _prompts(cfg, B: int, P: int, dev):
+    rng = np.random.default_rng(0)
+    if cfg.embed_input:
+        prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P)))
+    else:
+        prompts = torch.from_numpy(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
+    return prompts.to(dev)
+
+
+def _config(opts: dict) -> ModelConfig:
+    from .. import configs
+    cfg = (configs.get_smoke_config(opts["arch"]) if opts["smoke"]
+           else configs.get_config(opts["arch"]))
+    if opts["layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=opts["layers"])
+    return cfg
+
+
+def _serve(opts: dict, dev, ctx=None):
+    """The CLI's run: the model drawn from seed 0 on ``dev`` (with ``ctx``,
+    the rank's blocks of it), its prompts, :func:`generate`."""
+    cfg = _config(opts)
+    params = T.init_params(0, cfg, device=dev)
+    if ctx is not None:
+        from ..convert import shard_lm_params
+        params = shard_lm_params(params, cfg, ctx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.inference_mode():
+        return generate(params, cfg, _prompts(cfg, opts["batch"],
+                                              opts["prompt_len"], dev),
+                        opts["gen"], temperature=opts["temperature"],
+                        generator=gen, ctx=ctx)
+
+
+def serve_rank(rank: int, world: int, opts: dict) -> dict:
+    """Rank body of ``--mesh DxM`` (``launch.mesh.spawn_ranks``): the
+    CLI's run on this rank's blocks.  Returns the tokens, the timings
+    and the mesh's transport."""
+    from ..distributed.sharding import make_ctx
+    from .mesh import make_test_mesh
+    mesh = make_test_mesh(*opts["mesh"], device=opts["device"])
+    toks, t = _serve(opts, mesh.device, make_ctx(mesh))
+    return {"tokens": toks.cpu().numpy(), "transport": mesh.describe(), **t}
+
+
+def _mesh_shape(text: str):
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--mesh takes DxM (data x model ranks), got {text!r}") from None
+    if d < 1 or m < 1:
+        raise argparse.ArgumentTypeError(f"--mesh {text!r}: sizes >= 1")
+    return d, m
 
 
 def main(argv=None) -> int:
-    from .. import configs
     from .._device import resolve_device
+    from .mesh import spawn_ranks
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2_5_32b")
@@ -122,32 +244,26 @@ def main(argv=None) -> int:
                     help="cuda (the default) or cpu")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers (tests)")
-    args = ap.parse_args(argv)
+    ap.add_argument("--mesh", type=_mesh_shape, default=None,
+                    help="DxM: serve on a (data, model) mesh of D x M "
+                         "ranks, one process each")
+    opts = vars(ap.parse_args(argv))
 
-    cfg = (configs.get_smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
-    if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    dev = resolve_device(args.device)
-    B, P, G = args.batch, args.prompt_len, args.gen
-
-    params = T.init_params(0, cfg, device=dev)
-    rng = np.random.default_rng(0)
-    if cfg.embed_input:
-        prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P)))
+    if opts["mesh"] is None:
+        dev = resolve_device(opts["device"])
+        toks, t = _serve(opts, dev)
+        toks, where = toks.cpu().numpy(), str(dev)
     else:
-        prompts = torch.from_numpy(
-            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32))
-    prompts = prompts.to(dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    with torch.inference_mode():
-        toks, t = generate(params, cfg, prompts, G,
-                           temperature=args.temperature, generator=gen)
+        d, m = opts["mesh"]
+        out = spawn_ranks(serve_rank, d * m, opts, timeout=MESH_TIMEOUT,
+                          device=opts["device"])[0]
+        toks, t, where = out["tokens"], out, out["transport"]
+    B, P, G = opts["batch"], opts["prompt_len"], opts["gen"]
     print(f"prefill {P} toks x{B}: {t['prefill_s'] * 1e3:.1f} ms;  "
           f"decode {G - 1} steps: {t['decode_s'] * 1e3:.1f} ms "
           f"({B * (G - 1) / max(t['decode_s'], 1e-9):.1f} tok/s) "
-          f"on {dev}")
-    print("sampled token ids:\n", toks.cpu().numpy())
+          f"on {where}")
+    print("sampled token ids:\n", toks)
     return 0
 
 

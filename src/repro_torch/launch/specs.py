@@ -1,0 +1,69 @@
+"""Specs for sharded serving: the decode caches' layout (the JAX
+package's ``launch/specs.py::_cache_leaf_spec``/``cache_struct``, :82-118,
+for the KV leaves).
+
+A KV cache ``(B, S_max, Hkv, D)`` keeps its batch as the batch is laid
+out (:func:`batch_dim_spec`) and shards its sequence axis: over tp when
+the batch is sharded over dp, else over every axis, dp's then tp's (the
+small-batch long-context layout), so that every rank holds one slice of
+the positions and all heads.  Unlike GSPMD the port does not pad uneven
+shards: a rank's slice is ``ceil(S_max / n)`` positions and the cache
+holds ``n`` slices (the positions past ``S_max`` are never attended).
+The rest of the reference's module (the dry-run's input and state
+structs) is not ported yet (ROADMAP Queue 1 items 16 and 17).
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+from ..distributed.sharding import EP_ITEM, ShardingCtx, Spec
+
+
+def batch_dim_spec(B: int, ctx: ShardingCtx):
+    """Shard the batch over dp when divisible, else replicate."""
+    return ctx.dp if B % ctx.dp_size == 0 else None
+
+
+def cache_seq_axes(B: int, ctx: ShardingCtx):
+    """The axes a KV cache's sequence is sharded over: tp when the batch
+    covers dp, else dp's axes then tp."""
+    if B % ctx.dp_size == 0:
+        return ctx.tp
+    dp = ctx.dp if isinstance(ctx.dp, tuple) else (ctx.dp,)
+    return dp + (ctx.tp,)
+
+
+def kv_cache_spec(B: int, ctx: ShardingCtx) -> Spec:
+    """The spec of a KV cache ``(B, S_max, Hkv, D)``."""
+    return (batch_dim_spec(B, ctx), cache_seq_axes(B, ctx), None, None)
+
+
+def cache_struct(cfg, B: int, S_max: int, ctx: ShardingCtx
+                 ) -> List[Tuple[Tuple[int, ...], Spec]]:
+    """For each layer, its KV cache's global shape and spec (k and v
+    alike).  An SSM layer's state raises ``NotImplementedError``."""
+    out = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) != "attn":
+            raise NotImplementedError(
+                f"an SSM layer's cache with a sharding context (ctx) is not "
+                f"ported yet: {EP_ITEM}")
+        out.append(((B, S_max, cfg.n_kv_heads, cfg.head_dim),
+                    kv_cache_spec(B, ctx)))
+    return out
+
+
+def seq_shard(B: int, S_max: int, ctx: ShardingCtx) -> Tuple[int, int, int]:
+    """``(n, index, S_loc)``: the number of sequence slices of a KV cache,
+    this rank's slice and its length ``ceil(S_max / n)``."""
+    axes = cache_seq_axes(B, ctx)
+    n = ctx.mesh.size(axes)
+    return n, ctx.mesh.index(axes), -(-S_max // n)
+
+
+def local_kv_shape(cfg, B: int, S_max: int, ctx: ShardingCtx
+                   ) -> Tuple[int, int, int, int]:
+    """This rank's block of a KV cache: its batch rows, its slice of
+    positions, every KV head."""
+    rows = B // ctx.dp_size if batch_dim_spec(B, ctx) is not None else B
+    return rows, seq_shard(B, S_max, ctx)[2], cfg.n_kv_heads, cfg.head_dim

@@ -22,7 +22,7 @@ import torch
 
 from .._device import resolve_device
 from ..models import transformer as T
-from ..models.attention import _no_ctx
+from ..distributed.sharding import TRAIN_ITEM, no_ctx
 from ..models.config import ModelConfig
 from ..optim import adamw as optim
 from ..optim.schedule import cosine_warmup
@@ -102,7 +102,7 @@ def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
     numpy arrays or tensors; they are moved to the model's device.
     Metrics are 0-d tensors: ``loss``, ``xent``, ``aux_loss``,
     ``dropped``, ``grad_norm``, ``lr``."""
-    _no_ctx(ctx)
+    no_ctx(ctx, "make_train_step", TRAIN_ITEM)
 
     def train_step(state, batch):
         params = state["params"]

@@ -3,11 +3,22 @@ kernel or its plain chunked twin, each differentiable through the flash
 backward of ``flash_xla``) and the decode path against a KV cache.
 
 Decode attention is plain torch ops over the whole cache, positions at
-or past ``cur_len`` masked, as in the JAX package (its einsum + reduction
-form is what GSPMD shards there; here it is one device).  KV caches keep
-the reference's ``(B, S_max, Hkv, D)`` layout; the port updates them in
+or past ``cur_len`` masked, as in the JAX package.  KV caches keep the
+reference's ``(B, S_max, Hkv, D)`` layout; the port updates them in
 place during decode (the reference returns new arrays), which saves a
 copy of every layer's cache per token.
+
+With a sharding context (``ctx``, dense models) the projections are
+Megatron's: wq, wk and wv column-parallel, so a rank holds ``Hq/tp``
+query and ``Hkv/tp`` KV heads and runs the flash kernel on them; wo
+row-parallel (``repro_torch.distributed.tp``).  Prefill returns its
+head-sharded k, v; decode caches are sequence-sharded
+(``repro_torch.launch.specs``): the step's k, v and q are gathered over
+the model axis, the rank whose slice holds the position writes them,
+every rank attends over its slice and the partial softmax statistics are
+combined by max and sum (:func:`decode_attention_sharded`: what GSPMD
+makes of the reference's reductions over a sharded axis), and each rank
+keeps its own heads for wo.
 """
 from __future__ import annotations
 
@@ -16,22 +27,13 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..distributed import tp
 from ..kernels import flash_attn
+from ..launch import specs
 from . import layers, rope as rope_mod
 from .flash_xla import flash_attention_kernel, flash_attention_xla
 
 NEG_INF = -1e30
-
-#: what a sharding context needs before the port can take one
-SPMD_ITEM = ("ROADMAP Queue 1 item 15 (distributed/{tp,sharding}.py for the "
-             "LM)")
-
-
-def _no_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError(
-            "sharded attention (ctx) is not ported yet: "
-            f"{SPMD_ITEM}; pass ctx=None")
 
 
 class Attention(nn.Module):
@@ -121,6 +123,33 @@ def decode_attention(q, k_cache, v_cache, cur_len):
     return out.reshape(B, Hq, D).to(q.dtype)
 
 
+def decode_attention_sharded(q, k_cache, v_cache, cur_len: int, mesh, axes):
+    """:func:`decode_attention` over a cache whose sequence is sharded
+    over ``axes`` of ``mesh``: q (B, Hq, D), every head; caches this
+    rank's slice (B, S_loc, Hkv, D); ``cur_len`` the valid positions of
+    this slice (may be <= 0 or > S_loc).  Each rank computes its slice's
+    running max ``m``, sum ``l`` and unnormalised output ``o``; they are
+    combined over ``axes`` by the max of ``m`` and the sums of ``l`` and
+    ``o`` rescaled to it (one all-reduce each), fp32 inside."""
+    B, Hq, D = q.shape
+    S = k_cache.shape[1]
+    Hkv = k_cache.shape[2]
+    scale = 1.0 / (D ** 0.5)
+    qg = (q.float() * scale).reshape(B, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    valid = torch.arange(S, device=q.device) < cur_len
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    # a slice with no valid position has m = NEG_INF: its weight is 0
+    w = torch.exp(m - mesh.all_reduce(m, axes, op="max"))
+    lo = mesh.all_reduce(torch.cat([o * w, l * w], -1), axes)
+    out = lo[..., :D] / torch.clamp(lo[..., D:], min=1e-30)
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor          # (B, S_max, Hkv, D)
     v: torch.Tensor
@@ -137,13 +166,24 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     ``"pallas"`` and ``"xla"`` save ``(q, k, v, o, L)`` for the flash
     backward of ``flash_xla`` (the kernel then also writes ``L``), and
     ``"xla_naive"`` is differentiated by autograd through its loop.
+
+    With ``ctx``: x is this rank's batch, and the rank's ``Hq/tp`` query
+    and ``Hkv/tp`` KV heads are projected (wq, wk, wv gathered over dp),
+    attended and summed through the row-parallel wo; the cache holds
+    those KV heads.
     """
-    _no_ctx(ctx)
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = layers.dense(p.wq, x).reshape(B, S, cfg.n_heads, hd)
-    k = layers.dense(p.wk, x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = layers.dense(p.wv, x).reshape(B, S, cfg.n_kv_heads, hd)
+    n = 1 if ctx is None else ctx.tp_size
+    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads // n
+    if ctx is None:
+        proj = [layers.dense(lin, x) for lin in (p.wq, p.wk, p.wv)]
+    else:
+        proj = [tp.col_parallel_dense(x, lin.w, ctx, lin.b)
+                for lin in (p.wq, p.wk, p.wv)]
+    q = proj[0].reshape(B, S, hq, hd)
+    k = proj[1].reshape(B, S, hkv, hd)
+    v = proj[2].reshape(B, S, hkv, hd)
     if angles is not None:
         q = rope_mod.apply_rotary(q, angles)
         k = rope_mod.apply_rotary(k, angles)
@@ -161,16 +201,28 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     else:
         raise ValueError(f"impl must be 'pallas', 'xla' or 'xla_naive', "
                          f"got {impl!r}")
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
-    return layers.dense(p.wo, o), KVCache(k=k, v=v)
+    o = o.transpose(1, 2).reshape(B, S, hq * hd)
+    if ctx is None:
+        return layers.dense(p.wo, o), KVCache(k=k, v=v)
+    out = tp.row_parallel_dense(o, p.wo.w, ctx, p.wo.b,
+                                collectives=cfg.tp_collectives)
+    return out, KVCache(k=k, v=v)
 
 
 def attn_decode(p, x, cache: KVCache, cfg, *, pos: int, angles=None,
-                ctx=None):
+                ctx=None, batch=None):
     """Single-token decode.  x: (B, 1, d); writes this token's k, v at
     ``pos`` of ``cache`` (in place) and attends over positions ``<= pos``.
-    Returns ``(out (B, 1, d), cache)``."""
-    _no_ctx(ctx)
+    Returns ``(out (B, 1, d), cache)``.
+
+    With ``ctx``: x is this rank's rows of a batch of ``batch`` and
+    ``cache`` its block of the sequence-sharded cache
+    (``launch.specs.local_kv_shape``).  The projections are the 2-D forms
+    under ``cfg.tp_collectives == "manual"`` (no weight moves), else
+    gathered over dp."""
+    if ctx is not None:
+        return _attn_decode_sharded(p, x, cache, cfg, pos, angles, ctx,
+                                    batch)
     B = x.shape[0]
     hd = cfg.head_dim
     xq = x[:, 0]
@@ -185,3 +237,44 @@ def attn_decode(p, x, cache: KVCache, cfg, *, pos: int, angles=None,
     o = decode_attention(q, cache.k, cache.v, pos + 1)
     out = layers.dense(p.wo, o.reshape(B, cfg.n_heads * hd))
     return out[:, None], cache
+
+
+def _attn_decode_sharded(p, x, cache: KVCache, cfg, pos: int, angles, ctx,
+                         batch: int):
+    Bl = x.shape[0]
+    hd, n = cfg.head_dim, ctx.tp_size
+    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads // n
+    sharded = tp.batch_sharded(batch, ctx)
+    manual = cfg.tp_collectives == "manual"
+    proj = [tp.col_parallel_dense_2dtp(x, lin.w, ctx, lin.b,
+                                       sharded=sharded)[:, 0] if manual
+            else tp.col_parallel_dense(x[:, 0], lin.w, ctx, lin.b)
+            for lin in (p.wq, p.wk, p.wv)]
+    q = proj[0].reshape(Bl, hq, hd)
+    k = proj[1].reshape(Bl, hkv, hd)
+    if angles is not None:
+        q = rope_mod.apply_rotary(q[:, None], angles)[:, 0]
+        k = rope_mod.apply_rotary(k[:, None], angles)[:, 0]
+    # every head of the step's q, k and v: one gather over the model axis
+    qkv = torch.cat([q, k, proj[2].reshape(Bl, hkv, hd)], 1)
+    heads = ctx.mesh.all_gather(qkv[:, None], ctx.tp, dim=1)
+    q_all = heads[:, :, :hq].reshape(Bl, cfg.n_heads, hd)
+    k_all = heads[:, :, hq:hq + hkv].reshape(Bl, cfg.n_kv_heads, hd)
+    v_all = heads[:, :, hq + hkv:].reshape(Bl, cfg.n_kv_heads, hd)
+    axes = specs.cache_seq_axes(batch, ctx)
+    S_loc = cache.k.shape[1]
+    off = ctx.mesh.index(axes) * S_loc
+    if off <= pos < off + S_loc:
+        cache.k[:, pos - off] = k_all.to(cache.k.dtype)
+        cache.v[:, pos - off] = v_all.to(cache.v.dtype)
+    o = decode_attention_sharded(q_all, cache.k, cache.v, pos + 1 - off,
+                                 ctx.mesh, axes)
+    mine = o[:, ctx.tp_index * hq:(ctx.tp_index + 1) * hq]
+    mine = mine.reshape(Bl, 1, hq * hd)
+    if manual:
+        out = tp.row_parallel_dense_2dtp(mine, p.wo.w, ctx, p.wo.b,
+                                         sharded=sharded)
+    else:
+        out = tp.row_parallel_dense(mine, p.wo.w, ctx, p.wo.b,
+                                    collectives="gspmd")
+    return out, cache

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import layers
-from .attention import _no_ctx
+from ..distributed.sharding import no_ctx
 
 
 class MoE(nn.Module):
@@ -170,7 +170,7 @@ def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local
 def moe_apply(p: MoE, x, cfg, ctx=None):
     """x: (B, S, d) -> ``((B, S, d), aux)``, aux ``{"aux_loss",
     "dropped"}`` 0-d fp32 tensors; all experts on this device."""
-    _no_ctx(ctx)
+    no_ctx(ctx, "an MoE layer")
     B, S, d = x.shape
     out2d, aux = _moe_math(x.reshape(-1, d), p.router.w, p.gate, p.up,
                            p.down, cfg, 0, cfg.n_experts)

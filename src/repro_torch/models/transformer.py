@@ -30,6 +30,19 @@ input and recomputes the rest in the backward: the counterpart of the
 reference's ``jax.checkpoint`` of its scanned period body.  The
 checkpointed function returns the layer's aux with its output, so remat
 leaves ``aux_loss`` as it is.
+
+With a sharding context (``ctx``, a ``repro_torch.distributed.sharding.
+ShardingCtx``) the dense families serve on a (data, model) mesh of
+ranks: ``params`` is the rank's block of each tensor
+(``repro_torch.convert.shard_lm_params``), ``inputs`` the whole batch on
+every rank; the batch is sharded over dp when it divides, the weights
+are gathered over dp before each use and dropped after (FSDP), and the
+attention, the MLP, the embedding and the LM head are tensor-parallel
+(``repro_torch.distributed.tp``).  Logits come back as the rank's block:
+its batch rows and its ``V/tp`` columns of the vocabulary
+(:func:`gather_logits` assembles the rows' whole vocabulary); caches are
+the rank's blocks (``launch.specs``).  MoE and SSM layers refuse a ctx
+(ROADMAP Queue 1 item 24), and so does training (item 25).
 """
 from __future__ import annotations
 
@@ -40,8 +53,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..distributed import tp
+from ..distributed.sharding import (EP_ITEM, TRAIN_ITEM, ShardingCtx,
+                                    check_divisible, no_ctx)
+from ..launch import specs
 from . import attention, layers, mamba, moe, rope
-from .attention import KVCache, _no_ctx
+from .attention import KVCache
 from .config import ModelConfig
 from .mamba import SSMState
 
@@ -77,15 +94,18 @@ class DecoderLayer(nn.Module):
         elif self.mlp_kind == "dense":
             self.mlp.reset_parameters(generator)
 
-    def _ffn(self, x, ctx=None):
-        """``(x + FFN(norm2(x)), aux or None)``."""
+    def _ffn(self, x, ctx=None, batch=None):
+        """``(x + FFN(norm2(x)), aux or None)``; ``batch`` (decode with a
+        ctx) is the whole batch's size."""
         if self.mlp_kind == "none":
             return x, None
         h = self.norm2(x)
         if self.mlp_kind == "moe":
             y, aux = self.moe(h, ctx)
             return x + y, aux
-        return x + self.mlp(h), None
+        if ctx is None:
+            return x + self.mlp(h), None
+        return x + _swiglu_sharded(self.mlp, h, self.cfg, ctx, batch), None
 
     def forward(self, x, *, angles=None, impl="xla", ctx=None):
         """Full sequence; returns ``(x, cache of this sequence, aux or
@@ -94,21 +114,42 @@ class DecoderLayer(nn.Module):
         if self.kind == "attn":
             mix, cache = self.mixer(h, angles=angles, impl=impl, ctx=ctx)
         else:
-            _no_ctx(ctx)
+            no_ctx(ctx, "an SSM layer")
             mix, cache = self.mixer(h, chunk=self.cfg.ssm_chunk)
         x, aux = self._ffn(x + mix, ctx)
         return x, cache, aux
 
-    def decode(self, x, cache, pos: int, *, angles=None, ctx=None):
+    def decode(self, x, cache, pos: int, *, angles=None, ctx=None,
+               batch=None):
         h = self.norm1(x)
         if self.kind == "attn":
             mix, cache = attention.attn_decode(self.mixer, h, cache,
                                                self.cfg, pos=pos,
-                                               angles=angles, ctx=ctx)
+                                               angles=angles, ctx=ctx,
+                                               batch=batch)
         else:
-            _no_ctx(ctx)
+            no_ctx(ctx, "an SSM layer")
             mix, cache = mamba.mamba_decode(self.mixer, h, cache, self.cfg)
-        return self._ffn(x + mix, ctx)[0], cache
+        return self._ffn(x + mix, ctx, batch)[0], cache
+
+
+def _swiglu_sharded(p, h, cfg, ctx, batch=None):
+    """SwiGLU with column-parallel gate and up and a row-parallel down
+    (``cfg.tp_collectives`` sums its partials).  In decode (``batch``
+    given) under ``"manual"``, the 2-D forms: no weight moves (the
+    reference's ``_swiglu``, ``transformer.py:147-165``)."""
+    silu = torch.nn.functional.silu
+    if batch is not None and cfg.tp_collectives == "manual":
+        sharded = tp.batch_sharded(batch, ctx)
+        g, u = (tp.col_parallel_dense_2dtp(h, lin.w, ctx, lin.b,
+                                           sharded=sharded)
+                for lin in (p.gate, p.up))
+        return tp.row_parallel_dense_2dtp(silu(g) * u, p.down.w, ctx,
+                                          p.down.b, sharded=sharded)
+    g, u = (tp.col_parallel_dense(h, lin.w, ctx, lin.b)
+            for lin in (p.gate, p.up))
+    return tp.row_parallel_dense(silu(g) * u, p.down.w, ctx, p.down.b,
+                                 collectives=cfg.tp_collectives)
 
 
 class Transformer(nn.Module):
@@ -160,14 +201,19 @@ def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, *, device=None,
-               dtype=None) -> List[Union[KVCache, SSMState]]:
+               dtype=None, ctx=None) -> List[Union[KVCache, SSMState]]:
     """One cache a layer, on ``device`` (``None`` = ``"cuda"``): for an
     attention layer zero KV caches ``(B, S_max, Hkv, D)`` in ``dtype``
     (the config's by default), for an SSM layer a zero
-    :class:`SSMState` (its ``conv`` in ``dtype``, its ``ssm`` fp32)."""
+    :class:`SSMState` (its ``conv`` in ``dtype``, its ``ssm`` fp32).
+    With ``ctx``: this rank's blocks of the sequence-sharded KV caches
+    (``launch.specs.local_kv_shape``)."""
     dev = resolve_device(device)
     dt = dtype if dtype is not None else _dtype(cfg)
     shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
+    if ctx is not None:
+        _check_ctx(cfg, ctx)
+        shape = specs.local_kv_shape(cfg, B, S_max, ctx)
     return [KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                     v=torch.zeros(shape, dtype=dt, device=dev))
             if cfg.layer_kind(i) == "attn"
@@ -187,10 +233,38 @@ def _angles_for(cfg: ModelConfig, positions):
     return rope.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _embed_inputs(params: Transformer, cfg: ModelConfig, inputs):
+def _embed_inputs(params: Transformer, cfg: ModelConfig, inputs, ctx=None):
+    if ctx is not None:
+        inputs = tp.local_batch(inputs, ctx)
+        if cfg.embed_input:
+            return tp.vocab_parallel_embed(params.embed.table, inputs, ctx)
     if cfg.embed_input:
         return layers.embed(params.embed, inputs)
     return inputs.to(params.dtype)
+
+
+def _check_ctx(cfg: ModelConfig, ctx) -> None:
+    """A ctx is taken by the dense families only (MoE and SSM layers raise
+    ``NotImplementedError``, ROADMAP Queue 1 item 24), must be a
+    ``ShardingCtx`` and must divide the config's sharded dimensions."""
+    if ctx is None:
+        return
+    if any(cfg.layer_kind(i) != "attn" or cfg.mlp_kind(i) == "moe"
+           for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"{cfg.name} has MoE or SSM layers; with a sharding context "
+            f"(ctx) they are not ported yet: {EP_ITEM}; pass ctx=None")
+    if not isinstance(ctx, ShardingCtx):
+        raise TypeError(f"ctx must be a ShardingCtx (distributed.sharding."
+                        f"make_ctx), got {type(ctx).__name__}")
+    check_divisible(cfg, ctx)
+
+
+def gather_logits(logits, ctx):
+    """A rank's logits block ``(..., V/tp)`` with the whole vocabulary
+    (gathered over the model axis); without a ctx, ``logits``."""
+    return logits if ctx is None else ctx.mesh.all_gather(logits, ctx.tp,
+                                                          dim=-1)
 
 
 def forward(params: Transformer, cfg: ModelConfig, inputs, *,
@@ -198,12 +272,20 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     """Full-sequence forward.
 
     inputs: int tokens (B, S) when cfg.embed_input else embeddings
-    (B, S, d).  Returns (logits (B, S, V), caches_or_None, aux)."""
-    _no_ctx(ctx)
-    x = _embed_inputs(params, cfg, inputs)
+    (B, S, d).  Returns (logits (B, S, V), caches_or_None, aux); with a
+    ctx, the rank's blocks (see the module's docstring; ``positions``
+    too are the whole batch's)."""
+    _check_ctx(cfg, ctx)
+    if ctx is not None and torch.is_grad_enabled() and any(
+            p.requires_grad for p in params.parameters()):
+        raise NotImplementedError(f"gradients through a sharding context "
+                                  f"are not ported yet: {TRAIN_ITEM}")
+    x = _embed_inputs(params, cfg, inputs, ctx)
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    elif ctx is not None:
+        positions = tp.local_batch(positions, ctx)
     angles = _angles_for(cfg, positions)
     caches = []
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -214,13 +296,17 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
             x, aux = checkpoint(_layer_out, layer, x, angles, impl,
                                 use_reentrant=False)
         else:
-            x, cache, aux = layer(x, angles=angles, impl=impl)
+            x, cache, aux = layer(x, angles=angles, impl=impl, ctx=ctx)
             if want_cache:
                 caches.append(cache)
         if aux is not None:
             aux_sum = {k: aux_sum[k] + aux[k] for k in aux_sum}
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = layers.dense(params.lm_head, x)
+    if ctx is None:
+        logits = layers.dense(params.lm_head, x)
+    else:
+        logits = tp.col_parallel_dense(x, params.lm_head.w, ctx,
+                                       params.lm_head.b)
     return logits, (caches if want_cache else None), aux_sum
 
 
@@ -238,6 +324,7 @@ def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
     "dropped"})``, 0-d fp32 tensors; ``aux_loss`` and ``dropped`` are
     summed over the MoE layers (zeros without any), and ``loss`` is
     ``xent + aux_weight * aux_loss``."""
+    no_ctx(ctx, "loss_and_metrics", TRAIN_ITEM)
     logits, _, aux = forward(params, cfg, batch["inputs"],
                              positions=batch.get("positions"), ctx=ctx,
                              impl=impl)
@@ -249,7 +336,9 @@ def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
 def prefill(params: Transformer, cfg: ModelConfig, inputs, *,
             positions=None, ctx=None, impl="xla"):
     """Returns (last-position logits (B, V), caches).  The logits are a
-    copy, so the all-position ones (B, S, V) are freed on return."""
+    copy, so the all-position ones (B, S, V) are freed on return.  With
+    ``ctx`` the rank's blocks, the caches' KV heads its ``Hkv/tp``
+    (``launch.serve._merge_prefill_cache`` reshards them)."""
     logits, caches, _ = forward(params, cfg, inputs, positions=positions,
                                 ctx=ctx, impl=impl, want_cache=True)
     return logits[:, -1].clone(), caches
@@ -264,15 +353,35 @@ def decode_step(params: Transformer, cfg: ModelConfig, inputs,
     position (the number of tokens already in the cache).  Writes the
     step's k, v into the attention layers' caches in place and replaces
     the SSM layers' states.  Returns (logits (B, V), the new caches).
+
+    With ``ctx``: ``inputs`` is the whole batch, ``cache`` the rank's
+    blocks (:func:`init_cache` with the ctx) and the logits the rank's
+    block (its rows, ``V/tp`` columns).  The embedding is looked up in
+    the rank's (V/tp, d/dp) block for the whole batch and traded over dp
+    (no weight moves); under ``"manual"`` the projections and the LM head
+    are the 2-D forms, else gathered over dp.
     """
-    _no_ctx(ctx)
-    x = _embed_inputs(params, cfg, inputs)
+    _check_ctx(cfg, ctx)
+    B = inputs.shape[0]
+    if ctx is not None and cfg.embed_input:
+        x = tp.vocab_parallel_embed_2dtp(params.embed.table, inputs, ctx)
+    else:
+        x = _embed_inputs(params, cfg, inputs, ctx)
     pos = int(pos)
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     angles = _angles_for(cfg, positions)
     new_cache = []
     for layer, c in zip(params.layers, cache):
-        x, c = layer.decode(x, c, pos, angles=angles)
+        x, c = layer.decode(x, c, pos, angles=angles, ctx=ctx, batch=B)
         new_cache.append(c)
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
-    return layers.dense(params.lm_head, x)[:, 0], new_cache
+    if ctx is None:
+        return layers.dense(params.lm_head, x)[:, 0], new_cache
+    if cfg.tp_collectives == "manual":
+        logits = tp.col_parallel_dense_2dtp(
+            x, params.lm_head.w, ctx, params.lm_head.b,
+            sharded=tp.batch_sharded(B, ctx))
+    else:
+        logits = tp.col_parallel_dense(x, params.lm_head.w, ctx,
+                                       params.lm_head.b)
+    return logits[:, 0], new_cache

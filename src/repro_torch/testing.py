@@ -551,6 +551,221 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
     return out
 
 
+class FlashCounts:
+    """Over a ``with`` block: the flash kernel's launches (its wrapper's
+    own count, zeroed on entry) and the calls of its plain version."""
+
+    def __enter__(self):
+        from .kernels import flash_attn as kfa
+        self._kfa, self._plain = kfa, kfa.flash_attention_plain
+        self.launches = self.plain_calls = 0
+
+        def counted(*a, **kw):
+            self.plain_calls += 1
+            return self._plain(*a, **kw)
+
+        kfa.flash_attention_plain = counted
+        kfa.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = self._kfa.flash_attention.launches
+        self._kfa.flash_attention_plain = self._plain
+        return False
+
+
+def param_fingerprint(tensors) -> str:
+    """sha256 of every tensor's name, shape, dtype and every 4,099th
+    element's bytes (a module's ``state_dict`` or a name -> tensor
+    mapping), its first 16 hex digits: two sets of weights with equal
+    fingerprints are the same tensors (a sample, so that the weights of a
+    full-width model need not cross to the host)."""
+    import hashlib
+    import numpy as np
+    if isinstance(tensors, torch.nn.Module):
+        tensors = tensors.state_dict()
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        t = tensors[name]
+        h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+        sample = t.detach().reshape(-1)[::4099].contiguous().cpu()
+        if sample.element_size() == 2:
+            sample = sample.view(torch.int16)
+        h.update(np.ascontiguousarray(sample.numpy()).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _lm_weights(run: dict, cfg, ctx, dev):
+    """``(the rank's blocks, its model-axis neighbour's block of layer 0's
+    wo, the blocks' fingerprint)`` for a ``"serve"`` run: the model is the
+    reference's numpy tree (``run["params"]``) or drawn from
+    ``run["seed"]`` on ``dev``, whole, then cut
+    (``convert.shard_lm_params``)."""
+    from .convert import lm_params_from_reference, shard_lm_params
+    from .distributed.sharding import shard_tensor, spec_for
+    from .models import transformer as T
+    if "params" in run:
+        full = lm_params_from_reference(run["params"], cfg, device="cpu")
+    else:
+        full = T.init_params(torch.Generator(device=dev).manual_seed(
+            run["seed"]), cfg, device=dev)
+    model = shard_lm_params(full, cfg, ctx, device=dev)
+    # the control's block: the next rank's along the model axis
+    name = "layers.0.mixer.wo.w"
+    w = full.state_dict()[name]
+    coords = list(ctx.mesh.coords)
+    coords[-1] = (coords[-1] + 1) % ctx.mesh.shape[-1]
+    other = shard_tensor(w, spec_for(name, w.dim(), ctx), ctx,
+                         coords=tuple(coords)).to(dev, copy=True)
+    del full
+    return model, other, param_fingerprint(model)
+
+
+def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
+    """One case of :func:`run_lm_on_mesh`, its results under
+    ``out[run["name"] + "." + ...]``."""
+    import dataclasses
+
+    import numpy as np
+
+    from .distributed import ring, tp
+    from .distributed.sharding import shard_tensor
+    from .launch import serve
+    from .models import attention as A
+
+    name, kind = run["name"], run["kind"]
+    rng = np.random.default_rng(run.get("seed", 0))
+    dev = mesh.device
+
+    def put(key, t):
+        out[f"{name}.{key}"] = t.detach().float().cpu().numpy()
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(dev, run.get("dtype", torch.float32))
+
+    if kind == "ring":
+        p, j = mesh.size("model"), mesh.index("model")
+        x, w = arr(16 * p, 32), arr(32, 12 * p)
+        xb, wc = x[16 * j:16 * (j + 1)], w[:, 12 * j:12 * (j + 1)]
+        put("ag", ring.ring_ag_matmul(xb, wc, mesh, "model"))
+        put("ag_ref", ring.ring_ag_matmul_ref(xb, wc, mesh, "model"))
+        xc, wr = x[:, 8 * j:8 * (j + 1)], w[8 * j:8 * (j + 1)]
+        put("rs", ring.ring_rs_matmul(xc, wr, mesh, "model"))
+        put("rs_ref", ring.ring_rs_matmul_ref(xc, wr, mesh, "model"))
+    elif kind == "tp":
+        B, S, d, f, V = run["B"], 3, 8, 12, 16
+        x, xf = arr(B, S, d), arr(B, S, f)
+        w_col, w_row, b_col, b_row = arr(d, f), arr(f, d), arr(f), arr(d)
+        table = arr(V, d)
+        tokens = torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)
+        sharded = tp.batch_sharded(B, ctx)
+
+        def block(t, *spec):
+            return shard_tensor(t, spec, ctx).contiguous()
+        xl, xfl = tp.local_batch(x, ctx), tp.local_batch(xf, ctx)
+        xfl = block(xfl, None, None, ctx.tp)
+        wc, wr = block(w_col, ctx.dp, ctx.tp), block(w_row, ctx.tp, ctx.dp)
+        bc = block(b_col, ctx.tp)
+        put("col", tp.col_parallel_dense(xl, wc, ctx, bc))
+        for mode in ("manual", "gspmd"):
+            put(f"row_{mode}", tp.row_parallel_dense(
+                xfl, wr, ctx, b_row, collectives=mode))
+        put("col_2dtp", tp.col_parallel_dense_2dtp(xl, wc, ctx, bc,
+                                                   sharded=sharded))
+        put("row_2dtp", tp.row_parallel_dense_2dtp(xfl, wr, ctx, b_row,
+                                                   sharded=sharded))
+        tab = block(table, ctx.tp, ctx.dp)
+        put("embed", tp.vocab_parallel_embed(tab, tp.local_batch(tokens,
+                                                                 ctx), ctx))
+        put("embed_2dtp", tp.vocab_parallel_embed_2dtp(tab, tokens, ctx))
+    elif kind == "decode_attention":
+        B, Hq, Hkv, S, D, cur = 2, 4, 2, 64, 16, run["cur_len"]
+        q = arr(B, Hq, D, scale=0.5)
+        kc, vc = arr(B, S, Hkv, D, scale=0.5), arr(B, S, Hkv, D)
+        n, j = mesh.size("model"), mesh.index("model")
+        lo, hi = j * S // n, (j + 1) * S // n
+        put("out", A.decode_attention_sharded(
+            q, kc[:, lo:hi], vc[:, lo:hi], cur - lo, mesh, "model"))
+    elif kind == "serve":
+        cfg = dataclasses.replace(run["cfg"], tp_collectives=run["mode"])
+        key = run.get("weights", "params")
+        if key not in weights:
+            weights[key] = _lm_weights(run, cfg, ctx, dev)
+        model, other, fp = weights[key]
+        wo = model.layers[0].mixer.wo
+        mine = wo.w
+        if run.get("swap_wo"):
+            wo.w = torch.nn.Parameter(other, requires_grad=False)
+        prompts = torch.from_numpy(np.asarray(run["prompts"])).to(dev)
+        for k in mesh.stats:
+            mesh.stats[k] = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            with torch.inference_mode(), FlashCounts() as fc:
+                toks, t = serve.generate(model, cfg, prompts, run["gen"],
+                                         ctx=ctx, keep_logits=True)
+        finally:
+            wo.w = mine
+        put("tokens", toks)
+        put("logits", torch.stack(t["logits"]))
+        out.update({f"{name}.{k}": v for k, v in dict(
+            prefill_s=t["prefill_s"], decode_s=t["decode_s"],
+            flash_launches=fc.launches, plain_calls=fc.plain_calls,
+            fingerprint=fp, **mesh.stats).items()})
+        if dev.type == "cuda":
+            out[f"{name}.card_peak_bytes"] = torch.cuda.max_memory_allocated(
+                dev)
+    else:
+        raise ValueError(f"unknown LM case kind {kind!r}")
+
+
+def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
+    """Rank body: each of ``runs`` (dicts with ``name``, ``kind`` and
+    ``mesh``, a ``(D, M)`` shape over the whole launch) on this rank's
+    ``make_test_mesh(D, M, device=device)`` and its ``make_ctx``, in
+    order (the meshes made once each, in the order the runs name them,
+    on every rank).  Kinds:
+
+    * ``"ring"``: ``ring_ag_matmul``/``ring_rs_matmul`` and their
+      ``_ref`` versions over the model axis, on seeded X (16 M, 32) and
+      W (32, 12 M) (``dtype`` optional);
+    * ``"tp"``: each primitive of ``distributed.tp`` on seeded inputs
+      with a batch of ``B``;
+    * ``"decode_attention"``: ``decode_attention_sharded`` over the
+      model axis on a seeded cache (B 2, Hq 4, Hkv 2, S 64, D 16) at
+      ``cur_len``;
+    * ``"serve"``: ``launch.serve.generate`` of ``prompts`` (``gen``
+      tokens, greedy, ``keep_logits``) with ``cfg`` under
+      ``tp_collectives=mode``, on this rank's blocks of the reference's
+      tree ``params`` or of the model drawn from ``seed`` on the device
+      (built once per ``weights`` key); ``swap_wo`` serves with layer
+      0's wo block replaced by the next model rank's (a control).
+
+    Returns the rank's blocks of each result (numpy, fp32) under
+    ``"<name>.<what>"``, the serve runs' timings, the mesh's collective
+    counters, the flash kernel's launches and plain calls, the weights'
+    fingerprint (:func:`param_fingerprint`) and the card's peak; and
+    ``coords``, ``transport`` and ``ready_at`` (``time.time()`` once the
+    first mesh was made)."""
+    import time
+
+    from .distributed.sharding import make_ctx
+    from .launch.mesh import make_test_mesh
+    meshes, weights, out = {}, {}, {}
+    for run in runs:
+        shape = tuple(run["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(*shape, device=device)
+            out.setdefault("ready_at", time.time())
+        mesh = meshes[shape]
+        out[f"{run['name']}.coords"] = mesh.coords
+        _lm_case(run, mesh, make_ctx(mesh), weights, out)
+    out["transport"] = next(iter(meshes.values())).describe()
+    return out
+
+
 def raise_on_rank(rank: int, p: int, bad: int) -> int:
     """Rank body: rank ``bad`` raises, the others return their rank."""
     if rank == bad:

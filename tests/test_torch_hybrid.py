@@ -545,22 +545,23 @@ def test_train_cli_trains_the_family(arch, capsys):
 
 
 def test_a_sharding_context_still_raises():
-    """The MoE and SSM layers refuse a ``ctx`` as attention does (ROADMAP
-    Queue 1 item 15)."""
+    """The MoE and SSM layers refuse a ``ctx`` (ROADMAP Queue 1 item 24;
+    dense attention takes one since item 15), and so does training (item
+    25)."""
     for arch in ("qwen3_moe_30b_a3b", "falcon_mamba_7b"):
         cfg = tconfigs.get_smoke_config(arch)
         model = TT.init_params(0, cfg, device=CPU)
         x = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
             TT.forward(model, cfg, x, ctx=object())
         cache = TT.init_cache(cfg, 1, 8, device=CPU)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
             TT.decode_step(model, cfg, x[:, :1], cache, 0, ctx=object())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
             ttrain.make_train_step(cfg, object(), TA.AdamWConfig())
     cfg = tconfigs.get_smoke_config("qwen3_moe_30b_a3b")
     layer = TT.init_params(0, cfg, device=CPU).layers[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
         tmoe.moe_apply(layer.moe, torch.zeros((1, 2, cfg.d_model)), cfg,
                        ctx=object())
 
@@ -569,7 +570,9 @@ def test_port_models_import_neither_jax_nor_reference():
     code = ("import sys\n"
             "import repro_torch.models.moe, repro_torch.models.mamba, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
-            "repro_torch.launch.train\n"
+            "repro_torch.launch.train, repro_torch.distributed, "
+            "repro_torch.distributed.tp, repro_torch.distributed.ring, "
+            "repro_torch.launch.specs, repro_torch.launch.mesh\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

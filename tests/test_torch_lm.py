@@ -356,21 +356,41 @@ def test_init_params_builds_the_moe_and_ssm_families(arch):
     assert logits.shape == (1, 4, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert (float(aux["aux_loss"]) > 0) == bool(cfg.n_experts)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
         TT.forward(model, cfg, x, ctx=object())
 
 
 def test_refuses_a_sharding_context():
+    """A dense model takes a sharding context: on a mesh of one rank (no
+    process group) forward, prefill and decode equal the unsharded ones
+    bitwise; what is not a ``ShardingCtx`` is refused
+    (``tests/test_torch_lm_spmd.py`` serves on 4 ranks)."""
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_test_mesh
     cfg = tconfigs.get_smoke_config("qwen2_5_32b")
     model = TT.init_params(0, cfg, device=CPU)
-    x = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        TT.forward(model, cfg, x, ctx=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tserve.make_prefill(cfg, object())(model, {"inputs": x})
-    cache = TT.init_cache(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        TT.decode_step(model, cfg, x[:, :1], cache, 0, ctx=object())
+    ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
+    x = torch.from_numpy(_inputs(cfg, 2, 8)).long()
+    want, _, _ = TT.forward(model, cfg, x)
+    got, _, _ = TT.forward(model, cfg, x, ctx=ctx)
+    assert torch.equal(got, want)
+    logits = {}
+    for c in (None, ctx):
+        last, pre = tserve.make_prefill(cfg, c)(model, {"inputs": x[:, :7]})
+        cache = tserve._merge_prefill_cache(
+            TT.init_cache(cfg, 2, 8, device=CPU, ctx=c), pre, cfg, 7,
+            ctx=c, batch=2)
+        dec, _ = TT.decode_step(model, cfg, x[:, 7:], cache, 7, ctx=c)
+        logits[c] = (last, dec)
+    assert all(torch.equal(a, b) for a, b in zip(logits[ctx], logits[None]))
+    for bad in (object(), ctx.mesh):
+        with pytest.raises(TypeError, match="ShardingCtx"):
+            TT.forward(model, cfg, x, ctx=bad)
+        with pytest.raises(TypeError, match="ShardingCtx"):
+            tserve.make_prefill(cfg, bad)(model, {"inputs": x})
+        cache = TT.init_cache(cfg, 1, 8, device=CPU)
+        with pytest.raises(TypeError, match="ShardingCtx"):
+            TT.decode_step(model, cfg, x[:1, :1], cache, 0, ctx=bad)
 
 
 def test_configs_equal_reference():

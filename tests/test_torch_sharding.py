@@ -1,0 +1,190 @@
+"""The port's sharding rules against the JAX package's, in the pytest
+process, with no process group: ``spec_for``/``param_specs`` for every
+parameter of every smoke config (single-pod and multi-pod dp), the KV
+caches' specs, ``make_ctx``, the divisibility refusal, and
+``shard_lm_params`` cutting each rank's blocks.
+
+The reference's rules need only a mesh's axis names and sizes, so it
+runs on ``jax.sharding.AbstractMesh``; the port's on an ``LmMesh`` of one
+rank (``make_lm_mesh`` without a process group) or one constructed for
+its layout only (no groups: its collectives over more than one rank
+raise).
+"""
+import dataclasses
+
+import jax
+import pytest
+import torch
+from jax.sharding import AbstractMesh, PartitionSpec as P
+
+from repro import configs as rconfigs
+from repro.distributed import sharding as rsharding
+from repro.launch import specs as rspecs
+from repro.models import transformer as RT
+
+from repro_torch import configs as tconfigs
+from repro_torch.convert import shard_lm_params
+from repro_torch.distributed import sharding as tsharding
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import specs as tspecs
+from repro_torch.models import transformer as TT
+
+CPU = torch.device("cpu")
+#: the two dp layouts: the single-pod (data, model) mesh and the
+#: multi-pod (pod, data, model) one
+LAYOUTS = {"data": {"data": 2, "model": 2},
+           "pod": {"pod": 2, "data": 1, "model": 2}}
+
+
+def _layout(axes, coords=None):
+    """An LmMesh for ``axes``'s layout (no process group) and the
+    reference's AbstractMesh of the same axes."""
+    names, shape = tuple(axes), tuple(axes.values())
+    mesh = tmesh.LmMesh(names, shape, coords or (0,) * len(names), CPU,
+                        "gloo")
+    return mesh, AbstractMesh(shape, names)
+
+
+def _reference_specs(cfg, rctx):
+    """The reference's ``param_specs`` as ``{port name: spec}``: period
+    stacks unstacked (their leading axis, which the rules leave whole,
+    dropped) onto the port's one-module-per-layer names."""
+    shapes = jax.eval_shape(lambda k: RT.init_params(k, cfg),
+                            jax.random.key(0))
+    specs = rsharding.param_specs(shapes, rctx)
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, P))
+    out = {}
+    for path, spec in flat:
+        parts = rsharding._path_str(path).split("/")
+        if parts[0] == "blocks":
+            assert spec[0] is None
+            pos = int(parts[1][3:])
+            for s in range(cfg.n_periods):
+                idx = cfg.n_prologue + s * cfg.period + pos
+                out[".".join(["layers", str(idx)] + parts[2:])] = \
+                    tuple(spec)[1:]
+        elif parts[0] == "prologue":
+            out[".".join(["layers"] + parts[1:])] = tuple(spec)
+        else:
+            out[".".join(parts)] = tuple(spec)
+    return out
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch", rconfigs.ARCHS)
+def test_param_specs_equal_the_reference(arch, layout):
+    """Every parameter of every smoke config gets exactly the reference's
+    spec (single-pod ``dp="data"`` and multi-pod ``dp=("pod", "data")``)."""
+    mesh, rmesh = _layout(LAYOUTS[layout])
+    ctx, rctx = tsharding.make_ctx(mesh), rsharding.make_ctx(rmesh)
+    assert (ctx.dp, ctx.tp) == (rctx.dp, rctx.tp)
+    cfg = tconfigs.get_smoke_config(arch)
+    model = TT.Transformer(cfg, device="meta")
+    got = tsharding.param_specs(model, ctx)
+    want = _reference_specs(rconfigs.get_smoke_config(arch), rctx)
+    assert got == want
+    for name, t in model.state_dict().items():
+        assert tsharding.spec_for(name.replace(".", "/"), t.dim(), ctx) == \
+            got[name]
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_make_ctx_on_both_layouts(layout):
+    """``make_ctx`` names the reference's axes, and the sizes and this
+    rank's indices follow the mesh (row-major over several dp axes)."""
+    axes = LAYOUTS[layout]
+    coords = tuple(n - 1 for n in axes.values())
+    mesh, rmesh = _layout(axes, coords)
+    ctx, rctx = tsharding.make_ctx(mesh), rsharding.make_ctx(rmesh)
+    assert (ctx.dp, ctx.tp) == (rctx.dp, rctx.tp)
+    assert (ctx.dp_size, ctx.tp_size) == (rctx.dp_size, rctx.tp_size)
+    assert (ctx.dp_index, ctx.tp_index) == (ctx.dp_size - 1,
+                                            ctx.tp_size - 1)
+    one = tmesh.make_lm_mesh({a: 1 for a in axes}, device="cpu")
+    assert tsharding.make_ctx(one).dp == ctx.dp
+    with pytest.raises(TypeError, match="LmMesh"):
+        tsharding.make_ctx(rmesh)
+
+
+@pytest.mark.parametrize("B", [4, 3])
+def test_kv_cache_specs_equal_the_reference(B):
+    """The KV caches' specs: the batch over dp and the sequence over tp
+    when the batch divides dp (B=4), else the sequence over (dp, tp)."""
+    cfg = tconfigs.get_smoke_config("qwen2_5_32b")
+    mesh, rmesh = _layout(LAYOUTS["data"])
+    ctx, rctx = tsharding.make_ctx(mesh), rsharding.make_ctx(rmesh)
+    ref = rspecs.cache_struct(rconfigs.get_smoke_config("qwen2_5_32b"), B,
+                              16, rctx)
+    want = tuple(ref["blocks"]["pos0"].k.sharding.spec)[1:]
+    for shape, spec in tspecs.cache_struct(cfg, B, 16, ctx):
+        assert shape == (B, 16, cfg.n_kv_heads, cfg.head_dim)
+        assert spec == want
+    n, _, S_loc = tspecs.seq_shard(B, 16, ctx)
+    assert n * S_loc >= 16
+    assert tspecs.local_kv_shape(cfg, B, 16, ctx) == (
+        B // 2 if B % 2 == 0 else B, S_loc, cfg.n_kv_heads, cfg.head_dim)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
+        tspecs.cache_struct(tconfigs.get_smoke_config("falcon_mamba_7b"),
+                            B, 16, ctx)
+
+
+@pytest.mark.parametrize("field", ["n_heads", "n_kv_heads", "d_ff",
+                                   "vocab_size", "d_model"])
+def test_an_uneven_shard_raises(field):
+    """GSPMD pads uneven shards; the port raises ``ValueError`` naming
+    the dimension (tp must divide the heads, KV heads, d_ff and the
+    vocabulary, dp the model width)."""
+    cfg = tconfigs.get_smoke_config("qwen2_5_32b")
+    cfg = dataclasses.replace(cfg, **{field: getattr(cfg, field) + 1})
+    mesh, _ = _layout({"data": 2, "model": 2})
+    ctx = tsharding.make_ctx(mesh)
+    with pytest.raises(ValueError, match=field):
+        tsharding.check_divisible(cfg, ctx)
+    with pytest.raises(ValueError, match=field):
+        shard_lm_params(TT.Transformer(cfg, device="meta"), cfg, ctx)
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_shard_lm_params_cuts_the_spec_blocks(coords):
+    """Each rank's blocks are its spec's slices of the whole tensors, in
+    their own dtype and contiguous (checked by hand for wq's (dp, tp)
+    block and the embedding's (tp, dp) block)."""
+    cfg = tconfigs.get_smoke_config("qwen2_5_32b")
+    full = TT.init_params(0, cfg, device=CPU)
+    mesh, _ = _layout({"data": 2, "model": 2}, coords)
+    ctx = tsharding.make_ctx(mesh)
+    part = shard_lm_params(full, cfg, ctx)
+    whole = full.state_dict()
+    for name, t in part.state_dict().items():
+        spec = tsharding.spec_for(name, whole[name].dim(), ctx)
+        assert torch.equal(t, tsharding.shard_tensor(whole[name], spec,
+                                                     ctx))
+        assert t.dtype == whole[name].dtype and t.is_contiguous()
+    i, j = coords
+    w = whole["layers.1.mixer.wq.w"]              # (d, Hq hd): (dp, tp)
+    d, o = w.shape[0] // 2, w.shape[1] // 2
+    assert torch.equal(part.layers[1].mixer.wq.w,
+                       w[i * d:(i + 1) * d, j * o:(j + 1) * o])
+    V = cfg.vocab_size // 2
+    assert torch.equal(part.embed.table, whole["embed.table"][
+        j * V:(j + 1) * V, i * cfg.d_model // 2:(i + 1) * cfg.d_model // 2])
+
+
+def test_a_mesh_of_one_rank_needs_no_process_group():
+    """Without a process group an LM mesh of one rank forms, its
+    collectives return their input, and a ctx on it serves as no ctx;
+    a larger mesh, or axes that do not end in ``model``, raise."""
+    mesh = tmesh.make_test_mesh(1, 1, device="cpu")
+    assert mesh.coords == (0, 0) and mesh.transport == "gloo"
+    t = torch.arange(6.0).reshape(2, 3)
+    for out in (mesh.all_reduce(t, "model"), mesh.all_gather(t, "data"),
+                mesh.reduce_scatter(t, ("data", "model")),
+                mesh.all_to_all(t, "model")):
+        assert out is t
+    with pytest.raises(RuntimeError, match="process group"):
+        tmesh.make_test_mesh(2, 2, device="cpu")
+    with pytest.raises(ValueError, match="model"):
+        tmesh.make_lm_mesh({"model": 1, "data": 1}, device="cpu")
+    with pytest.raises(RuntimeError, match="no process group"):
+        _layout({"data": 2, "model": 2})[0].all_reduce(t, "model")

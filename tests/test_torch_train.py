@@ -407,17 +407,17 @@ def test_training_runs_the_moe_and_ssm_families(arch):
     assert float(m["loss"]) == pytest.approx(
         float(m["xent"]) + 0.01 * float(m["aux_loss"]), rel=1e-6)
     assert (float(m["aux_loss"]) > 0) == bool(cfg.n_experts)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
         ttrain.make_train_step(cfg, object(), opt)
 
 
 def test_training_refuses_a_sharding_context():
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
         ttrain.make_train_step(cfg, object(), TA.AdamWConfig())
     model = TT.init_params(0, cfg, device=CPU)
     batch = ttrain.to_device(_batch(cfg), CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
         TT.loss_and_metrics(model, cfg, batch, ctx=object())
 
 
