@@ -251,6 +251,31 @@ Phases, one line each (any failure raises and exits non-zero):
    version with two controls, beside its bound and SDPA's time, a
    kernel record whose launches are the "gspmd" run's, summed over the
    ranks.
+16. expert-parallel MoE and ``d_inner``-parallel Mamba on the same mesh
+   (after phase 15): ``[16.ep]`` Qwen3-30B-A3B (128 experts, top-8; each
+   model rank owns 64) and ``[16.ssm]`` Falcon-Mamba-7B (each model rank
+   holds 4,096 of the 8,192 ``d_inner`` channels), each at full width,
+   2 layers, bf16, seeded, served unsharded in this process on each data
+   row's 2 prompts (an MoE layer's capacity counts its call's tokens, so
+   the sharded run drops per data row), then by phase 15's 4 ranks (one
+   spawn serves both phases' runs, ``[15.spawn]``, so the ranks start
+   and warm up once) through ``generate(ctx=)`` (4 prompts of 1,024
+   tokens) under ``"gspmd"`` (8 greedy decode steps) and, for Qwen3-MoE,
+   ``"manual"`` (4): the ranks' blocks (``[16.*.weights]``), the logits
+   and tokens (``tp_agree``, a row whose token's routes moved set aside
+   at that step, at least ``ROWS_COMPARED_SHARE`` of the pairs
+   compared), the share of routes that differ in the prefill
+   (``ROUTE_SHARE_BOUND``) and over the decode steps
+   (``DECODE_ROUTE_SHARE_BOUND``), each SSM layer's final state
+   (``SSM_TP_STATE_BOUND``), "manual" against "gspmd", the two model
+   ranks of a data row routing alike (equal digests), and a control for
+   each (the first MoE layer's experts, or layer 0's ``out_proj``, of the
+   two model ranks swapped; every decode route of the "gspmd" run moved
+   to the next expert); each rank's prefill and decode seconds,
+   collectives, card peak, ``aux_loss`` and ``dropped``; then the flash
+   kernel at the ``[16.ep]`` ranks' shape (B=2, Hq=16, Hkv=2) against its
+   plain version with two controls, a kernel record whose launches are
+   the "gspmd" run's, summed over the ranks.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -1272,29 +1297,6 @@ def lm_profile(model, cfg, prompts, dev, unprofiled_ms) -> None:
                 del state["pre"]
 
 
-class RouteLog:
-    """Over a ``with`` block, each MoE call's routes as
-    ``models/moe.py``'s own ``routes`` decides them: ``(experts (T, k),
-    kept (T, k))``."""
-
-    def __enter__(self):
-        from repro_torch.models import moe
-        self._moe, self._routes = moe, moe.routes
-        self.calls = []
-
-        def recorded(*a, **kw):
-            out = self._routes(*a, **kw)
-            self.calls.append((out[2], out[4]))
-            return out
-
-        moe.routes = recorded
-        return self
-
-    def __exit__(self, *exc):
-        self._moe.routes = self._routes
-        return False
-
-
 def family_model(tag: str, arch: str, dev, layers=None):
     """``(model, cfg)``: the config of ``arch`` (cut to ``layers``) with
     seeded weights on the card, and its ``[<tag>.init]`` line:
@@ -1326,12 +1328,13 @@ def prompts_for(cfg, B: int, P: int, dev, seed: int = 0):
 
 def lm_bounds(model, cfg, B: int, P: int, G: int, calls):
     """``(prefill bound ms, decode bound ms a step)`` of the function on
-    this run's routes (``calls``: a :class:`RouteLog` of one prefill of
-    B x P tokens and G decode steps).  Prefill: 2 flops a token for every
-    weight but the embedding table (a gather), the lm_head and the
-    routed experts; 2 x 3 d ff for each kept route; the lm_head for the B
-    last positions only (prefill returns their logits); the causal
-    attention products; at the bf16 tensor-core peak.  Decode: a step
+    this run's routes (``calls``: ``testing.MoeLog().routes`` of one
+    prefill of B x P tokens and G decode steps).  Prefill: 2 flops a
+    token for every weight but the embedding table (a gather), the
+    lm_head and the routed experts; 2 x 3 d ff for each kept route; the
+    lm_head for the B last positions only (prefill returns their
+    logits); the causal attention products; at the bf16 tensor-core
+    peak.  Decode: a step
     reads every weight but the embedding table (B rows of it) and the
     routed experts, and of those only the experts its kept routes reach
     (at most min(E, B k) a layer), the valid part of the KV caches and
@@ -1378,14 +1381,15 @@ def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int):
     run's ``launches``, ``tokens`` and ``timings``."""
     from repro_torch.launch import serve as lserve
     from repro_torch.models import transformer as T
-    from repro_torch.testing import FlashCounts
+    from repro_torch.testing import FlashCounts, MoeLog
     B, P = prompts.shape
-    runs, routes = [], RouteLog()
+    runs, routes = [], MoeLog()
     for run in ("warm-up", "measured"):
         torch.cuda.reset_peak_memory_stats()
         log = routes if run == "warm-up" else contextlib.nullcontext()
         with torch.inference_mode(), FlashCounts() as fc, log:
             toks, t = lserve.generate(model, cfg, prompts, G + 1)
+        del t["cache"]
         runs.append((toks, t, fc.launches, fc.plain_calls,
                      torch.cuda.max_memory_allocated()))
         phase(f"{tag}.run", run=run, prefill_s=f"{t['prefill_s']:.4f}",
@@ -1405,7 +1409,7 @@ def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int):
         logits, _, aux = T.forward(model, cfg, prompts, impl="pallas")
         finite = bool(torch.isfinite(logits.float()).all())
         del logits
-    pre_ms, dec_ms = lm_bounds(model, cfg, B, P, G, routes.calls)
+    pre_ms, dec_ms = lm_bounds(model, cfg, B, P, G, routes.routes)
     step_ms = t["decode_s"] / G * 1e3
     n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
     phase(tag, batch=B, prompt=P, decode_steps=G,
@@ -1861,7 +1865,7 @@ def family_profile(model, cfg, prompts) -> None:
 def route_agreement(a, b):
     """``(share of (token, choice) routes whose expert or kept slot
     differ over all MoE calls, tokens whose routes agree in every call)``
-    between two :class:`RouteLog` ``calls`` lists of one forward each."""
+    between two ``testing.MoeLog().routes`` lists of one forward each."""
     if len(a) != len(b) or not a:
         raise AssertionError(f"MoE calls {len(a)} and {len(b)}")
     differ = [(ea != eb) | (ka != kb) for (ea, ka), (eb, kb) in zip(a, b)]
@@ -1895,11 +1899,12 @@ def routes_and_logits_agree(what, got, want, tag="check") -> bool:
 
 
 def prefill_routes(model, cfg, prompts, impl: str):
-    """``(logits (B, S, V), RouteLog calls)`` of one forward."""
+    """``(logits (B, S, V), MoeLog routes)`` of one forward."""
     from repro_torch.models import transformer as T
-    with torch.inference_mode(), RouteLog() as log:
+    from repro_torch.testing import MoeLog
+    with torch.inference_mode(), MoeLog() as log:
         logits = T.forward(model, cfg, prompts, impl=impl)[0]
-    return logits, log.calls
+    return logits, log.routes
 
 
 def kernel_vs_plain_routes(what: str, model, cfg, prompts) -> None:
@@ -2154,63 +2159,90 @@ TP_SEED, TP_TIMEOUT = 15, 600
 #: a logit in [4, 8) is 2^-5).  A control (two ranks' wo blocks of layer
 #: 0 swapped) must exceed it.
 LM_TP_LOGIT_BOUND = 2.0 ** -3
+#: with MoE layers, the least share of (step, row) pairs still fed the
+#: same tokens whose logits tp_agree compares.  The rest had a token's
+#: routes move at a near tie of the router: on the card 3 of [16.ep]'s 4
+#: rows had one within 9 steps, ~14 % of pairs, so ~86 % are compared
+#: with an sd of ~6 % over 36 pairs; 50 % is ~6 sd below.  A fault that
+#: moves the routes of whole steps leaves fewer.
+ROWS_COMPARED_SHARE = 0.5
 
 
-def tp_agree(what, got, toks, want, want_toks, bound, tag="check") -> bool:
+def tp_agree(what, got, toks, want, want_toks, bound, tag="check",
+             agree=None) -> bool:
     """Two runs' logits ``(steps, B, V)`` (step 0 the prefill's) and
     greedy tokens ``(B, steps)``: every step's max abs difference ``d``
     over the rows still on the same tokens within ``bound``, and a token
     may differ only where ``want``'s top-2 margin is within ``2 d`` (a
-    near tie, as :func:`logits_agree` allows); the row leaves the
-    comparison after it.  Prints each step's ``d`` and the flipped rows'
-    margins."""
+    near tie, as :func:`logits_agree` allows); a row leaves the
+    comparison after its first differing token.  ``agree`` (steps, B),
+    for MoE models: whether the row's token of that step has the same
+    routes in every MoE layer in both runs; a row whose routes moved is
+    not compared at that step (its logits, so its token, may differ) and
+    stays while its tokens agree, and at least ROWS_COMPARED_SHARE of the
+    (step, row) pairs still fed the same tokens must be compared.  Prints
+    each step's ``d`` and the flipped rows' margins."""
     live = torch.ones(got.shape[1], dtype=torch.bool)
-    diffs, margins, ok = [], [], True
+    diffs, margins, moved, fed, ok = [], [], 0, 0, True
     for s in range(got.shape[0]):
-        d = float((got[s][live] - want[s][live]).abs().max()) if bool(
-            live.any()) else 0.0
+        same = live if agree is None else live & agree[s]
+        d = float((got[s][same] - want[s][same]).abs().max()) if bool(
+            same.any()) else 0.0
         diffs.append(round(d, 4))
         top2 = torch.topk(want[s], 2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
-        differ = (toks[:, s] != want_toks[:, s]) & live
+        differ = (toks[:, s] != want_toks[:, s]) & same
         ok &= not bool((differ & (margin > 2 * d)).any())
         margins += [round(float(m), 4) for m in margin[differ]]
-        live &= ~differ
+        moved += int((live & ~same).sum())
+        fed += int(live.sum())
+        live &= toks[:, s] == want_toks[:, s]
     within = ok and max(diffs) <= bound
+    extra = {}
+    if agree is not None:
+        within &= fed - moved >= ROWS_COMPARED_SHARE * fed
+        extra = dict(pairs_set_aside_by_routes=moved,
+                     pairs_compared=f"{fed - moved}/{fed}",
+                     min_share=ROWS_COMPARED_SHARE)
     phase(tag, what=what, max_abs_diff=json.dumps(diffs), bound=bound,
           tokens_equal=bool(torch.equal(toks, want_toks)),
           near_tie_flips=len(margins), flip_margins=json.dumps(margins),
-          within=within)
+          **extra, within=within)
     return within
 
 
-def tp_phase(dev) -> dict:
-    """[15.tp]: Qwen2.5-32B at full width and TP_LAYERS layers, bf16,
-    served unsharded in this process (``launch.serve.generate``, logits of
-    every step kept), then by TP_MESH ranks started by
-    ``launch.mesh.spawn_ranks`` (they share the card: transport
-    ``gloo-staged``), each drawing the same model from the seed and
-    keeping its blocks (``convert.shard_lm_params``): ``generate(ctx=)``
-    under ``tp_collectives="manual"`` (first, also the ranks' warm-up),
+def rank_fingerprints(model, dev) -> list:
+    """The fingerprint of the blocks each TP_MESH rank must hold of
+    ``model``: the spec's slices of its weights."""
+    from repro_torch.distributed.sharding import make_ctx, shard_param
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.testing import param_fingerprint
+    state = model.state_dict()
+    out = []
+    for rank in range(TP_MESH[0] * TP_MESH[1]):
+        ctx = make_ctx(LmMesh(("data", "model"), TP_MESH, tuple(
+            int(c) for c in np.unravel_index(rank, TP_MESH)), dev,
+            "gloo-staged"))
+        out.append(param_fingerprint({n: shard_param(n, w, ctx)
+                                      for n, w in state.items()}))
+    return out
+
+
+def tp_runs(dev):
+    """[15.unsharded]: Qwen2.5-32B at full width and TP_LAYERS layers,
+    bf16, served unsharded in this process (``launch.serve.generate``,
+    logits of every step kept).  Returns the ranks' runs of phase 15
+    (for :func:`mesh_phases`) and what :func:`tp_check` holds them to:
+    ``generate(ctx=)`` of the same model, drawn from the seed on each
+    rank and cut to its blocks (``convert.shard_lm_params``), under
+    ``tp_collectives="manual"`` (first, also the ranks' warm-up),
     ``"gspmd"`` (the config's default, the timed main path), and the
     control (layer 0's wo blocks of the two model ranks swapped, prefill
-    only).  Checks: each rank's blocks are the unsharded model's (their
-    fingerprints), the logits of the prefill and every decode step and
-    the greedy tokens against the unsharded run and "manual" against
-    "gspmd" (:func:`tp_agree`, LM_TP_LOGIT_BOUND), the control rejected,
-    TP_LAYERS flash launches a prefill on every rank and 0 plain calls.
-    Prints each rank's prefill and decode seconds, its collectives'
-    calls, bytes and host seconds (staging, wire), its card peak; then
-    the flash kernel at the ranks' shape (B/dp, Hq/tp, Hkv/tp) against
-    its plain version.  Returns that shape's kernel record."""
+    only)."""
     from repro_torch import configs
-    from repro_torch.distributed.sharding import (make_ctx, shard_tensor,
-                                                  spec_for)
     from repro_torch.launch import serve as lserve
-    from repro_torch.launch.mesh import LmMesh, spawn_ranks
     from repro_torch.models import transformer as T
-    from repro_torch.testing import (FlashCounts, param_fingerprint,
-                                     run_lm_on_mesh)
+    from repro_torch.testing import FlashCounts
 
     t_phase = time.perf_counter()
     full = configs.get_config("qwen2_5_32b")
@@ -2230,16 +2262,8 @@ def tp_phase(dev) -> dict:
           decode_ms_per_step=f"{t['decode_s'] / TP_G * 1e3:.3f}",
           flash_launches=fc.launches, plain_calls=fc.plain_calls,
           tokens=json.dumps(want_toks[:, :6].tolist()))
-    # the blocks each rank must hold: the spec's slices of these weights
-    state = model.state_dict()
-    want_fp = []
-    for rank in range(world):
-        ctx = make_ctx(LmMesh(("data", "model"), TP_MESH, tuple(
-            int(c) for c in np.unravel_index(rank, TP_MESH)), dev,
-            "gloo-staged"))
-        want_fp.append(param_fingerprint({n: shard_tensor(
-            w, spec_for(n, w.dim(), ctx), ctx) for n, w in state.items()}))
-    del model, state
+    want_fp = rank_fingerprints(model, dev)
+    del model
     free_cuda()
 
     common = dict(kind="serve", mesh=TP_MESH, cfg=cfg, seed=TP_SEED,
@@ -2247,11 +2271,28 @@ def tp_phase(dev) -> dict:
     runs = [dict(common, name="manual", mode="manual", gen=TP_G + 1),
             dict(common, name="gspmd", mode="gspmd", gen=TP_G + 1),
             dict(common, name="control", mode="manual", gen=1,
-                 swap_wo=True)]
-    t_spawn = time.time()
-    t0 = time.perf_counter()
-    outs = spawn_ranks(run_lm_on_mesh, world, runs, None, timeout=TP_TIMEOUT)
-    spawn_s = time.perf_counter() - t0
+                 swap="wo")]
+    return runs, dict(cfg=cfg, want=want, want_toks=want_toks,
+                      want_fp=want_fp,
+                      seconds=time.perf_counter() - t_phase)
+
+
+def tp_check(dev, st: dict, outs: list) -> dict:
+    """[15.tp]: phase 15's runs on the ranks (``outs``) against
+    :func:`tp_runs`'s ``st``.  Checks: each rank's blocks are the
+    unsharded model's (their fingerprints), the logits of the prefill
+    and every decode step and the greedy tokens against the unsharded
+    run and "manual" against "gspmd" (:func:`tp_agree`,
+    LM_TP_LOGIT_BOUND), the control rejected, TP_LAYERS flash launches a
+    prefill on every rank and 0 plain calls.  Prints each rank's prefill
+    and decode seconds, its collectives' calls, bytes and host seconds
+    (staging, wire), its card peak; then the flash kernel at the ranks'
+    shape (B/dp, Hq/tp, Hkv/tp) against its plain version.  Returns
+    that shape's kernel record."""
+    t_phase = time.perf_counter() - st["seconds"]
+    cfg, want, want_toks = st["cfg"], st["want"], st["want_toks"]
+    want_fp = st["want_fp"]
+    B, P, world = LM_B, LM_P, TP_MESH[0] * TP_MESH[1]
     fps = [o["gspmd.fingerprint"] for o in outs]
     phase("15.weights", ranks=world, equal=fps == want_fp,
           fingerprints=json.dumps(fps))
@@ -2324,10 +2365,371 @@ def tp_phase(dev) -> dict:
     rec["launches_on"] = (f"[15.tp] gspmd prefill, summed over its {world} "
                           "ranks")
     phase("15.done", seconds=f"{time.perf_counter() - t_phase:.1f}",
-          spawn_s=f"{spawn_s:.1f}", spawn_to_ready_s=(
-              f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
           finite=finite)
     return rec
+
+
+# --------------------------------------------------------------------- #
+# 16. expert-parallel MoE and d_inner-parallel Mamba on the mesh         #
+# --------------------------------------------------------------------- #
+
+#: [16.ep], [16.ssm]: Qwen3-30B-A3B and Falcon-Mamba-7B at full width,
+#: EP_LAYERS of their layers each, bf16, served by TP_MESH ranks that share
+#: the card, LM_B prompts of LM_P tokens; the unsharded run takes EP_G
+#: greedy decode steps.  Each model's sharded runs: its tp_collectives,
+#: each with its decode steps (the first run is also the warm-up); its
+#: control (prefill only, "manual").  Cut to keep the smoke well inside
+#: its time limit: "manual" serves Qwen3-MoE 4 steps and Falcon only in
+#: its control, where "manual" against "gspmd" read 9 routes and exactly
+#: 0 on the card over 8 steps (the CPU tests hold both modes).
+EP_LAYERS, EP_G, EP_SEED = 2, 8, 16
+EP_MODELS = (("16.ep", "qwen3_moe_30b_a3b", "experts",
+              (("manual", 4), ("gspmd", EP_G))),
+             ("16.ssm", "falcon_mamba_7b", "out_proj", (("gspmd", EP_G),)))
+#: the share of decode (token, choice) routes that may differ, all decode
+#: steps together (a few hundred entries): ROUTE_SHARE_BOUND holds the
+#: prefill's ~66,000.  Derived before the run that tested it: at the
+#: prefill's ~1.65 % rate, 512 entries moving two at a time (a swap of
+#: two ranks of a token's top-k) have a share of sd ~0.6 %; 2^-3 is
+#: ~18 sd above, and a fault in the decode path of one of the 2 layers
+#: moves ~50 %.
+DECODE_ROUTE_SHARE_BOUND = 2.0 ** -3
+#: each SSM layer's final state of the sharded run against the unsharded
+#: one on the same bf16 weights, ||h_got - h_want|| / ||h_want|| over the
+#: rows whose tokens agree.  Derived as LM_TP_LOGIT_BOUND is: the sharded
+#: mixer rounds each rank's x_proj and out_proj partial to bf16 before the
+#: sum over the model axis, and its in_proj and x_proj are other GEMM
+#: shapes, so a share of the scan's bf16 inputs (x, dt, B, C) move by one
+#: bf16 step (2^-8 relative); the state sums ~1,000 such terms of random
+#: sign, which brings the relative error near 2^-8 / sqrt(#terms) a layer
+#: and at most doubles it in the second layer: ~1e-3.  [14.ssm.check]
+#: read 3.3e-4 at layer 0 for a smaller change (the scan's tree alone).
+#: The bound is 2^-5, ~30x that; the control (layer 0's out_proj blocks
+#: of the two model ranks swapped) moves layer 1's state by O(1).
+SSM_TP_STATE_BOUND = 2.0 ** -5
+
+
+def route_compare(got, want, n_moe: int, P: int, same_prefix):
+    """Two runs' MoE routes on one dp shard's rows: each a list of
+    ``(experts (T, k), kept (T, k))`` a call, the prefill's layer by layer
+    (T = rows * P), then each decode step's (T = rows).  Returns
+    ``(counts (2, 2), agree (steps, rows))``: the entries differing and
+    compared, of the prefill (row 0) and of all decode steps (row 1); an
+    entry differs where its expert or kept slot does; a row agrees at a
+    step where the routes of its token of that step (the prefill's last)
+    agree in every MoE layer.  Decode steps count only the rows of
+    ``same_prefix`` (steps, rows): those fed the same tokens so far."""
+    steps = len(got) // n_moe
+    rows = got[0][0].shape[0] // P
+    counts = np.zeros((2, 2), dtype=np.int64)
+    agree = np.ones((steps, rows), dtype=bool)
+    for s in range(steps):
+        for layer in range(n_moe):
+            (ge, gk) = got[s * n_moe + layer]
+            (we, wk) = want[s * n_moe + layer]
+            d = (ge != we) | (gk != wk)                          # (T, k)
+            if s == 0:
+                agree[0] &= ~d.reshape(rows, P, -1)[:, -1].any(-1)
+            else:
+                agree[s] &= ~d.any(-1)
+                d = d[same_prefix[s]]
+            counts[min(s, 1)] += (int(d.sum()), d.size)
+    return counts, agree
+
+
+def ep_head(recs: list, steps: int, n_moe: int) -> list:
+    """:func:`ep_compare`'s records cut to their first ``steps`` tokens
+    (the prefill's and ``steps - 1`` decode steps'), without the SSM
+    states (the last step's)."""
+    return [dict(r, tokens=r["tokens"][:, :steps], logits=r["logits"][:steps],
+                 routes=r["routes"][:steps * n_moe], ssm=[]) for r in recs]
+
+
+def ep_compare(what, cfg, got: list, want: list, P: int, tag="check"
+               ) -> bool:
+    """Two runs of one model, each a :func:`repro_torch.testing.
+    serve_record` for each dp shard (in row order): the greedy tokens
+    and every step's logits by :func:`tp_agree` at LM_TP_LOGIT_BOUND
+    (rows whose routes moved set aside at that step), the share of
+    (token, choice) routes that differ within ROUTE_SHARE_BOUND in the
+    prefill and DECODE_ROUTE_SHARE_BOUND over the decode steps (where
+    there are any), each SSM layer's final
+    state over the rows whose tokens all agree within
+    SSM_TP_STATE_BOUND (where ``want`` holds states).  Prints each
+    reading; True if all hold."""
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    toks, wtoks = (torch.from_numpy(np.concatenate(
+        [r["tokens"] for r in recs])).long() for recs in (got, want))
+    logits, wlogits = (torch.from_numpy(np.concatenate(
+        [r["logits"] for r in recs], axis=1)).float()
+        for recs in (got, want))
+    ok, agree = True, None
+    if n_moe:
+        counts = np.zeros((2, 2), dtype=np.int64)
+        parts = []
+        for g, w in zip(got, want):
+            steps = g["tokens"].shape[1]
+            same = np.stack([(g["tokens"][:, :s] == w["tokens"][:, :s])
+                             .all(1) for s in range(steps)])
+            c, a = route_compare(g["routes"], w["routes"], n_moe, P, same)
+            counts += c
+            parts.append(a)
+        agree = torch.from_numpy(np.concatenate(parts, axis=1))
+        for part, (differ, total), bound in (
+                ("prefill", counts[0], ROUTE_SHARE_BOUND),
+                ("decode steps", counts[1], DECODE_ROUTE_SHARE_BOUND)):
+            if not total:
+                continue
+            share = differ / total
+            phase(tag, what=f"{what}: routes of the {part}",
+                  route_share_differing=f"{share:.5f}", differing=int(differ),
+                  compared=int(total), bound=bound, within=share <= bound)
+            ok &= share <= bound
+    ok &= tp_agree(f"{what}: logits and tokens", logits, toks, wlogits,
+                   wtoks, LM_TP_LOGIT_BOUND, tag=tag, agree=agree)
+    if want[0]["ssm"]:
+        rows = (toks == wtoks).all(1).numpy()
+        rel = []
+        for layer in range(len(want[0]["ssm"])):
+            a = np.concatenate([r["ssm"][layer][1] for r in got])[rows]
+            b = np.concatenate([r["ssm"][layer][1] for r in want])[rows]
+            rel.append(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                       if rows.any() else float("inf"))
+        within = max(rel) <= SSM_TP_STATE_BOUND
+        phase(tag, what=f"{what}: SSM states after the last step",
+              max_rel_state_diff=f"{max(rel):.3e}", bound=SSM_TP_STATE_BOUND,
+              per_layer=json.dumps([float(f"{x:.3e}") for x in rel]),
+              rows=int(rows.sum()), within=within)
+        ok &= within
+    return bool(ok)
+
+
+def ep_runs(dev):
+    """[16.*.unsharded]: Qwen3-30B-A3B and Falcon-Mamba-7B at full width,
+    EP_LAYERS layers each, bf16, seeded, each served unsharded in this
+    process on each dp row's LM_B / dp prompts
+    (:func:`repro_torch.testing.serve_record`: an MoE layer's capacity
+    counts the tokens of its call, so the sharded run drops per dp
+    shard).  Returns the ranks' runs of phase 16 (for
+    :func:`mesh_phases`) and what :func:`ep_check` holds them to: each
+    model drawn from the seed on each rank and cut to its blocks,
+    ``generate(ctx=)`` under each of its EP_MODELS modes, and a control
+    (Qwen3-MoE: the first MoE layer's experts of the two model ranks
+    swapped; Falcon: layer 0's ``out_proj`` blocks swapped; prefill
+    only)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import serve_record
+
+    t_phase = time.perf_counter()
+    B, P = LM_B, LM_P
+    rows = [slice(i * B // TP_MESH[0], (i + 1) * B // TP_MESH[0])
+            for i in range(TP_MESH[0])]
+    runs, oracle = [], {}
+    for tag, arch, control, modes in EP_MODELS:
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=EP_LAYERS)
+        model, secs, held = build_on_card(lambda: T.init_params(
+            torch.Generator(device=dev).manual_seed(EP_SEED), cfg,
+            device=dev))
+        prompts = prompts_for(cfg, B, P, dev)
+        want = [serve_record(model, cfg, prompts[r], EP_G + 1) for r in rows]
+        oracle[tag] = (cfg, want, rank_fingerprints(model, dev))
+        phase(f"{tag}.unsharded", model=cfg.name,
+              layers=f"{cfg.n_layers} of {full.n_layers}",
+              params=sum(p.numel() for p in model.parameters()),
+              state_bytes=held, init_s=f"{secs:.2f}", shards=len(rows),
+              prefill_ms=json.dumps([round(w["prefill_s"] * 1e3, 2)
+                                     for w in want]),
+              decode_ms_per_step=json.dumps([round(w["decode_s"] / EP_G
+                                                   * 1e3, 3) for w in want]),
+              flash_launches=json.dumps([w["flash_launches"] for w in want]),
+              plain_calls=json.dumps([w["plain_calls"] for w in want]),
+              aux_loss=json.dumps([round(w["aux_loss"], 4) for w in want]),
+              dropped=json.dumps([round(w["dropped"], 4) for w in want]))
+        del model
+        free_cuda()
+        common = dict(kind="serve", mesh=TP_MESH, cfg=cfg, seed=EP_SEED,
+                      weights=tag, prompts=prompts.cpu().numpy())
+        runs += [dict(common, name=f"{tag}.{mode}", mode=mode, gen=steps + 1)
+                 for mode, steps in modes]
+        runs.append(dict(common, name=f"{tag}.control", mode="manual", gen=1,
+                         swap=control))
+    return runs, dict(oracle=oracle, rows=rows,
+                      seconds=time.perf_counter() - t_phase)
+
+
+def ep_check(dev, st: dict, outs: list) -> dict:
+    """Phase 16's runs on the ranks (``outs``) against :func:`ep_runs`'s
+    ``st``.  Checks: the ranks' blocks (fingerprints), every step's
+    logits and the greedy tokens, the routes and the SSM states against
+    the unsharded run (:func:`ep_compare`; a shorter run against the
+    unsharded run's first steps), "manual" against "gspmd" over the
+    steps both took, the route digests of the two model ranks of a data
+    row equal, the controls rejected, EP_LAYERS flash launches a prefill
+    on every Qwen3-MoE rank and 0 plain calls.  Prints each rank's
+    prefill and decode seconds, its collectives' calls, bytes and host
+    seconds, its card peak, its prefill's ``aux_loss`` and ``dropped``;
+    then the flash kernel at the ranks' shape against its plain version.
+    Returns that shape's kernel record."""
+    t_phase = time.perf_counter() - st["seconds"]
+    B, P, world = LM_B, LM_P, TP_MESH[0] * TP_MESH[1]
+    oracle, rows = st["oracle"], st["rows"]
+
+    def shards(name):
+        # the ranks (i, j) hold rows i of the batch: its logits and routes
+        # alike, the SSM states their d_inner blocks j
+        tk = [o[f"{name}.tokens"] for o in outs]
+        if any(not np.array_equal(x, tk[0]) for x in tk):
+            raise AssertionError(f"[{name}] the ranks' tokens differ")
+        recs = []
+        for i in range(TP_MESH[0]):
+            group = outs[i * TP_MESH[1]:(i + 1) * TP_MESH[1]]
+            r = {k: group[0][f"{name}.{k}"] for k in ("logits", "routes")}
+            r["ssm"] = [tuple(np.concatenate([o[f"{name}.ssm"][layer][n]
+                                              for o in group], axis=axis)
+                              for n, axis in ((0, 2), (1, 1)))
+                        for layer in range(len(group[0][f"{name}.ssm"]))]
+            r["tokens"] = tk[0][rows[i]]
+            recs.append(r)
+        return recs
+
+    launches = 0
+    for tag, arch, control, modes in EP_MODELS:
+        cfg, want, want_fp = oracle[tag]
+        n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+        n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+        fps = [o[f"{tag}.gspmd.fingerprint"] for o in outs]
+        phase(f"{tag}.weights", ranks=world, equal=fps == want_fp,
+              fingerprints=json.dumps(fps))
+        if fps != want_fp:
+            raise AssertionError(f"[{tag}] the ranks' blocks {fps} are not "
+                                 f"the unsharded weights' {want_fp}")
+        got = {}
+        for mode, steps in modes:
+            name = f"{tag}.{mode}"
+            fl = [o[f"{name}.flash_launches"] for o in outs]
+            plain = [o[f"{name}.plain_calls"] for o in outs]
+            digests = [o[f"{name}.route_digests"] for o in outs]
+            same_routes = all(digests[i * TP_MESH[1] + j] == digests[
+                i * TP_MESH[1]] for i in range(TP_MESH[0])
+                for j in range(TP_MESH[1]))
+            phase(tag, run=mode, transport=repr(outs[0]["transport"]),
+                  mesh="x".join(map(str, TP_MESH)), batch=B, prompt=P,
+                  decode_steps=steps,
+                  prefill_ms=json.dumps([round(o[f"{name}.prefill_s"] * 1e3,
+                                               2) for o in outs]),
+                  decode_ms_per_step=json.dumps(
+                      [round(o[f"{name}.decode_s"] / steps * 1e3, 2)
+                       for o in outs]),
+                  collective_calls=json.dumps([o[f"{name}.calls"]
+                                               for o in outs]),
+                  bytes_in=json.dumps([o[f"{name}.bytes_in"] for o in outs]),
+                  bytes_out=json.dumps([o[f"{name}.bytes_out"]
+                                        for o in outs]),
+                  stage_s=json.dumps([round(o[f"{name}.stage_s"], 3)
+                                      for o in outs]),
+                  wire_s=json.dumps([round(o[f"{name}.wire_s"], 3)
+                                     for o in outs]),
+                  card_peak_bytes=json.dumps([o.get(
+                      f"{name}.card_peak_bytes") for o in outs]),
+                  aux_loss=json.dumps([round(o[f"{name}.aux_loss"], 4)
+                                       for o in outs]),
+                  dropped=json.dumps([round(o[f"{name}.dropped"], 4)
+                                      for o in outs]),
+                  route_digests=json.dumps([d[0] if d else None
+                                            for d in digests]),
+                  model_ranks_route_alike=same_routes,
+                  flash_launches=json.dumps(fl), want=n_attn,
+                  plain_calls=json.dumps(plain))
+            if fl != [n_attn] * world or any(plain):
+                raise AssertionError(f"[{tag}] {mode}: flash launches {fl} "
+                                     f"(want {n_attn} a rank), plain calls "
+                                     f"{plain}")
+            if not same_routes:
+                raise AssertionError(f"[{tag}] {mode}: the model ranks of a "
+                                     f"data row routed differently: {digests}")
+            got[mode] = shards(name)
+            if not ep_compare(f"[{tag}] {mode} vs unsharded, prefill and "
+                              f"{steps} decode steps", cfg, got[mode],
+                              want if steps == EP_G else
+                              ep_head(want, steps + 1, n_moe), P):
+                raise AssertionError(f"[{tag}] {mode}: beyond the bounds "
+                                     "against the unsharded run")
+            if not all(np.isfinite(r["logits"]).all() for r in got[mode]):
+                raise AssertionError(f"[{tag}] {mode}: non-finite logits")
+        if len(got) == 2:
+            steps = min(s for _, s in modes)
+            if not ep_compare(f"[{tag}] manual vs gspmd, prefill and {steps}"
+                              " decode steps", cfg, got["manual"],
+                              ep_head(got["gspmd"], steps + 1, n_moe), P):
+                raise AssertionError(f"[{tag}] manual and gspmd disagree")
+        if n_moe:
+            # the checks' own control: the "gspmd" run's routes with every
+            # decode route moved to the next expert, as a fault of the MoE
+            # decode path alone would move them
+            moved = [dict(r, routes=r["routes"][:n_moe] + [
+                ((e + 1) % cfg.n_experts, k) for e, k in r["routes"][n_moe:]])
+                for r in got["gspmd"]]
+            if ep_compare(f"[{tag}] gspmd with every decode route moved to "
+                          "the next expert, vs unsharded", cfg, moved, want,
+                          P, tag="control"):
+                raise AssertionError(f"[{tag}] the check cannot tell decode "
+                                     "routes that all moved")
+            phase("control", what=f"[{tag}] every decode route moved",
+                  rejected=True)
+        bad = [dict(r, ssm=[]) for r in shards(f"{tag}.control")]
+        if ep_compare(f"[{tag}] the {control} blocks of the two model ranks "
+                      "swapped, prefill vs unsharded", cfg, bad,
+                      ep_head(want, 1, n_moe), P, tag="control"):
+            raise AssertionError(f"[{tag}] the check cannot tell swapped "
+                                 f"{control} blocks")
+        phase("control", what=f"[{tag}] swapped {control} blocks",
+              rejected=True)
+        launches += sum(o[f"{tag}.gspmd.flash_launches"] for o in outs)
+
+    # the flash kernel at the shape every [16.ep] rank's prefill runs it at
+    cfg = oracle["16.ep"][0]
+    g = torch.Generator(device=dev).manual_seed(16)
+    rec = flash_case(dev, g, torch.bfloat16, B // TP_MESH[0],
+                     cfg.n_heads // TP_MESH[1], cfg.n_kv_heads // TP_MESH[1],
+                     P, cfg.head_dim, tag="16.flash")
+    rec["launches"] = launches
+    rec["launches_on"] = (f"[16.ep] gspmd prefill, summed over its {world} "
+                          "ranks")
+    phase("16.done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return rec
+
+
+def mesh_phases(dev) -> list:
+    """Phases 15 and 16: their unsharded runs in this process
+    (:func:`tp_runs`, :func:`ep_runs`), then all their sharded runs in
+    one ``launch.mesh.spawn_ranks`` of TP_MESH ranks that share the card
+    over staged gloo (the ranks start, and warm up on phase 15's first
+    run, once), then each phase's checks (:func:`tp_check`,
+    :func:`ep_check`).  Prints the spawn's seconds and its ranks' time to
+    their mesh.  Returns the phases' flash kernel records."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.testing import run_lm_on_mesh
+    t0 = time.perf_counter()
+    runs15, st15 = tp_runs(dev)
+    runs16, st16 = ep_runs(dev)
+    t_spawn, t1 = time.time(), time.perf_counter()
+    outs = spawn_ranks(run_lm_on_mesh, TP_MESH[0] * TP_MESH[1],
+                       runs15 + runs16, None, timeout=TP_TIMEOUT)
+    spawn_s = time.perf_counter() - t1
+
+    def run_s(runs):
+        return sum(outs[0][f"{r['name']}.run_s"] for r in runs)
+
+    phase("15.spawn", ranks=len(outs), runs=len(runs15) + len(runs16),
+          seconds=f"{spawn_s:.1f}", spawn_to_ready_s=(
+              f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
+          phase15_runs_s=f"{run_s(runs15):.1f}",
+          phase16_runs_s=f"{run_s(runs16):.1f}")
+    recs = [tp_check(dev, st15, outs), ep_check(dev, st16, outs)]
+    phase("15+16.done", seconds=f"{time.perf_counter() - t0:.1f}")
+    return recs
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -4097,7 +4499,7 @@ def main_path(args, api, ks, ref, dev):
     torch.cuda.empty_cache()
     kernels.extend(lm_families_phase(dev))
     free_cuda()
-    kernels.append(tp_phase(dev))
+    kernels.extend(mesh_phases(dev))
     stream, digests = stream_phase(api, ks, ref, problem, config,
                                    routes["grid"]["result"], dev)
     for rec in kernels:

@@ -174,15 +174,16 @@ def lm_params_from_reference(params_np, cfg, *, dtype=None, device=None):
 def shard_lm_params(full, cfg, ctx, *, device=None):
     """This rank's blocks of an LM's parameters under ``ctx`` (a
     ``distributed.sharding.ShardingCtx``): each tensor cut by its spec
-    (``sharding.spec_for``, the reference's rules), so a sharded run
-    computes with exactly the weights of the unsharded one.  ``full`` is
+    (``sharding.shard_param``: the reference's rules, with Mamba's
+    ``in_proj`` cut half by half), so a sharded run computes with exactly
+    the weights of the unsharded one.  ``full`` is
     the port's ``Transformer`` or the reference's numpy tree (as
     :func:`lm_params_from_reference` takes it, built on the CPU first).
     Returns a ``Transformer`` whose parameters are the blocks, copies on
     ``device`` (``None``: ``full``'s device, or ``"cuda"`` for a tree) in
     their own dtypes.  Raises ``ValueError`` when the mesh
     does not divide the config (``sharding.check_divisible``)."""
-    from .distributed.sharding import check_divisible, shard_tensor, spec_for
+    from .distributed.sharding import check_divisible, shard_param
     from .models.transformer import Transformer
     check_divisible(cfg, ctx)
     if isinstance(full, dict):
@@ -194,7 +195,7 @@ def shard_lm_params(full, cfg, ctx, *, device=None):
     model = Transformer(cfg, dtype=full.dtype, device="meta")
     with torch.no_grad():
         for name, t in full.state_dict().items():
-            block = shard_tensor(t, spec_for(name, t.dim(), ctx), ctx)
+            block = shard_param(name, t, ctx)
             path, _, leaf = name.rpartition(".")
             setattr(model.get_submodule(path), leaf, torch.nn.Parameter(
                 block.to(dev, copy=True).contiguous(), requires_grad=False))

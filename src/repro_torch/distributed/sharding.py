@@ -7,8 +7,9 @@ The layout is the JAX package's (``src/repro/distributed/sharding.py``):
   dimension that tensor parallelism leaves whole; a layer gathers its
   weights over dp just before it uses them and drops them after (ZeRO-3).
 * tp axis — ``"model"``: Megatron column and row parallelism for the
-  attention projections and the MLP, the vocabulary-parallel embedding
-  and LM head.
+  attention projections, the MLP and the Mamba mixer's ``d_inner``, the
+  experts of an MoE layer (each model rank owns ``E/tp`` of them), the
+  vocabulary-parallel embedding and LM head.
 
 A spec is a tuple with one entry per dimension of a parameter: ``None``
 (whole), an axis name, or a tuple of names (one dimension over several
@@ -33,14 +34,11 @@ from ..launch.mesh import LmMesh
 
 Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 
-#: what a sharding context still waits for: MoE and SSM layers, and
-#: training
-EP_ITEM = ("ROADMAP Queue 1 item 24 (expert-parallel MoE and the SSM's "
-           "d_inner parallelism)")
+#: what a sharding context still waits for: training
 TRAIN_ITEM = "ROADMAP Queue 1 item 25 (training with a sharding context)"
 
 
-def no_ctx(ctx, what: str, item: str = EP_ITEM) -> None:
+def no_ctx(ctx, what: str, item: str = TRAIN_ITEM) -> None:
     """Raise ``NotImplementedError`` naming ``item`` when ``ctx`` is
     given to ``what``, which does not take one yet."""
     if ctx is not None:
@@ -131,6 +129,28 @@ def param_specs(model: torch.nn.Module, ctx: ShardingCtx
             for name, t in model.state_dict().items()}
 
 
+#: parameters whose last dimension is two tensors side by side, each cut
+#: over its spec on its own: Mamba's ``in_proj`` ``(d, 2 d_inner)`` holds
+#: ``x`` and ``z`` (the reference's GSPMD reshards the one contiguous
+#: block it cuts; the port cuts each half, so a rank holds ``[x block |
+#: z block]`` of the same channels)
+_HALVED = r"in_proj/w$"
+
+
+def shard_param(name: str, t: torch.Tensor, ctx: ShardingCtx,
+                coords: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """The block of parameter ``name`` (a ``state_dict`` name) that the
+    rank at ``coords`` (default: this rank's) holds: :func:`shard_tensor`
+    under :func:`spec_for`, except that a :data:`_HALVED` tensor has each
+    half of its last dimension cut on its own and the two blocks
+    concatenated (a copy)."""
+    spec = spec_for(name, t.dim(), ctx)
+    if not re.search(_HALVED, name.replace(".", "/")):
+        return shard_tensor(t, spec, ctx, coords)
+    return torch.cat([shard_tensor(h, spec, ctx, coords)
+                      for h in t.chunk(2, dim=-1)], dim=-1)
+
+
 def shard_tensor(t: torch.Tensor, spec: Spec, ctx: ShardingCtx,
                  coords: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """The block of ``t`` (a view) that the rank at ``coords`` (default:
@@ -153,20 +173,28 @@ def shard_tensor(t: torch.Tensor, spec: Spec, ctx: ShardingCtx,
     return t
 
 
-#: the dimensions that a sharded dense model splits evenly, and the axis
-#: each is split over
-_EVEN = (("n_heads", "tp"), ("n_kv_heads", "tp"), ("d_ff", "tp"),
-         ("vocab_size", "tp"), ("d_model", "dp"))
+def _even_dims(cfg):
+    """``(name, size, axis)`` of each dimension a sharded model splits
+    evenly; the MoE's and the SSM's are 0 where the config has no such
+    layers (``shared_width``: the shared experts' SwiGLU)."""
+    has_ssm = any(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+    return [("n_heads", cfg.n_heads, "tp"),
+            ("n_kv_heads", cfg.n_kv_heads, "tp"), ("d_ff", cfg.d_ff, "tp"),
+            ("vocab_size", cfg.vocab_size, "tp"),
+            ("d_model", cfg.d_model, "dp"),
+            ("n_experts", cfg.n_experts, "tp"),
+            ("shared_width", cfg.n_shared_experts * cfg.d_expert, "tp"),
+            ("d_inner", cfg.d_inner if has_ssm else 0, "tp")]
 
 
 def check_divisible(cfg, ctx: ShardingCtx) -> None:
     """Raise ``ValueError`` naming the first of the config's ``n_heads``,
-    ``n_kv_heads``, ``d_ff``, ``vocab_size`` (over tp) and ``d_model``
-    (over dp, the FSDP axis) that the axis does not divide.  GSPMD pads an
-    uneven shard; the port does not."""
-    for field, axis in _EVEN:
+    ``n_kv_heads``, ``d_ff``, ``vocab_size``, ``n_experts``, the shared
+    experts' width and (with SSM layers) ``d_inner`` (over tp), and
+    ``d_model`` (over dp, the FSDP axis) that the axis does not divide.
+    GSPMD pads an uneven shard; the port does not."""
+    for field, val, axis in _even_dims(cfg):
         n = ctx.tp_size if axis == "tp" else ctx.dp_size
-        val = getattr(cfg, field)
         if val % n:
             raise ValueError(f"{field}={val} is not divisible by the "
                              f"{axis} size {n} (the port does not pad "

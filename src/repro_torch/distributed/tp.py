@@ -120,6 +120,27 @@ def row_parallel_dense_2dtp(x, w, ctx: ShardingCtx, bias=None, *,
     return _add_bias(_trade_d_for_batch(part, ctx, sharded), bias)
 
 
+def swiglu_sharded(p, h, ctx: ShardingCtx, *, collectives: str,
+                   batch=None):
+    """A SwiGLU (``p.gate``, ``p.up``, ``p.down``: ``layers.SwiGLU``'s
+    blocks) with column-parallel gate and up and a row-parallel down,
+    whose partials ``collectives`` sums.  In decode (``batch``, the whole
+    batch's size, given) under ``"manual"``, the 2-D forms: no weight
+    moves (the reference's ``_swiglu``, ``transformer.py:147-165``)."""
+    silu = torch.nn.functional.silu
+    if batch is not None and collectives == "manual":
+        sharded = batch_sharded(batch, ctx)
+        g, u = (col_parallel_dense_2dtp(h, lin.w, ctx, lin.b,
+                                        sharded=sharded)
+                for lin in (p.gate, p.up))
+        return row_parallel_dense_2dtp(silu(g) * u, p.down.w, ctx,
+                                       p.down.b, sharded=sharded)
+    g, u = (col_parallel_dense(h, lin.w, ctx, lin.b)
+            for lin in (p.gate, p.up))
+    return row_parallel_dense(silu(g) * u, p.down.w, ctx, p.down.b,
+                              collectives=collectives)
+
+
 def _trade_d_for_batch(part, ctx: ShardingCtx, sharded: bool):
     """(B, S, d/dp) for the whole batch -> this rank's (B/dp, S, d): an
     all-to-all over dp when the batch is sharded, else a gather of d."""

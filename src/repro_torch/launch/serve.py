@@ -10,6 +10,11 @@ Runs on the card (``--device`` defaults to ``cuda``).  ``--mesh DxM``
 serves on a (data, model) mesh of ``D x M`` ranks, one process each
 (``launch.mesh.spawn_ranks``): every rank draws the whole model from the
 seed and keeps its blocks (``convert.shard_lm_params``); rank 0 prints.
+Every family serves so, the MoE expert-parallel and the SSM
+``d_inner``-parallel::
+
+    python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b --layers 2 \\
+        --mesh 2x2 --temperature 0
 
 Unlike the JAX package's CLI, whose ``make_prefill`` defaults to
 ``impl="xla"``, the port's prefill defaults to ``impl="pallas"``: on the
@@ -61,8 +66,9 @@ def _merge_prefill_cache(full_cache, pre_cache, cfg, P, *, ctx=None,
     With ``ctx`` (a batch of ``batch``): the prefill's KV holds the rank's
     ``Hkv/tp`` heads of every position, the caches the rank's slice of the
     positions with every head (``launch.specs``); one all-to-all over the
-    model axis carries every layer's k and v slice to the rank that holds
-    it."""
+    model axis carries every attention layer's k and v slice to the rank
+    that holds it.  An SSM layer's state is already the rank's block (its
+    ``d_inner/tp`` channels) and goes into its slot as it is."""
     if ctx is not None:
         return _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch)
     for i, (dst, src) in enumerate(zip(full_cache, pre_cache)):
@@ -75,23 +81,30 @@ def _merge_prefill_cache(full_cache, pre_cache, cfg, P, *, ctx=None,
 
 
 def _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch):
-    S_loc, m = full_cache[0].k.shape[1], ctx.tp_size
+    attn = [i for i, c in enumerate(full_cache) if isinstance(c, KVCache)]
+    for i, c in enumerate(pre_cache):
+        if i not in attn:
+            full_cache[i] = c
+    if not attn:
+        return full_cache
+    S_loc, m = full_cache[attn[0]].k.shape[1], ctx.tp_size
     # the positions of this model group's m slices start at base: with the
     # batch replicated the slices run over every rank, dp's first
     base = 0 if tp.batch_sharded(batch, ctx) else ctx.dp_index * m * S_loc
-    kv = torch.stack([t for c in pre_cache for t in (c.k, c.v)])
+    kv = torch.stack([t for i in attn for t in (pre_cache[i].k,
+                                                pre_cache[i].v)])
     L2, Bl, _, h, D = kv.shape                  # (2 L, B, P, Hkv/tp, D)
     send = kv.new_zeros((L2, Bl, m * S_loc, h, D),
-                        dtype=full_cache[0].k.dtype)
+                        dtype=full_cache[attn[0]].k.dtype)
     hi = min(P, base + m * S_loc)
     if hi > base:
         send[:, :, :hi - base] = kv[:, :, base:hi]
     send = send.reshape(L2, Bl, m, S_loc, h, D).movedim(2, 0).contiguous()
     got = ctx.mesh.all_to_all(send, ctx.tp)     # (m, 2 L, B, S_loc, h, D)
     got = got.permute(1, 2, 3, 0, 4, 5).reshape(L2, Bl, S_loc, m * h, D)
-    for i, c in enumerate(full_cache):
-        c.k.copy_(got[2 * i])
-        c.v.copy_(got[2 * i + 1])
+    for j, i in enumerate(attn):
+        full_cache[i].k.copy_(got[2 * j])
+        full_cache[i].v.copy_(got[2 * j + 1])
     return full_cache
 
 
@@ -125,8 +138,8 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
     ``gen - 1`` decode steps, each sampling at ``temperature`` (0 =
     greedy) from ``generator``.  Returns ``(tokens (B, gen), timings)``
     with ``prefill_s`` (prefill and merge) and ``decode_s``, each ended
-    by a device synchronisation; with ``keep_logits`` also ``logits``,
-    each step's (B, V).
+    by a device synchronisation, and ``cache``, the caches after the last
+    step; with ``keep_logits`` also ``logits``, each step's (B, V).
 
     With ``ctx``: every rank passes the whole batch and its blocks of the
     weights (``convert.shard_lm_params``); the logits are gathered over
@@ -166,7 +179,7 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
     toks = torch.stack(out, dim=1)
     _sync(dev)
     t_decode = time.perf_counter() - t0
-    timings = {"prefill_s": t_prefill, "decode_s": t_decode}
+    timings = {"prefill_s": t_prefill, "decode_s": t_decode, "cache": cache}
     if keep_logits:
         timings["logits"] = kept
     return toks, timings
@@ -215,7 +228,8 @@ def serve_rank(rank: int, world: int, opts: dict) -> dict:
     from .mesh import make_test_mesh
     mesh = make_test_mesh(*opts["mesh"], device=opts["device"])
     toks, t = _serve(opts, mesh.device, make_ctx(mesh))
-    return {"tokens": toks.cpu().numpy(), "transport": mesh.describe(), **t}
+    return {"tokens": toks.cpu().numpy(), "transport": mesh.describe(),
+            "prefill_s": t["prefill_s"], "decode_s": t["decode_s"]}
 
 
 def _mesh_shape(text: str):

@@ -1,6 +1,6 @@
 """Specs for sharded serving: the decode caches' layout (the JAX
-package's ``launch/specs.py::_cache_leaf_spec``/``cache_struct``, :82-118,
-for the KV leaves).
+package's ``launch/specs.py::_cache_leaf_spec``/``cache_struct``,
+:82-118).
 
 A KV cache ``(B, S_max, Hkv, D)`` keeps its batch as the batch is laid
 out (:func:`batch_dim_spec`) and shards its sequence axis: over tp when
@@ -9,14 +9,33 @@ small-batch long-context layout), so that every rank holds one slice of
 the positions and all heads.  Unlike GSPMD the port does not pad uneven
 shards: a rank's slice is ``ceil(S_max / n)`` positions and the cache
 holds ``n`` slices (the positions past ``S_max`` are never attended).
-The rest of the reference's module (the dry-run's input and state
-structs) is not ported yet (ROADMAP Queue 1 items 16 and 17).
+An SSM layer's state keeps its batch likewise and shards ``d_inner``
+over tp: the conv history ``(B, K-1, d_inner)`` and the recurrent state
+``(B, d_inner, N)``.  The rest of the reference's module (the dry-run's
+input and state structs) is not ported yet (ROADMAP Queue 1 items 16 and
+17).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
-from ..distributed.sharding import EP_ITEM, ShardingCtx, Spec
+from ..distributed.sharding import ShardingCtx, Spec
+
+
+class Leaf(NamedTuple):
+    """A cache leaf's global shape and spec."""
+    shape: Tuple[int, ...]
+    spec: Spec
+
+
+class KVStruct(NamedTuple):
+    k: Leaf
+    v: Leaf
+
+
+class SSMStruct(NamedTuple):
+    conv: Leaf
+    ssm: Leaf
 
 
 def batch_dim_spec(B: int, ctx: ShardingCtx):
@@ -38,18 +57,28 @@ def kv_cache_spec(B: int, ctx: ShardingCtx) -> Spec:
     return (batch_dim_spec(B, ctx), cache_seq_axes(B, ctx), None, None)
 
 
+def ssm_state_specs(B: int, ctx: ShardingCtx) -> Tuple[Spec, Spec]:
+    """The specs of an SSM layer's conv history ``(B, K-1, d_inner)`` and
+    state ``(B, d_inner, N)``: the batch as laid out, ``d_inner`` over
+    tp."""
+    bspec = batch_dim_spec(B, ctx)
+    return (bspec, None, ctx.tp), (bspec, ctx.tp, None)
+
+
 def cache_struct(cfg, B: int, S_max: int, ctx: ShardingCtx
-                 ) -> List[Tuple[Tuple[int, ...], Spec]]:
-    """For each layer, its KV cache's global shape and spec (k and v
-    alike).  An SSM layer's state raises ``NotImplementedError``."""
+                 ) -> List[Union[KVStruct, SSMStruct]]:
+    """For each layer, its cache's leaves as (global shape, spec): a
+    :class:`KVStruct` (k and v alike) for an attention layer, an
+    :class:`SSMStruct` for an SSM layer."""
     out = []
     for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) != "attn":
-            raise NotImplementedError(
-                f"an SSM layer's cache with a sharding context (ctx) is not "
-                f"ported yet: {EP_ITEM}")
-        out.append(((B, S_max, cfg.n_kv_heads, cfg.head_dim),
-                    kv_cache_spec(B, ctx)))
+        if cfg.layer_kind(i) == "attn":
+            kv = Leaf((B, S_max, cfg.n_kv_heads, cfg.head_dim),
+                      kv_cache_spec(B, ctx))
+            out.append(KVStruct(kv, kv))
+        else:
+            out.append(SSMStruct(*(Leaf(shape, spec) for shape, spec in zip(
+                ssm_state_shapes(cfg, B), ssm_state_specs(B, ctx)))))
     return out
 
 
@@ -67,3 +96,15 @@ def local_kv_shape(cfg, B: int, S_max: int, ctx: ShardingCtx
     positions, every KV head."""
     rows = B // ctx.dp_size if batch_dim_spec(B, ctx) is not None else B
     return rows, seq_shard(B, S_max, ctx)[2], cfg.n_kv_heads, cfg.head_dim
+
+
+def ssm_state_shapes(cfg, B: int, ctx: Optional[ShardingCtx] = None
+                     ) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """The shapes of an SSM layer's conv history ``(B, K-1, d_inner)`` and
+    state ``(B, d_inner, N)``; with ``ctx`` this rank's blocks of them:
+    its batch rows and its ``d_inner/tp`` channels."""
+    rows, di = B, cfg.d_inner
+    if ctx is not None:
+        rows = B // ctx.dp_size if batch_dim_spec(B, ctx) is not None else B
+        di //= ctx.tp_size
+    return (rows, cfg.ssm_conv - 1, di), (rows, di, cfg.ssm_state)

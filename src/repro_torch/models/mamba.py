@@ -16,6 +16,19 @@ The causal depthwise convolution is a Python sum of ``K`` shifted
 products in the input dtype, in the reference's order, not
 ``F.conv1d``, whose fp32 accumulation departs from the reference in bf16.
 ``dt_bias``, ``A_log`` and ``D`` are fp32 whatever the model's dtype.
+
+With a sharding context (``ctx``) the mixer is ``d_inner``-parallel, as
+GSPMD shards the reference's by its specs
+(``src/repro/distributed/sharding.py:74-82``): ``in_proj`` is
+column-parallel (the rank's block holds the ``x`` and ``z`` channels of
+the same indices, ``sharding.shard_param``), the convolution,
+``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the whole scan run on the
+rank's ``d_inner/tp`` channels with no collective, ``x_proj``'s partial
+``(..., r + 2N)`` is summed over the model group before its split, and
+``out_proj`` is row-parallel.  Both sums follow ``cfg.tp_collectives``
+as ``tp.row_parallel_dense`` does: in fp32 and cast (``"gspmd"``) or in
+the activation dtype (``"manual"``).  The state is the rank's block:
+its batch rows and ``d_inner/tp`` channels.
 """
 from __future__ import annotations
 
@@ -27,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import layers
+from ..distributed import tp
+from ..launch import specs
 
 
 class SSMState(NamedTuple):
@@ -79,8 +94,9 @@ class Mamba(nn.Module):
             lin.reset_parameters(generator)
 
     def forward(self, x, *, state: Optional[SSMState] = None,
-                chunk: int = 256):
-        return mamba_apply(self, x, self.cfg, state=state, chunk=chunk)
+                chunk: int = 256, ctx=None):
+        return mamba_apply(self, x, self.cfg, state=state, chunk=chunk,
+                           ctx=ctx)
 
 
 def mamba_init(generator, cfg, dtype, device=None) -> Mamba:
@@ -135,35 +151,52 @@ def _causal_conv(x, w, b, K: int, history=None):
     return out + b
 
 
-def _ssm_inputs(p: Mamba, x_conv, cfg):
-    """``(dt (.., di) fp32, B_t, C_t)`` from the convolved inputs."""
+def _in_proj(p: Mamba, x, ctx):
+    """``(x_in, z)``, each (..., di) or, with ``ctx``, the rank's di/tp
+    channels (``in_proj`` column-parallel)."""
+    if ctx is None:
+        xz = layers.dense(p.in_proj, x)
+    else:
+        xz = tp.col_parallel_dense(x, p.in_proj.w, ctx, p.in_proj.b)
+    return torch.split(xz, xz.shape[-1] // 2, dim=-1)
+
+
+def _ssm_inputs(p: Mamba, x_conv, cfg, ctx):
+    """``(dt (.., di) fp32, B_t, C_t)`` from the convolved inputs; with
+    ``ctx`` ``x_proj``'s partial is summed over the model group first."""
     r, N = cfg.dt_rank, cfg.ssm_state
     dbl = layers.dense(p.x_proj, x_conv)
+    if ctx is not None:
+        dbl = tp.psum_tp(dbl, ctx, cfg.tp_collectives)
     dt_r, B_t, C_t = torch.split(dbl, [r, N, N], dim=-1)
     dt = F.softplus(layers.dense(p.dt_proj, dt_r).float()
                     + p.dt_bias.float())
     return dt, B_t, C_t
 
 
-def _ssm_out(p: Mamba, y, x_conv, z, dtype):
+def _ssm_out(p: Mamba, y, x_conv, z, dtype, cfg, ctx):
     y = y + p.D * x_conv.float()
     y = (y * F.silu(z.float())).to(dtype)
-    return layers.dense(p.out_proj, y)
+    if ctx is None:
+        return layers.dense(p.out_proj, y)
+    return tp.row_parallel_dense(y, p.out_proj.w, ctx, p.out_proj.b,
+                                 collectives=cfg.tp_collectives)
 
 
 def mamba_apply(p: Mamba, x, cfg, *, state: Optional[SSMState] = None,
-                chunk: int = 256) -> Tuple[torch.Tensor, SSMState]:
+                chunk: int = 256, ctx=None) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence forward.  x: (B, S, d).  Returns (y, final state);
     the state's ``conv`` is a copy, so it holds no view of this call's
-    activations."""
+    activations.  With ``ctx``: x and y are the rank's rows, whole; the
+    state its block."""
     B, S, _ = x.shape
-    di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    xz = layers.dense(p.in_proj, x)
-    x_in, z = torch.split(xz, di, dim=-1)                   # (B, S, di)
+    N, K = cfg.ssm_state, cfg.ssm_conv
+    x_in, z = _in_proj(p, x, ctx)                           # (B, S, di)
+    di = x_in.shape[-1]
     hist = None if state is None else state.conv
     x_conv = F.silu(_causal_conv(x_in, p.conv_w, p.conv_b, K, hist))
 
-    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg)
+    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg, ctx)
     A = -torch.exp(p.A_log)                                  # (di, N)
     a = torch.exp(dt[..., None] * A)                         # (B,S,di,N)
     b = (dt * x_conv.float())[..., None] * B_t.float()[..., None, :]
@@ -173,35 +206,35 @@ def mamba_apply(p: Mamba, x, cfg, *, state: Optional[SSMState] = None,
     del a, b
     y = torch.einsum("bsdn,bsn->bsd", h, C_t.float())
     del h
-    out = _ssm_out(p, y, x_conv, z, x.dtype)
+    out = _ssm_out(p, y, x_conv, z, x.dtype, cfg, ctx)
     new_state = SSMState(conv=x_in[:, S - (K - 1):, :].clone(), ssm=h_fin)
     return out, new_state
 
 
-def mamba_decode(p: Mamba, x, state: SSMState, cfg
+def mamba_decode(p: Mamba, x, state: SSMState, cfg, ctx=None
                  ) -> Tuple[torch.Tensor, SSMState]:
     """Single-token decode.  x: (B, 1, d).  Returns (y (B, 1, d), the
-    new state)."""
-    di, K = cfg.d_inner, cfg.ssm_conv
-    xz = layers.dense(p.in_proj, x[:, 0])
-    x_in, z = torch.split(xz, di, dim=-1)                    # (B, di)
+    new state); with ``ctx`` as :func:`mamba_apply`."""
+    K = cfg.ssm_conv
+    x_in, z = _in_proj(p, x[:, 0], ctx)                      # (B, di)
     conv_hist = torch.cat([state.conv, x_in[:, None]], dim=1)
     x_conv = sum(conv_hist[:, i] * p.conv_w[i] for i in range(K))
     x_conv = F.silu(x_conv + p.conv_b)
 
-    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg)
+    dt, B_t, C_t = _ssm_inputs(p, x_conv, cfg, ctx)
     A = -torch.exp(p.A_log)
     a = torch.exp(dt[..., None] * A)                         # (B, di, N)
     b = (dt * x_conv.float())[..., None] * B_t.float()[:, None, :]
     h = a * state.ssm + b
     y = torch.einsum("bdn,bn->bd", h, C_t.float())
-    out = _ssm_out(p, y, x_conv, z, x.dtype)
+    out = _ssm_out(p, y, x_conv, z, x.dtype, cfg, ctx)
     return out[:, None], SSMState(conv=conv_hist[:, 1:], ssm=h)
 
 
-def init_ssm_state(cfg, B: int, dtype, device=None) -> SSMState:
-    return SSMState(
-        conv=torch.zeros((B, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype,
-                         device=device),
-        ssm=torch.zeros((B, cfg.d_inner, cfg.ssm_state), dtype=torch.float32,
-                        device=device))
+def init_ssm_state(cfg, B: int, dtype, device=None, ctx=None) -> SSMState:
+    """A zero state of B rows (with ``ctx`` this rank's block of it,
+    ``launch.specs.ssm_state_shapes``): the conv history in ``dtype``, the
+    recurrent state fp32."""
+    conv, ssm = specs.ssm_state_shapes(cfg, B, ctx)
+    return SSMState(conv=torch.zeros(conv, dtype=dtype, device=device),
+                    ssm=torch.zeros(ssm, dtype=torch.float32, device=device))

@@ -26,9 +26,16 @@ the result does not depend on the device:
 - the dispatch counts are exact: an integer ``scatter_add_`` (a
   ``bincount`` on the card would read its maximum back to the host).
 
-The reference's expert-parallel branch (``ctx`` not ``None``: a
-``shard_map`` over the ``model`` axis) is ROADMAP Queue 1 item 15; a
-``ctx`` raises as attention's does.
+With a sharding context (``ctx``) the layer is expert-parallel, as the
+reference's ``shard_map`` branch (``src/repro/models/moe.py:122-166``):
+no token moves.  The tokens are the rank's batch rows, the same on every
+model rank; each model rank owns ``E/tp`` experts (their weights its
+blocks, gathered over dp before use: FSDP), routes all of its tokens
+with the replicated router, computes its own experts' entries and the
+model group sums the partial outputs in the activation dtype under
+either ``tp_collectives``, as the reference's ``psum`` does.  The
+capacity counts the rank's tokens, so a sharded layer drops entries per
+dp shard: it equals the unsharded layer on each dp shard's rows.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import layers
-from ..distributed.sharding import no_ctx
+from ..distributed import tp
 
 
 class MoE(nn.Module):
@@ -71,8 +78,8 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.reset_parameters(generator)
 
-    def forward(self, x, ctx=None):
-        return moe_apply(self, x, self.cfg, ctx)
+    def forward(self, x, ctx=None, *, batch=None, decode=False):
+        return moe_apply(self, x, self.cfg, ctx, batch=batch, decode=decode)
 
 
 def moe_init(generator, cfg, dtype, device=None) -> MoE:
@@ -167,14 +174,45 @@ def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local
     return partial.to(x2d.dtype), {"aux_loss": aux_loss, "dropped": dropped}
 
 
-def moe_apply(p: MoE, x, cfg, ctx=None):
+def moe_apply(p: MoE, x, cfg, ctx=None, *, batch=None, decode=False):
     """x: (B, S, d) -> ``((B, S, d), aux)``, aux ``{"aux_loss",
-    "dropped"}`` 0-d fp32 tensors; all experts on this device."""
-    no_ctx(ctx, "an MoE layer")
+    "dropped"}`` 0-d fp32 tensors.
+
+    Without ``ctx`` all experts are on this device.  With ``ctx``: x is
+    this rank's rows of a batch of ``batch`` (the same on every model
+    rank), ``p`` the rank's blocks (``gate``/``up`` ``(E/tp, d/dp, ff)``,
+    ``down`` ``(E/tp, ff, d/dp)``, the router whole); the output is the
+    rank's rows, whole.  ``dropped`` is averaged over the model group,
+    and ``aux_loss`` and ``dropped`` over dp where the batch is sharded
+    (the reference's ``pmean``s).  The shared experts are the sharded
+    SwiGLU (``tp.swiglu_sharded``; in ``decode`` under ``"manual"`` its
+    2-D forms)."""
     B, S, d = x.shape
-    out2d, aux = _moe_math(x.reshape(-1, d), p.router.w, p.gate, p.up,
-                           p.down, cfg, 0, cfg.n_experts)
-    out = out2d.reshape(B, S, d)
+    if ctx is None:
+        out2d, aux = _moe_math(x.reshape(-1, d), p.router.w, p.gate, p.up,
+                               p.down, cfg, 0, cfg.n_experts)
+        out = out2d.reshape(B, S, d)
+        if p.shared is not None:
+            out = out + layers.swiglu(p.shared, x)
+        return out, aux
+    if batch is None:
+        raise ValueError("moe_apply with a ctx needs batch, the whole "
+                         "batch's size")
+    E_local = cfg.n_experts // ctx.tp_size
+    wg, wu = (tp.gather_weight(w, ctx, 1) for w in (p.gate, p.up))
+    wd = tp.gather_weight(p.down, ctx, 2)
+    part, aux = _moe_math(x.reshape(-1, d), p.router.w, wg, wu, wd, cfg,
+                          ctx.tp_index * E_local, E_local)
+    del wg, wu, wd
+    out = tp.psum_tp(part, ctx, "manual").reshape(B, S, d)
+    aux_loss = aux["aux_loss"]
+    dropped = ctx.mesh.all_reduce(aux["dropped"], ctx.tp) / ctx.tp_size
+    if tp.batch_sharded(batch, ctx):
+        both = ctx.mesh.all_reduce(torch.stack([aux_loss, dropped]),
+                                   ctx.dp) / ctx.dp_size
+        aux_loss, dropped = both[0], both[1]
     if p.shared is not None:
-        out = out + layers.swiglu(p.shared, x)
-    return out, aux
+        out = out + tp.swiglu_sharded(p.shared, x, ctx,
+                                      collectives=cfg.tp_collectives,
+                                      batch=batch if decode else None)
+    return out, {"aux_loss": aux_loss, "dropped": dropped}

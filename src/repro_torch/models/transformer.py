@@ -32,17 +32,24 @@ checkpointed function returns the layer's aux with its output, so remat
 leaves ``aux_loss`` as it is.
 
 With a sharding context (``ctx``, a ``repro_torch.distributed.sharding.
-ShardingCtx``) the dense families serve on a (data, model) mesh of
-ranks: ``params`` is the rank's block of each tensor
+ShardingCtx``) every family serves on a (data, model) mesh of ranks:
+``params`` is the rank's block of each tensor
 (``repro_torch.convert.shard_lm_params``), ``inputs`` the whole batch on
 every rank; the batch is sharded over dp when it divides, the weights
 are gathered over dp before each use and dropped after (FSDP), and the
 attention, the MLP, the embedding and the LM head are tensor-parallel
-(``repro_torch.distributed.tp``).  Logits come back as the rank's block:
+(``repro_torch.distributed.tp``), the MoE expert-parallel
+(``models/moe.py``) and the Mamba mixer ``d_inner``-parallel
+(``models/mamba.py``).  Logits come back as the rank's block:
 its batch rows and its ``V/tp`` columns of the vocabulary
 (:func:`gather_logits` assembles the rows' whole vocabulary); caches are
-the rank's blocks (``launch.specs``).  MoE and SSM layers refuse a ctx
-(ROADMAP Queue 1 item 24), and so does training (item 25).
+the rank's blocks (``launch.specs``).  Between the sublayers the
+activations are the rank's rows, whole and the same on every model rank
+(also after the 2-D forms of ``"manual"`` decode), which is the layout
+the MoE takes its tokens in.  An MoE layer's capacity counts the rank's
+tokens, so a sharded run equals the unsharded one on each dp shard's
+rows (on the whole batch where it is replicated).  Training refuses a
+ctx (ROADMAP Queue 1 item 25).
 """
 from __future__ import annotations
 
@@ -54,7 +61,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..distributed import tp
-from ..distributed.sharding import (EP_ITEM, TRAIN_ITEM, ShardingCtx,
+from ..distributed.sharding import (TRAIN_ITEM, ShardingCtx,
                                     check_divisible, no_ctx)
 from ..launch import specs
 from . import attention, layers, mamba, moe, rope
@@ -94,29 +101,32 @@ class DecoderLayer(nn.Module):
         elif self.mlp_kind == "dense":
             self.mlp.reset_parameters(generator)
 
-    def _ffn(self, x, ctx=None, batch=None):
-        """``(x + FFN(norm2(x)), aux or None)``; ``batch`` (decode with a
-        ctx) is the whole batch's size."""
+    def _ffn(self, x, ctx=None, batch=None, decode=False):
+        """``(x + FFN(norm2(x)), aux or None)``; with a ctx, ``batch`` is
+        the whole batch's size and ``decode`` says whether this is a
+        decode step."""
         if self.mlp_kind == "none":
             return x, None
         h = self.norm2(x)
         if self.mlp_kind == "moe":
-            y, aux = self.moe(h, ctx)
+            y, aux = self.moe(h, ctx, batch=batch, decode=decode)
             return x + y, aux
         if ctx is None:
             return x + self.mlp(h), None
-        return x + _swiglu_sharded(self.mlp, h, self.cfg, ctx, batch), None
+        return x + tp.swiglu_sharded(
+            self.mlp, h, ctx, collectives=self.cfg.tp_collectives,
+            batch=batch if decode else None), None
 
-    def forward(self, x, *, angles=None, impl="xla", ctx=None):
+    def forward(self, x, *, angles=None, impl="xla", ctx=None, batch=None):
         """Full sequence; returns ``(x, cache of this sequence, aux or
-        None)``: a KVCache of its k, v or the SSM state after it."""
+        None)``: a KVCache of its k, v or the SSM state after it.  With a
+        ctx, ``batch`` is the whole batch's size."""
         h = self.norm1(x)
         if self.kind == "attn":
             mix, cache = self.mixer(h, angles=angles, impl=impl, ctx=ctx)
         else:
-            no_ctx(ctx, "an SSM layer")
-            mix, cache = self.mixer(h, chunk=self.cfg.ssm_chunk)
-        x, aux = self._ffn(x + mix, ctx)
+            mix, cache = self.mixer(h, chunk=self.cfg.ssm_chunk, ctx=ctx)
+        x, aux = self._ffn(x + mix, ctx, batch)
         return x, cache, aux
 
     def decode(self, x, cache, pos: int, *, angles=None, ctx=None,
@@ -128,28 +138,9 @@ class DecoderLayer(nn.Module):
                                                angles=angles, ctx=ctx,
                                                batch=batch)
         else:
-            no_ctx(ctx, "an SSM layer")
-            mix, cache = mamba.mamba_decode(self.mixer, h, cache, self.cfg)
-        return self._ffn(x + mix, ctx, batch)[0], cache
-
-
-def _swiglu_sharded(p, h, cfg, ctx, batch=None):
-    """SwiGLU with column-parallel gate and up and a row-parallel down
-    (``cfg.tp_collectives`` sums its partials).  In decode (``batch``
-    given) under ``"manual"``, the 2-D forms: no weight moves (the
-    reference's ``_swiglu``, ``transformer.py:147-165``)."""
-    silu = torch.nn.functional.silu
-    if batch is not None and cfg.tp_collectives == "manual":
-        sharded = tp.batch_sharded(batch, ctx)
-        g, u = (tp.col_parallel_dense_2dtp(h, lin.w, ctx, lin.b,
-                                           sharded=sharded)
-                for lin in (p.gate, p.up))
-        return tp.row_parallel_dense_2dtp(silu(g) * u, p.down.w, ctx,
-                                          p.down.b, sharded=sharded)
-    g, u = (tp.col_parallel_dense(h, lin.w, ctx, lin.b)
-            for lin in (p.gate, p.up))
-    return tp.row_parallel_dense(silu(g) * u, p.down.w, ctx, p.down.b,
-                                 collectives=cfg.tp_collectives)
+            mix, cache = mamba.mamba_decode(self.mixer, h, cache, self.cfg,
+                                            ctx)
+        return self._ffn(x + mix, ctx, batch, decode=True)[0], cache
 
 
 class Transformer(nn.Module):
@@ -207,7 +198,8 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, *, device=None,
     (the config's by default), for an SSM layer a zero
     :class:`SSMState` (its ``conv`` in ``dtype``, its ``ssm`` fp32).
     With ``ctx``: this rank's blocks of the sequence-sharded KV caches
-    (``launch.specs.local_kv_shape``)."""
+    (``launch.specs.local_kv_shape``) and of the ``d_inner``-sharded SSM
+    states (``launch.specs.ssm_state_shapes``)."""
     dev = resolve_device(device)
     dt = dtype if dtype is not None else _dtype(cfg)
     shape = (B, S_max, cfg.n_kv_heads, cfg.head_dim)
@@ -217,7 +209,7 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, *, device=None,
     return [KVCache(k=torch.zeros(shape, dtype=dt, device=dev),
                     v=torch.zeros(shape, dtype=dt, device=dev))
             if cfg.layer_kind(i) == "attn"
-            else mamba.init_ssm_state(cfg, B, dt, device=dev)
+            else mamba.init_ssm_state(cfg, B, dt, device=dev, ctx=ctx)
             for i in range(cfg.n_layers)]
 
 
@@ -244,16 +236,10 @@ def _embed_inputs(params: Transformer, cfg: ModelConfig, inputs, ctx=None):
 
 
 def _check_ctx(cfg: ModelConfig, ctx) -> None:
-    """A ctx is taken by the dense families only (MoE and SSM layers raise
-    ``NotImplementedError``, ROADMAP Queue 1 item 24), must be a
-    ``ShardingCtx`` and must divide the config's sharded dimensions."""
+    """A ctx must be a ``ShardingCtx`` and must divide the config's
+    sharded dimensions."""
     if ctx is None:
         return
-    if any(cfg.layer_kind(i) != "attn" or cfg.mlp_kind(i) == "moe"
-           for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name} has MoE or SSM layers; with a sharding context "
-            f"(ctx) they are not ported yet: {EP_ITEM}; pass ctx=None")
     if not isinstance(ctx, ShardingCtx):
         raise TypeError(f"ctx must be a ShardingCtx (distributed.sharding."
                         f"make_ctx), got {type(ctx).__name__}")
@@ -296,7 +282,8 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
             x, aux = checkpoint(_layer_out, layer, x, angles, impl,
                                 use_reentrant=False)
         else:
-            x, cache, aux = layer(x, angles=angles, impl=impl, ctx=ctx)
+            x, cache, aux = layer(x, angles=angles, impl=impl, ctx=ctx,
+                                  batch=inputs.shape[0])
             if want_cache:
                 caches.append(cache)
         if aux is not None:

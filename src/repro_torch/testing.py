@@ -595,14 +595,111 @@ def param_fingerprint(tensors) -> str:
     return h.hexdigest()[:16]
 
 
+class MoeLog:
+    """Over a ``with`` block, each MoE call's routes as ``models/moe.py``'s
+    own ``routes`` decides them, ``(experts (T, k), kept (T, k))``
+    (``routes``), and each ``moe_apply``'s aux (``aux``)."""
+
+    def __enter__(self):
+        from .models import moe
+        self._moe, self._routes, self._apply = moe, moe.routes, moe.moe_apply
+        self.routes, self.aux = [], []
+
+        def routes(*a, **kw):
+            out = self._routes(*a, **kw)
+            self.routes.append((out[2], out[4]))
+            return out
+
+        def apply(*a, **kw):
+            out = self._apply(*a, **kw)
+            self.aux.append(out[1])
+            return out
+
+        moe.routes, moe.moe_apply = routes, apply
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.routes, self._moe.moe_apply = self._routes, self._apply
+        return False
+
+
+def route_digest(calls) -> str:
+    """sha256 of ``(experts, kept)`` pairs (numpy or tensors), its first
+    16 hex digits."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for e, k in calls:
+        for a in (e, k):
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def serve_record(model, cfg, prompts, gen: int, ctx=None) -> dict:
+    """``launch.serve.generate`` of ``prompts`` (``gen`` greedy tokens,
+    under inference mode) with what the sharded checks read, as numpy:
+    ``tokens`` (B, gen) and ``logits`` (gen, B, V) fp32 (with ``ctx`` the
+    rank's rows), ``routes`` (each MoE call's ``(experts int16, kept)``
+    in call order: the prefill's layer by layer, then each decode step's),
+    ``route_digests`` (:func:`route_digest` of each MoE layer's calls),
+    ``aux_loss`` and ``dropped`` (the prefill's, summed over its MoE
+    layers), ``ssm`` (each SSM layer's ``(conv, ssm)`` state after the
+    last step, fp32); the timings, and the flash kernel's launches and
+    plain calls (:class:`FlashCounts`)."""
+    from .launch import serve
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    with torch.inference_mode(), FlashCounts() as fc, MoeLog() as log:
+        toks, t = serve.generate(model, cfg, prompts, gen, ctx=ctx,
+                                 keep_logits=True)
+    routes = [(e.to(torch.int16).cpu().numpy(), k.cpu().numpy())
+              for e, k in log.routes]
+    pre = log.aux[:n_moe]
+    return dict(
+        tokens=toks.cpu().numpy(),
+        logits=torch.stack(t["logits"]).float().cpu().numpy(),
+        routes=routes,
+        route_digests=[route_digest(routes[j::n_moe]) for j in range(n_moe)],
+        aux_loss=float(sum(float(a["aux_loss"]) for a in pre)),
+        dropped=float(sum(float(a["dropped"]) for a in pre)),
+        ssm=[(c.conv.float().cpu().numpy(), c.ssm.float().cpu().numpy())
+             for i, c in enumerate(t["cache"])
+             if cfg.layer_kind(i) == "ssm"],
+        prefill_s=t["prefill_s"], decode_s=t["decode_s"],
+        flash_launches=fc.launches, plain_calls=fc.plain_calls)
+
+
+def control_params(cfg, control: str):
+    """The parameters a control of :func:`run_lm_on_mesh` serves with the
+    next model rank's blocks of: ``"wo"`` layer 0's attention output,
+    ``"out_proj"`` layer 0's Mamba output projection, ``"experts"`` the
+    first MoE layer's experts (``gate``, ``up``, ``down``)."""
+    if control == "wo":
+        return ["layers.0.mixer.wo.w"]
+    if control == "out_proj":
+        return ["layers.0.mixer.out_proj.w"]
+    if control == "experts":
+        i = next(i for i in range(cfg.n_layers) if cfg.mlp_kind(i) == "moe")
+        return [f"layers.{i}.moe.{w}" for w in ("gate", "up", "down")]
+    raise ValueError(f"unknown control {control!r}")
+
+
+def _controls(cfg):
+    """The controls that apply to ``cfg``."""
+    out = ["wo" if cfg.layer_kind(0) == "attn" else "out_proj"]
+    if any(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers)):
+        out.append("experts")
+    return out
+
+
 def _lm_weights(run: dict, cfg, ctx, dev):
-    """``(the rank's blocks, its model-axis neighbour's block of layer 0's
-    wo, the blocks' fingerprint)`` for a ``"serve"`` run: the model is the
-    reference's numpy tree (``run["params"]``) or drawn from
-    ``run["seed"]`` on ``dev``, whole, then cut
-    (``convert.shard_lm_params``)."""
+    """``(the rank's blocks, its model-axis neighbour's blocks of each
+    control's parameters (:func:`control_params`) by name, the blocks'
+    fingerprint)`` for a ``"serve"`` run: the model is the reference's
+    numpy tree (``run["params"]``) or drawn from ``run["seed"]`` on
+    ``dev``, whole, then cut (``convert.shard_lm_params``)."""
     from .convert import lm_params_from_reference, shard_lm_params
-    from .distributed.sharding import shard_tensor, spec_for
+    from .distributed.sharding import shard_param
     from .models import transformer as T
     if "params" in run:
         full = lm_params_from_reference(run["params"], cfg, device="cpu")
@@ -610,14 +707,14 @@ def _lm_weights(run: dict, cfg, ctx, dev):
         full = T.init_params(torch.Generator(device=dev).manual_seed(
             run["seed"]), cfg, device=dev)
     model = shard_lm_params(full, cfg, ctx, device=dev)
-    # the control's block: the next rank's along the model axis
-    name = "layers.0.mixer.wo.w"
-    w = full.state_dict()[name]
+    # the controls' blocks: the next rank's along the model axis
     coords = list(ctx.mesh.coords)
     coords[-1] = (coords[-1] + 1) % ctx.mesh.shape[-1]
-    other = shard_tensor(w, spec_for(name, w.dim(), ctx), ctx,
-                         coords=tuple(coords)).to(dev, copy=True)
-    del full
+    state = full.state_dict()
+    other = {name: shard_param(name, state[name], ctx, tuple(coords)).to(
+        dev, copy=True) for c in _controls(cfg)
+        for name in control_params(cfg, c)}
+    del full, state
     return model, other, param_fingerprint(model)
 
 
@@ -630,7 +727,6 @@ def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
 
     from .distributed import ring, tp
     from .distributed.sharding import shard_tensor
-    from .launch import serve
     from .models import attention as A
 
     name, kind = run["name"], run["kind"]
@@ -693,27 +789,26 @@ def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
         if key not in weights:
             weights[key] = _lm_weights(run, cfg, ctx, dev)
         model, other, fp = weights[key]
-        wo = model.layers[0].mixer.wo
-        mine = wo.w
-        if run.get("swap_wo"):
-            wo.w = torch.nn.Parameter(other, requires_grad=False)
+        swapped = {}
+        names = control_params(cfg, run["swap"]) if run.get("swap") else []
+        for pname in names:
+            path, _, leaf = pname.rpartition(".")
+            mod = model.get_submodule(path)
+            swapped[pname] = (mod, leaf, getattr(mod, leaf))
+            setattr(mod, leaf, torch.nn.Parameter(other[pname],
+                                                  requires_grad=False))
         prompts = torch.from_numpy(np.asarray(run["prompts"])).to(dev)
         for k in mesh.stats:
             mesh.stats[k] = 0
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         try:
-            with torch.inference_mode(), FlashCounts() as fc:
-                toks, t = serve.generate(model, cfg, prompts, run["gen"],
-                                         ctx=ctx, keep_logits=True)
+            rec = serve_record(model, cfg, prompts, run["gen"], ctx=ctx)
         finally:
-            wo.w = mine
-        put("tokens", toks)
-        put("logits", torch.stack(t["logits"]))
+            for mod, leaf, mine in swapped.values():
+                setattr(mod, leaf, mine)
         out.update({f"{name}.{k}": v for k, v in dict(
-            prefill_s=t["prefill_s"], decode_s=t["decode_s"],
-            flash_launches=fc.launches, plain_calls=fc.plain_calls,
-            fingerprint=fp, **mesh.stats).items()})
+            rec, fingerprint=fp, **mesh.stats).items()})
         if dev.type == "cuda":
             out[f"{name}.card_peak_bytes"] = torch.cuda.max_memory_allocated(
                 dev)
@@ -736,32 +831,40 @@ def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
     * ``"decode_attention"``: ``decode_attention_sharded`` over the
       model axis on a seeded cache (B 2, Hq 4, Hkv 2, S 64, D 16) at
       ``cur_len``;
-    * ``"serve"``: ``launch.serve.generate`` of ``prompts`` (``gen``
-      tokens, greedy, ``keep_logits``) with ``cfg`` under
-      ``tp_collectives=mode``, on this rank's blocks of the reference's
-      tree ``params`` or of the model drawn from ``seed`` on the device
-      (built once per ``weights`` key); ``swap_wo`` serves with layer
-      0's wo block replaced by the next model rank's (a control).
+    * ``"serve"``: :func:`serve_record` of ``prompts`` (``gen`` greedy
+      tokens) with ``cfg`` under ``tp_collectives=mode``, on this rank's
+      blocks of the reference's tree ``params`` or of the model drawn
+      from ``seed`` on the device (built once per ``weights`` key, and
+      dropped after the last run that names it);
+      ``swap`` names a control (:func:`control_params`): the run serves
+      with those blocks replaced by the next model rank's.
 
     Returns the rank's blocks of each result (numpy, fp32) under
-    ``"<name>.<what>"``, the serve runs' timings, the mesh's collective
-    counters, the flash kernel's launches and plain calls, the weights'
-    fingerprint (:func:`param_fingerprint`) and the card's peak; and
-    ``coords``, ``transport`` and ``ready_at`` (``time.time()`` once the
-    first mesh was made)."""
+    ``"<name>.<what>"``: a serve run's :func:`serve_record` (tokens,
+    logits, routes and their digests, the prefill's aux, SSM states,
+    timings, flash launches and plain calls), the mesh's collective
+    counters, the weights' fingerprint (:func:`param_fingerprint`) and
+    the card's peak; each run's ``run_s`` (its seconds on this rank, the
+    weights' draw included); and ``coords``, ``transport`` and
+    ``ready_at`` (``time.time()`` once the first mesh was made)."""
     import time
 
     from .distributed.sharding import make_ctx
     from .launch.mesh import make_test_mesh
     meshes, weights, out = {}, {}, {}
-    for run in runs:
+    for i, run in enumerate(runs):
         shape = tuple(run["mesh"])
         if shape not in meshes:
             meshes[shape] = make_test_mesh(*shape, device=device)
             out.setdefault("ready_at", time.time())
         mesh = meshes[shape]
         out[f"{run['name']}.coords"] = mesh.coords
+        t0 = time.perf_counter()
         _lm_case(run, mesh, make_ctx(mesh), weights, out)
+        out[f"{run['name']}.run_s"] = time.perf_counter() - t0
+        later = {r.get("weights", "params") for r in runs[i + 1:]}
+        for key in set(weights) - later:
+            del weights[key]
     out["transport"] = next(iter(meshes.values())).describe()
     return out
 

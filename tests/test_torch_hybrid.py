@@ -545,25 +545,42 @@ def test_train_cli_trains_the_family(arch, capsys):
 
 
 def test_a_sharding_context_still_raises():
-    """The MoE and SSM layers refuse a ``ctx`` (ROADMAP Queue 1 item 24;
-    dense attention takes one since item 15), and so does training (item
-    25)."""
+    """The MoE and SSM layers take a ``ctx`` since ROADMAP Queue 1 item
+    24: on a mesh of one rank (no process group) ``forward``,
+    ``decode_step`` and ``moe_apply`` serve and equal the unsharded ones
+    bitwise (``tests/test_torch_lm_ep_spmd.py`` serves on 4 ranks).
+    Training still raises (item 25), also a forward under autograd."""
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_test_mesh
+    ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
     for arch in ("qwen3_moe_30b_a3b", "falcon_mamba_7b"):
         cfg = tconfigs.get_smoke_config(arch)
         model = TT.init_params(0, cfg, device=CPU)
-        x = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
-            TT.forward(model, cfg, x, ctx=object())
-        cache = TT.init_cache(cfg, 1, 8, device=CPU)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
-            TT.decode_step(model, cfg, x[:, :1], cache, 0, ctx=object())
+        x = torch.from_numpy(inputs(cfg, 1, 4)).long()
+        with torch.no_grad():
+            want = TT.forward(model, cfg, x)[0]
+            assert torch.equal(TT.forward(model, cfg, x, ctx=ctx)[0], want)
+            steps = [TT.decode_step(model, cfg, x[:, :1],
+                                    TT.init_cache(cfg, 1, 8, device=CPU,
+                                                  ctx=c), 0, ctx=c)[0]
+                     for c in (None, ctx)]
+        assert torch.equal(steps[1], steps[0])
         with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
-            ttrain.make_train_step(cfg, object(), TA.AdamWConfig())
+            ttrain.make_train_step(cfg, ctx, TA.AdamWConfig())
+        model.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+            TT.forward(model, cfg, x, ctx=ctx)
     cfg = tconfigs.get_smoke_config("qwen3_moe_30b_a3b")
     layer = TT.init_params(0, cfg, device=CPU).layers[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
-        tmoe.moe_apply(layer.moe, torch.zeros((1, 2, cfg.d_model)), cfg,
-                       ctx=object())
+    h = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want, want_aux = tmoe.moe_apply(layer.moe, h, cfg)
+        got, aux = tmoe.moe_apply(layer.moe, h, cfg, ctx=ctx, batch=1)
+    assert torch.equal(got, want)
+    assert_aux_close(aux, want_aux)
+    with pytest.raises(ValueError, match="batch"):
+        tmoe.moe_apply(layer.moe, h, cfg, ctx=ctx)
 
 
 def test_port_models_import_neither_jax_nor_reference():

@@ -345,9 +345,11 @@ def test_params_convert_to_another_dtype():
                                   "falcon_mamba_7b", "jamba_1_5_large_398b"])
 def test_init_params_builds_the_moe_and_ssm_families(arch):
     """The MoE, SSM and hybrid configs build (``param_count()``
-    parameters) and run a forward on the CPU; a sharding context still
-    raises (``tests/test_torch_hybrid.py`` holds them to the
-    reference)."""
+    parameters) and run a forward on the CPU, also with a sharding
+    context on a mesh of one rank, which gives the same logits
+    (``tests/test_torch_hybrid.py`` holds them to the reference,
+    ``tests/test_torch_lm_ep_spmd.py`` serves them on 4 ranks); what is
+    not a ``ShardingCtx`` raises ``TypeError``."""
     cfg = tconfigs.get_smoke_config(arch)
     model = TT.init_params(0, cfg, device=CPU)
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
@@ -356,7 +358,14 @@ def test_init_params_builds_the_moe_and_ssm_families(arch):
     assert logits.shape == (1, 4, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert (float(aux["aux_loss"]) > 0) == bool(cfg.n_experts)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_test_mesh
+    ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
+    with torch.no_grad():
+        got, _, got_aux = TT.forward(model, cfg, x, ctx=ctx)
+    assert torch.equal(got, logits)
+    assert float(got_aux["aux_loss"]) == float(aux["aux_loss"])
+    with pytest.raises(TypeError, match="ShardingCtx"):
         TT.forward(model, cfg, x, ctx=object())
 
 

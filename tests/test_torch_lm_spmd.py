@@ -97,7 +97,7 @@ def ranks(tree):
                   gen=GEN) for name, (mesh, mode, b) in SERVE.items()]
     runs += [dict(name="control", kind="serve", mesh=(2, 2), mode="gspmd",
                   cfg=cfg, params=tree, weights=str((2, 2)),
-                  prompts=_prompts(B), gen=1, swap_wo=True)]
+                  prompts=_prompts(B), gen=1, swap="wo")]
     return tmesh.spawn_ranks(ttesting.run_lm_on_mesh, WORLD, runs, "cpu",
                              timeout=SPAWN_TIMEOUT, device="cpu")
 

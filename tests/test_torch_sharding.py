@@ -117,16 +117,53 @@ def test_kv_cache_specs_equal_the_reference(B):
     ref = rspecs.cache_struct(rconfigs.get_smoke_config("qwen2_5_32b"), B,
                               16, rctx)
     want = tuple(ref["blocks"]["pos0"].k.sharding.spec)[1:]
-    for shape, spec in tspecs.cache_struct(cfg, B, 16, ctx):
-        assert shape == (B, 16, cfg.n_kv_heads, cfg.head_dim)
-        assert spec == want
+    for layer in tspecs.cache_struct(cfg, B, 16, ctx):
+        assert isinstance(layer, tspecs.KVStruct)
+        for shape, spec in layer:
+            assert shape == (B, 16, cfg.n_kv_heads, cfg.head_dim)
+            assert spec == want
     n, _, S_loc = tspecs.seq_shard(B, 16, ctx)
     assert n * S_loc >= 16
     assert tspecs.local_kv_shape(cfg, B, 16, ctx) == (
         B // 2 if B % 2 == 0 else B, S_loc, cfg.n_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 24"):
-        tspecs.cache_struct(tconfigs.get_smoke_config("falcon_mamba_7b"),
-                            B, 16, ctx)
+    # an SSM stack's cache has specs too (ROADMAP Queue 1 item 24 is done)
+    falcon = tspecs.cache_struct(tconfigs.get_smoke_config("falcon_mamba_7b"),
+                                 B, 16, ctx)
+    assert all(isinstance(c, tspecs.SSMStruct) for c in falcon)
+
+
+@pytest.mark.parametrize("B", [4, 3])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "jamba_1_5_large_398b"])
+def test_ssm_cache_specs_equal_the_reference(arch, layout, B):
+    """Every cache leaf of an SSM or hybrid stack gets the reference's
+    spec, layer by layer: the conv history ``(B, K-1, d_inner)`` and the
+    state ``(B, d_inner, N)`` with the batch as laid out and ``d_inner``
+    over tp, the hybrid's KV caches sequence-sharded; the local shapes
+    are those specs' blocks."""
+    cfg = tconfigs.get_smoke_config(arch)
+    mesh, rmesh = _layout(LAYOUTS[layout])
+    ctx, rctx = tsharding.make_ctx(mesh), rsharding.make_ctx(rmesh)
+    ref = rspecs.cache_struct(rconfigs.get_smoke_config(arch), B, 16, rctx)
+    got = tspecs.cache_struct(cfg, B, 16, ctx)
+    assert len(got) == cfg.n_layers
+    for i, layer in enumerate(got):
+        pos = i % cfg.period
+        want = ref["blocks"][f"pos{pos}"]
+        for name, leaf in layer._asdict().items():
+            w = getattr(want, name)
+            assert leaf.shape == tuple(w.shape)[1:], (i, name)
+            assert leaf.spec == tuple(w.sharding.spec)[1:], (i, name)
+    conv, ssm = tspecs.ssm_state_shapes(cfg, B, ctx)
+    rows = B // ctx.dp_size if B % ctx.dp_size == 0 else B
+    di = cfg.d_inner // ctx.tp_size
+    assert conv == (rows, cfg.ssm_conv - 1, di)
+    assert ssm == (rows, di, cfg.ssm_state)
+    caches = TT.init_cache(cfg, B, 16, device=CPU, ctx=ctx)
+    for c, layer in zip(caches, got):
+        if isinstance(layer, tspecs.SSMStruct):
+            assert (tuple(c.conv.shape), tuple(c.ssm.shape)) == (conv, ssm)
+            assert c.ssm.dtype == torch.float32
 
 
 @pytest.mark.parametrize("field", ["n_heads", "n_kv_heads", "d_ff",
@@ -143,6 +180,66 @@ def test_an_uneven_shard_raises(field):
         tsharding.check_divisible(cfg, ctx)
     with pytest.raises(ValueError, match=field):
         shard_lm_params(TT.Transformer(cfg, device="meta"), cfg, ctx)
+
+
+@pytest.mark.parametrize("arch,field", [("qwen3_moe_30b_a3b", "n_experts"),
+                                        ("kimi_k2_1t_a32b", "shared_width"),
+                                        ("falcon_mamba_7b", "d_inner"),
+                                        ("jamba_1_5_large_398b", "d_inner")])
+def test_an_uneven_expert_or_channel_shard_raises(arch, field):
+    """tp must also divide the experts, the shared experts' width and
+    (with SSM layers) ``d_inner``; a dense model's ``d_inner`` is never
+    cut, so it is not checked."""
+    cfg = tconfigs.get_smoke_config(arch)
+    change = {"n_experts": dict(n_experts=cfg.n_experts + 1),
+              "shared_width": dict(d_expert=cfg.d_expert + 1),
+              "d_inner": dict(d_model=cfg.d_model + 1, ssm_expand=1)}[field]
+    cfg = dataclasses.replace(cfg, **change)
+    mesh, _ = _layout({"data": 1, "model": 2})
+    ctx = tsharding.make_ctx(mesh)
+    with pytest.raises(ValueError, match=field):
+        tsharding.check_divisible(cfg, ctx)
+    dense = dataclasses.replace(tconfigs.get_smoke_config("qwen2_5_32b"),
+                                d_model=65, ssm_expand=1)
+    tsharding.check_divisible(dense, ctx)
+    assert dense.d_inner % 2
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_shard_lm_params_cuts_in_proj_half_by_half(coords):
+    """Mamba's ``in_proj`` ``(d, 2 d_inner)`` holds ``x`` and ``z`` side by
+    side: a rank's block is ``[x block | z block]`` of the same channels
+    (a contiguous tp block of the whole would give model rank 0 all of
+    ``x`` and none of ``z``); every other tensor is its spec's block."""
+    cfg = tconfigs.get_smoke_config("jamba_1_5_large_398b")
+    full = TT.init_params(0, cfg, device=CPU)
+    mesh, _ = _layout({"data": 2, "model": 2}, coords)
+    ctx = tsharding.make_ctx(mesh)
+    part = shard_lm_params(full, cfg, ctx)
+    whole = full.state_dict()
+    i, j = coords
+    di, dl = cfg.d_inner, cfg.d_inner // 2
+    rows = slice(i * cfg.d_model // 2, (i + 1) * cfg.d_model // 2)
+    for name, t in part.state_dict().items():
+        assert t.is_contiguous() and t.dtype == whole[name].dtype
+        if not name.endswith("in_proj.w"):
+            spec = tsharding.spec_for(name, whole[name].dim(), ctx)
+            assert torch.equal(t, tsharding.shard_tensor(whole[name], spec,
+                                                         ctx))
+            continue
+        w = whole[name]
+        assert torch.equal(t[:, :dl], w[rows, j * dl:(j + 1) * dl])
+        assert torch.equal(t[:, dl:], w[rows, di + j * dl:di + (j + 1) * dl])
+        assert torch.equal(t, tsharding.shard_param(name, w, ctx))
+        # the contiguous block would be another one
+        spec = tsharding.spec_for(name, w.dim(), ctx)
+        assert not torch.equal(t, tsharding.shard_tensor(w, spec, ctx))
+    # the conv, dt_proj and A_log blocks hold the same channels
+    m = part.layers[0].mixer
+    assert torch.equal(m.conv_w, full.layers[0].mixer.conv_w[
+        :, j * dl:(j + 1) * dl])
+    assert torch.equal(m.A_log, full.layers[0].mixer.A_log[
+        j * dl:(j + 1) * dl])
 
 
 @pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 0), (1, 1)])
