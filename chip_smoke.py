@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving and training;
                                      # the MoE, SSM and hybrid LMs;
-                                     # Qwen2.5-32B on 4 ranks;
+                                     # the LMs on 4 ranks (serving,
+                                     # and Qwen2.5-32B training);
                                      # streaming; then
                                      # the full Netflix size: NOMAD, its
                                      # SPMD executor in 8 ranks, then the
@@ -44,7 +45,7 @@ Phases, one line each (any failure raises and exits non-zero):
    route's launch;
 5. serving: the main path's result saved with ``save_fit_result``,
    ``RecServer.from_checkpoint`` booted from it (factors bitwise the
-   trained ones), 2,000 queries through ``serve_mc.run_load`` (4 clients,
+   trained ones), 500 queries through ``serve_mc.run_load`` (4 clients,
    ``max_batch=64``, top-10) without and with ``filter_rated``, every
    microbatch through the CUDA top-k kernel and none through its plain
    version; then the kernel against its plain version on the trained
@@ -67,8 +68,9 @@ Phases, one line each (any failure raises and exits non-zero):
    weights on the card) served through ``repro_torch.launch.serve``:
    prefill of 4 prompts of 1,024 tokens (every layer's attention through
    the CUDA flash kernel, none through its plain version), the merge into
-   decode caches of 1,056 positions and 32 greedy decode steps, twice
-   (warm-up, measured); prefill and decode times beside their bounds,
+   decode caches of 1,028 positions and 4 greedy decode steps, twice
+   (warm-up, measured); prefill and decode times
+   beside their bounds,
    peak memory; on the same weights the prefill's logits with the kernel
    against the plain chunked flash (``impl="xla"``), a control that
    check must reject (the first layer's attention unmasked), and decode
@@ -193,7 +195,7 @@ Phases, one line each (any failure raises and exits non-zero):
    the bound PERF.md states, with a control (one layer's ``dq`` zeroed);
    ``[13.accum]``: ``grad_accum=2`` (fp32 accumulation) against 1, with a
    control (the second microbatch dropped); ``[13.learn]``: one batch
-   repeated for 5 steps at a small learning rate lowers the loss at every
+   repeated for 2 steps at a small learning rate lowers the loss at every
    step.  ``[13.init]``'s state is the card memory its construction
    adds.
 14. the MoE, SSM and hybrid LMs (after phase 13), each model at full
@@ -202,7 +204,7 @@ Phases, one line each (any failure raises and exits non-zero):
    kernel's launches counted on each served or trained path, 0 plain
    calls.  ``[14.moe]``: Qwen3-30B-A3B at full depth (48 layers, 128
    experts, top-8) through ``launch.serve.generate``, 4 prompts of 1,024
-   tokens and 16 greedy decode steps, twice (warm-up, measured): prefill
+   tokens and 4 greedy decode steps, twice (warm-up, measured): prefill
    and decode times beside their bounds (the function's work on the
    warm-up's routes: kept routes, the experts a decode step reaches),
    peak memory, the prefill's summed MoE ``aux_loss`` and ``dropped``;
@@ -218,13 +220,14 @@ Phases, one line each (any failure raises and exits non-zero):
    whose loss must fall); ``[14.kimi]``: Kimi-K2's dense prologue and one
    384-expert layer with its shared expert, 2 prompts of 1,024 tokens, 4
    decode steps; ``[14.ssm]``: Falcon-Mamba-7B at full depth (64
-   layers), 4 prompts of 1,024 tokens, 16 decode steps (no TPU kernel:
+   layers), 4 prompts of 1,024 tokens, 4 decode steps, once, with no
+   warm-up run (no TPU kernel:
    attention-free), and ``[14.ssm.check]``: prefill of 192 tokens and a
    decode step against the prefill of 193 (logits and each layer's
    state, printed layer by layer), with a control (the states zeroed),
    then the same check with the weights cast to fp32; ``[14.hybrid]``:
    Jamba-1.5-Large's first 4 layers (SSM and attention, dense and MoE
-   FFNs), 2 prompts of 1,024 tokens, 8 decode steps, and its kernel
+   FFNs), 2 prompts of 1,024 tokens, 4 decode steps, and its kernel
    prefill against the plain one as ``[14.moe.check]``; ``[14.profile]``:
    one Qwen3-MoE and one Falcon-Mamba prefill under ``torch.profiler``;
    ``[14.flash]``: the flash kernel at each shape phase 14 serves (B=4,
@@ -234,8 +237,8 @@ Phases, one line each (any failure raises and exits non-zero):
    whose launches are its models' measured prefills.
 15. sharded LM serving (after phase 14): Qwen2.5-32B at full width, 4 of
    its 64 layers, bf16, seeded, served unsharded in this process
-   (``launch.serve.generate``, 4 prompts of 1,024 tokens, 8 greedy
-   decode steps, every step's logits kept), then by 4 ranks on a (2, 2)
+   (``launch.serve.generate``, 4 prompts of 1,024 tokens, 1 greedy
+   decode step, every step's logits kept), then by 4 ranks on a (2, 2)
    (data, model) mesh started by ``launch.mesh.spawn_ranks`` (they share
    the card: staged gloo), each drawing the same model and keeping its
    blocks (``convert.shard_lm_params``), through ``generate(ctx=)``
@@ -260,8 +263,8 @@ Phases, one line each (any failure raises and exits non-zero):
    the sharded run drops per data row), then by phase 15's 4 ranks (one
    spawn serves both phases' runs, ``[15.spawn]``, so the ranks start
    and warm up once) through ``generate(ctx=)`` (4 prompts of 1,024
-   tokens) under ``"gspmd"`` (8 greedy decode steps) and, for Qwen3-MoE,
-   ``"manual"`` (4): the ranks' blocks (``[16.*.weights]``), the logits
+   tokens) under ``"gspmd"`` (2 greedy decode steps) and, for Qwen3-MoE,
+   ``"manual"`` (2): the ranks' blocks (``[16.*.weights]``), the logits
    and tokens (``tp_agree``, a row whose token's routes moved set aside
    at that step, at least ``ROWS_COMPARED_SHARE`` of the pairs
    compared), the share of routes that differ in the prefill
@@ -276,6 +279,32 @@ Phases, one line each (any failure raises and exits non-zero):
    kernel at the ``[16.ep]`` ranks' shape (B=2, Hq=16, Hkv=2) against its
    plain version with two controls, a kernel record whose launches are
    the "gspmd" run's, summed over the ranks.
+17. dense LM training on the same mesh (``[17.train]``, in phase 15's
+   spawn, after phase 16): Qwen2.5-32B at full width, 2 of its 64
+   layers, bf16, ``remat``, seeded, trained unsharded in this process
+   first (``[17.unsharded]``: ``launch.train.init_state`` and 2 steps of
+   ``make_train_step`` on a global batch of 4 x 1,024 tokens at lr 3e-6
+   without warm-up, its state then freed), then by the 4 ranks through
+   ``init_state(ctx=)`` and ``make_train_step(cfg, ctx, ...)`` under
+   ``"gspmd"`` on the same batches (in both runs the first step is the
+   two calls that step makes, ``testing.split_train_step``, to read its
+   gradients): each step's loss, the first step's gradients of one
+   tensor of each spec kind (the embedding's and the head's rows),
+   ``grad_norm`` (equal on every rank) and the square of each spec
+   kind's part as the ranks' ``sharding.global_norm`` gives it, the
+   masters after the last step
+   (``testing.assert_rare_flips`` on moves more than lr apart), each
+   rank's state blocks against ``launch.specs.train_state_struct``, 2
+   flash launches a layer a step on every rank (the forward and its
+   recomputation) and 0 plain calls, and two controls that must fail
+   (data row 0's half-batch gradient; those parts with the tp-replicated
+   tensors counted once a model rank); each rank's step seconds (the
+   first split into its gradients and its update), collectives'
+   calls, bytes and wire seconds, card peak; then the flash kernel with
+   ``L`` at the ranks' training shape (B=2, Hq=20, Hkv=4) against its
+   plain version with a control, beside its bound, the torch-ops
+   backward's and SDPA's times, a kernel record whose launches are the
+   ranks'.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -304,7 +333,9 @@ TOPK_SRC = "src/repro_torch/kernels/csrc/topk.cu"
 TOPK_REPLACES = "src/repro/serve/topk.py:312"
 #: the Yahoo! Music catalog (configs/nomad_mf.py): items, users, rank
 YAHOO_N, YAHOO_M, YAHOO_K = 624_961, 1_999_990, 100
-SERVE_QUERIES = 2000
+#: [5.serve]: queries in each of its two runs (cut from 2,000, ~1.7 s of
+#: repeated queries a run, to pay for phase 17)
+SERVE_QUERIES = 500
 #: the Pallas kernel (pallas_call line) each route's launches replace:
 #: all three routes launch the one CUDA kernel through
 #: ``nomad_sgd_waves_csr``
@@ -319,7 +350,9 @@ FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attn.cu"
 #: the pallas_call of the JAX package's flash-attention kernel
 FLASH_REPLACES = "src/repro/kernels/flash_attn.py:99"
 #: the LM serving cell: Qwen2.5-32B, B prompts of P tokens, G decode steps
-LM_B, LM_P, LM_G = 4, 1024, 32
+#: in each of its two runs (cut from 32, ~94 ms a step, to pay for phase
+#: 17)
+LM_B, LM_P, LM_G = 4, 1024, 4
 #: max |logit difference| between two runs on the same bf16 weights
 #: (see lm_phase's checks): 128 residual additions (rms ~10) each rounded
 #: to bf16 walk to ~2 % of the final norm's input, ~0.02 rms in logits of
@@ -330,7 +363,9 @@ LM_LOGIT_BOUND = 0.25
 #: its 64 layers (AdamW's fp32 m, v and master copy of 32.76 B parameters
 #: are ~393 GB, beyond one card; 2 layers hold ~2.53 B parameters, a
 #: ~40 GB state), TRAIN_B sequences of TRAIN_S tokens, TRAIN_STEPS steps
-TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2, 1024, 5
+#: ([13.run]'s and [13.learn]'s: cut from 5, ~0.25 s a step, to pay for
+#: phase 17)
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2, 1024, 2
 #: [13.grad]: the kernel's forward against the plain forward, the same
 #: backward: per parameter tensor ||g_kernel - g_plain|| / ||g_plain||,
 #: and the loss's relative difference (PERF.md states why)
@@ -1371,22 +1406,25 @@ def lm_bounds(model, cfg, B: int, P: int, G: int, calls):
     return flops / PEAK_TC16 * 1e3, dec_bytes / PEAK_BW * 1e3
 
 
-def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int):
+def serve_family(tag: str, model, cfg, prompts, G: int, want_launches: int,
+                 warm_up: bool = True):
     """``[<tag>.run]`` (a warm-up and a measured run of
     ``launch.serve.generate``: prefill, merge, G greedy decode steps,
     each with the flash kernel's launches and plain calls counted; the
-    warm-up's MoE routes logged for the bounds) and ``[<tag>]``: times
-    beside their bounds (:func:`lm_bounds`), peak memory, and the summed
-    MoE aux of a forward of the same prompts.  Returns the measured
-    run's ``launches``, ``tokens`` and ``timings``."""
+    first run's MoE routes logged for the bounds; no warm-up where
+    ``warm_up`` is false) and ``[<tag>]``: times beside
+    their bounds (:func:`lm_bounds`), peak memory, and the summed MoE aux
+    of a forward of the same prompts.  Returns the measured run's
+    ``launches``, ``tokens`` and ``timings``."""
     from repro_torch.launch import serve as lserve
     from repro_torch.models import transformer as T
     from repro_torch.testing import FlashCounts, MoeLog
     B, P = prompts.shape
     runs, routes = [], MoeLog()
-    for run in ("warm-up", "measured"):
+    plan = ["warm-up"] if warm_up else []
+    for i, run in enumerate(plan + ["measured"]):
         torch.cuda.reset_peak_memory_stats()
-        log = routes if run == "warm-up" else contextlib.nullcontext()
+        log = routes if i == 0 else contextlib.nullcontext()
         with torch.inference_mode(), FlashCounts() as fc, log:
             toks, t = lserve.generate(model, cfg, prompts, G + 1)
         del t["cache"]
@@ -1810,8 +1848,9 @@ def train_phase(dev) -> dict:
 # --------------------------------------------------------------------- #
 
 #: [14.moe]: Qwen3-30B-A3B at full width and depth, MOE_B prompts of
-#: MOE_P tokens, MOE_G greedy decode steps
-MOE_B, MOE_P, MOE_G = 4, 1024, 16
+#: MOE_P tokens, MOE_G greedy decode steps (cut from 16, ~0.13 s a step
+#: in each of its two runs, to pay for phase 17)
+MOE_B, MOE_P, MOE_G = 4, 1024, 4
 #: [14.moe.check], [14.hybrid]: the kernel's prefill against the plain
 #: one on the same weights.  At most this share of (token, choice) routes
 #: may differ in expert or in kept slot (PERF.md states why); the logits
@@ -1821,12 +1860,16 @@ ROUTE_SHARE_BOUND, MOE_CHECK_LAYERS = 0.05, 2
 #: [14.moe.train]: Qwen3-30B-A3B at full width, TRAIN_LAYERS of its 48
 #: layers, TRAIN_B x TRAIN_S tokens, MOE_TRAIN_STEPS steps with the
 #: trainer's schedule, then MOE_LEARN_STEPS on one repeated batch at
-#: LEARN_LR from a fresh state
-MOE_TRAIN_STEPS, MOE_LEARN_STEPS = 3, 3
+#: LEARN_LR from a fresh state (each cut from 3, ~0.18 s a step, to pay
+#: for phase 17)
+MOE_TRAIN_STEPS, MOE_LEARN_STEPS = 2, 2
 #: [14.kimi]: Kimi-K2 at full width, its dense prologue and one MoE layer
 KIMI_LAYERS, KIMI_B, KIMI_P, KIMI_G = 2, 2, 1024, 4
-#: [14.ssm]: Falcon-Mamba-7B at full width and depth
-SSM_B, SSM_P, SSM_G = 4, 1024, 16
+#: [14.ssm]: Falcon-Mamba-7B at full width and depth, served once (its
+#: warm-up, ~8 s repeating the measured prefill and decode, and 12 of its
+#: 16 decode steps, ~48 ms each, were cut to pay for phase 17; the process
+#: is warm from the models before it)
+SSM_B, SSM_P, SSM_G = 4, 1024, 4
 #: [14.ssm.check]: prefill(P) and one decode step against prefill(P + 1),
 #: both within one scan chunk
 SSM_CHECK_P = 192
@@ -1837,8 +1880,9 @@ SSM_STATE_BOUND = 2.0 ** -3
 #: [14.ssm.check] with the weights cast to fp32
 SSM_STATE_BOUND_FP32 = 2.0 ** -10
 #: [14.hybrid]: Jamba-1.5-Large at full width, its first 4 layers (ssm +
-#: dense, ssm + moe, ssm + dense, attention + moe)
-HYB_LAYERS, HYB_B, HYB_P, HYB_G = 4, 2, 1024, 8
+#: dense, ssm + moe, ssm + dense, attention + moe), HYB_G decode steps in
+#: each of its two runs (cut from 8 to pay for phase 17)
+HYB_LAYERS, HYB_B, HYB_P, HYB_G = 4, 2, 1024, 4
 
 
 def family_profile(model, cfg, prompts) -> None:
@@ -2075,10 +2119,11 @@ def lm_families_phase(dev) -> list:
     t_phase = time.perf_counter()
     served = {}                       # (B, Hq, Hkv, S, D) -> [launches, tags]
 
-    def serve(tag, model, cfg, B, P, G):
+    def serve(tag, model, cfg, B, P, G, warm_up=True):
         n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
         prompts = prompts_for(cfg, B, P, dev)
-        out = serve_family(tag, model, cfg, prompts, G, n_attn)
+        out = serve_family(tag, model, cfg, prompts, G, n_attn,
+                           warm_up=warm_up)
         if n_attn:
             shape = (B, cfg.n_heads, cfg.n_kv_heads, P, cfg.head_dim)
             entry = served.setdefault(shape, [0, []])
@@ -2109,7 +2154,8 @@ def lm_families_phase(dev) -> list:
 
     # [14.ssm]: Falcon-Mamba-7B, full width and depth: no TPU kernel
     model, cfg = family_model("14.ssm", "falcon_mamba_7b", dev)
-    prompts = serve("14.ssm", model, cfg, SSM_B, SSM_P, SSM_G)
+    prompts = serve("14.ssm", model, cfg, SSM_B, SSM_P, SSM_G,
+                    warm_up=False)
     phase("14.ssm.kernels", tpu_kernels="none: attention-free, so no flash "
           "launch; the scan and the state hand-off are torch ops")
     family_profile(model, cfg, prompts)
@@ -2144,8 +2190,10 @@ def lm_families_phase(dev) -> list:
 
 #: [15.tp]: Qwen2.5-32B at full width, TP_LAYERS of its 64 layers, bf16,
 #: served by TP_MESH = (data, model) ranks that share the card, LM_B
-#: prompts of LM_P tokens and TP_G greedy decode steps
-TP_LAYERS, TP_MESH, TP_G = 4, (2, 2), 8
+#: prompts of LM_P tokens and TP_G greedy decode steps (cut from 8 to pay
+#: for phase 17: ~1.0 s a step on the ranks under "gspmd", ~0.22 under
+#: "manual")
+TP_LAYERS, TP_MESH, TP_G = 4, (2, 2), 1
 TP_SEED, TP_TIMEOUT = 15, 600
 #: max |logit difference| of the sharded run against the unsharded one
 #: (and of "manual" against "gspmd") on the same bf16 weights, derived as
@@ -2381,18 +2429,22 @@ def tp_check(dev, st: dict, outs: list) -> dict:
 #: control (prefill only, "manual").  Cut to keep the smoke well inside
 #: its time limit: "manual" serves Qwen3-MoE 4 steps and Falcon only in
 #: its control, where "manual" against "gspmd" read 9 routes and exactly
-#: 0 on the card over 8 steps (the CPU tests hold both modes).
-EP_LAYERS, EP_G, EP_SEED = 2, 8, 16
+#: 0 on the card over 8 steps (the CPU tests hold both modes); to pay for
+#: phase 17, "gspmd" (~2.0 and ~0.7 s a step on the ranks) 2 steps, not 8,
+#: and Qwen3-MoE's "manual" (~1.5 s a step) 2, not 4: its decode routes
+#: equal "gspmd"'s (0 of 128 differ on the card), so "gspmd"'s first 2
+#: steps read as "manual"'s did (8 of 128 apart from the unsharded run).
+EP_LAYERS, EP_G, EP_SEED = 2, 2, 16
 EP_MODELS = (("16.ep", "qwen3_moe_30b_a3b", "experts",
-              (("manual", 4), ("gspmd", EP_G))),
+              (("manual", 2), ("gspmd", EP_G))),
              ("16.ssm", "falcon_mamba_7b", "out_proj", (("gspmd", EP_G),)))
 #: the share of decode (token, choice) routes that may differ, all decode
-#: steps together (a few hundred entries): ROUTE_SHARE_BOUND holds the
+#: steps together (128 entries at EP_G steps): ROUTE_SHARE_BOUND holds the
 #: prefill's ~66,000.  Derived before the run that tested it: at the
 #: prefill's ~1.65 % rate, 512 entries moving two at a time (a swap of
 #: two ranks of a token's top-k) have a share of sd ~0.6 %; 2^-3 is
 #: ~18 sd above, and a fault in the decode path of one of the 2 layers
-#: moves ~50 %.
+#: moves ~50 %.  At 128 entries that sd is ~1.6 %, the bound ~7 sd above.
 DECODE_ROUTE_SHARE_BOUND = 2.0 ** -3
 #: each SSM layer's final state of the sharded run against the unsharded
 #: one on the same bf16 weights, ||h_got - h_want|| / ||h_want|| over the
@@ -2701,6 +2753,341 @@ def ep_check(dev, st: dict, outs: list) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------- #
+# 17. dense LM training on the mesh                                       #
+# --------------------------------------------------------------------- #
+
+#: [17.train]: Qwen2.5-32B at full width, TRAIN_LAYERS layers, bf16,
+#: remat, trained by the TP_MESH ranks that share the card under its
+#: config's "gspmd": a global batch of MESH_TRAIN_B x TRAIN_S tokens (each
+#: data row's TRAIN_B x TRAIN_S, [13.run]'s batch), MESH_TRAIN_STEPS steps
+#: at LEARN_LR without warm-up, from the seed MESH_TRAIN_SEED
+MESH_TRAIN_B, MESH_TRAIN_STEPS, MESH_TRAIN_SEED = 4, 2, 17
+#: [17.train]'s tensors held against the unsharded run, one of each spec
+#: kind, and the rows of each (None: whole; the embedding's: the first
+#: step's tokens and MESH_TRAIN_ZERO_ROWS ids it has not, whose gradient
+#: is zero; the head's: MESH_TRAIN_HEAD_ROWS rows of each dp block)
+MESH_TRAIN_TENSORS = ("layers.0.mixer.wq.w", "layers.1.mixer.wo.w",
+                      "layers.0.mixer.wq.b", "layers.0.norm1.scale",
+                      "final_norm.scale", "embed.table", "lm_head.w")
+MESH_TRAIN_ZERO_ROWS, MESH_TRAIN_HEAD_ROWS, MESH_TRAIN_W_ROWS = 8, 64, 256
+#: [17.train]: each spec kind's part of the squared gradient norm (the
+#: square of the ranks' sharding.global_norm of that kind's blocks, which
+#: divides each block's sum of squares by its copies) against the
+#: unsharded gradients', relative: PERF.md states why
+NORM_PART_BOUND = 2.0 ** -4
+#: [17.train]: the masters after the last step, held with
+#: testing.assert_rare_flips: an element "flips" where its move differs
+#: from the unsharded run's by more than MASTER_MOVE_UNIT x lr (a step's
+#: sign flipped: Adam's first steps are about lr sign(g)), and at most
+#: MASTER_FLIP_SHARE of the updated elements may.  The ranks' bf16
+#: activations differ from one card's by about an ulp (two roundings of a
+#: row-parallel sum where one card makes one), so a gradient element's
+#: noise is ~2^-9 of the spread of its terms, and an element whose
+#: gradient lies within that of 0 (~0.8 x 2^-9 ~ 0.16 % of a Gaussian
+#: spread) may step the other way, in either of two steps: ~0.3 %; the
+#: bound is 2.5x that, rounded to a power of two (on the card: 0.16 % of
+#: the final norm's scale, 0.046 % of wq's; PERF.md)
+MASTER_MOVE_UNIT, MASTER_FLIP_SHARE = 1.0, 2.0 ** -7
+
+
+def mesh_train_rows(cfg, batch) -> dict:
+    """``{tensor: global rows or None}`` of MESH_TRAIN_TENSORS (sorted
+    numpy indices): whole, or the rows named above."""
+    toks = np.unique(batch["inputs"])
+    absent = np.setdiff1d(np.arange(cfg.vocab_size), toks)
+    absent = absent[np.linspace(0, len(absent) - 1,
+                                MESH_TRAIN_ZERO_ROWS).astype(int)]
+    half = cfg.d_model // 2
+    head = np.concatenate([np.arange(MESH_TRAIN_HEAD_ROWS),
+                           half + np.arange(MESH_TRAIN_HEAD_ROWS)])
+    w = np.concatenate([np.arange(MESH_TRAIN_W_ROWS),
+                        half + np.arange(MESH_TRAIN_W_ROWS)])
+    rows = {k: None for k in MESH_TRAIN_TENSORS}
+    rows.update({"embed.table": np.union1d(toks, absent), "lm_head.w": head,
+                 "layers.0.mixer.wq.w": w, "layers.1.mixer.wo.w": w})
+    return rows
+
+
+def mesh_train_runs(dev):
+    """[17.unsharded]: the unsharded port's run of [17.train] in this
+    process: ``init_state`` from MESH_TRAIN_SEED, then MESH_TRAIN_STEPS
+    steps on the global batches (the first through
+    ``testing.split_train_step``, the two calls ``make_train_step``
+    makes, to read its gradients; the second through
+    ``make_train_step``), and the unsharded gradient
+    of data row 0's half of the first batch (a control).  Keeps the rows
+    of MESH_TRAIN_TENSORS (gradients, masters before and after), each
+    spec kind's part of the squared gradient norm, the losses and
+    ``grad_norm`` s, then frees the state.  Returns the ranks' run and
+    what :func:`mesh_train_check` holds it to."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.sharding import make_ctx, spec_for
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.optim import adamw as optim
+    from repro_torch.testing import FlashCounts, block_rows, split_train_step
+
+    t_phase = time.perf_counter()
+    full = configs.get_config("qwen2_5_32b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    layout = make_ctx(LmMesh(("data", "model"), TP_MESH, (0, 0), dev,
+                             "gloo-staged"))
+    opt_cfg = optim.AdamWConfig(lr=LEARN_LR)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         global_batch=MESH_TRAIN_B, seed=MESH_TRAIN_SEED)
+    batches = [pipe.batch_at(s) for s in range(MESH_TRAIN_STEPS)]
+    rows = mesh_train_rows(cfg, batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s, held = build_on_card(lambda: ltrain.init_state(
+        torch.Generator(device=dev).manual_seed(MESH_TRAIN_SEED), cfg,
+        opt_cfg, device=dev))
+    model = state["params"]
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+    def windows(tensors):
+        return {k: block_rows(tensors[k], (None,) * len(shapes[k]), None,
+                              rows[k]) for k in MESH_TRAIN_TENSORS}
+
+    start = windows(state["opt"]["master"])
+    # the control: data row 0's half of the first batch, unsharded
+    half = ltrain.to_device({k: v[:MESH_TRAIN_B // TP_MESH[0]]
+                             for k, v in batches[0].items()}, dev)
+    g_half, _ = ltrain.grads_and_metrics(model, cfg, half, impl="pallas")
+    half_w = windows(g_half)
+    del g_half, half
+    got = {}
+    kw = dict(total_steps=MESH_TRAIN_STEPS, warmup=0)
+    step = ltrain.make_train_step(cfg, None, opt_cfg, **kw)
+    metrics, secs = [], []
+    with FlashCounts() as fc:
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                state, m, grads, _ = split_train_step(state, batch, cfg,
+                                                      opt_cfg, **kw)
+            else:
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                got["grad"], parts = windows(grads), {}
+                for k, g in grads.items():
+                    kind = str(spec_for(k, g.dim(), layout))
+                    parts[kind] = parts.get(kind, 0.0) + float(
+                        torch.sum(torch.square(g.float())))
+                got["parts"] = parts
+                del grads
+    end = windows(state["opt"]["master"])
+    phase("17.unsharded", seconds=f"{time.perf_counter() - t_phase:.1f}",
+          model=cfg.name,
+          layers=f"{cfg.n_layers} of {full.n_layers}", batch=MESH_TRAIN_B,
+          seq=TRAIN_S, steps=MESH_TRAIN_STEPS, state_bytes=held,
+          init_s=f"{init_s:.2f}",
+          step_s=json.dumps([round(x, 4) for x in secs]),
+          loss=json.dumps([round(x["loss"], 5) for x in metrics]),
+          grad_norm=json.dumps([round(x["grad_norm"], 5) for x in metrics]),
+          flash_launches=fc.launches, plain_calls=fc.plain_calls,
+          card_peak_bytes=torch.cuda.max_memory_allocated())
+    del state, model, step
+    free_cuda()
+    run = dict(name="train", kind="train", mesh=TP_MESH, mode="gspmd",
+               cfg=cfg, seed=MESH_TRAIN_SEED, batches=batches,
+               opt=dict(lr=LEARN_LR), warmup=0,
+               total_steps=MESH_TRAIN_STEPS, impl="pallas", keep=rows,
+               state_keys=("master",))
+    return [run], dict(cfg=cfg, rows=rows, shapes=shapes, start=start,
+                       end=end, half=half_w, metrics=metrics,
+                       seconds=time.perf_counter() - t_phase, **got)
+
+
+def mesh_train_check(dev, st: dict, outs: list) -> dict:
+    """[17.train]: the ranks' run (``outs``) against
+    :func:`mesh_train_runs`'s ``st``.  Checks: every step's loss
+    (TRAIN_LOSS_BOUND, relative), the first step's gradients of
+    MESH_TRAIN_TENSORS (TRAIN_GRAD_BOUND, per tensor as [13.grad]; the
+    ranks' copies of a replicated block equal), ``grad_norm`` (the same
+    on every rank, within TRAIN_LOSS_BOUND of the unsharded one) and
+    the square of each spec kind's part, the ranks' own
+    ``sharding.global_norm`` of that kind's blocks
+    (``testing.kind_norms``, the same on every rank; NORM_PART_BOUND),
+    the masters
+    after the last step (MASTER_MOVE_UNIT, ``assert_rare_flips``), the
+    ranks' state blocks (``launch.specs.train_state_struct``), 2 flash
+    launches a layer a step on every rank (remat) and 0 plain calls; two
+    controls rejected (data row 0's half-batch gradient; a norm that
+    counts the tp-replicated tensors once a model rank).  Prints each
+    rank's step seconds, collectives' calls, bytes and wire seconds and
+    card peak.  Then [17.flash]: the flash kernel with L at the ranks'
+    shape (B/dp, Hq/tp, Hkv/tp).  Returns that shape's kernel record."""
+    from repro_torch.distributed.sharding import make_ctx, spec_for
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.testing import assemble_rows, assert_rare_flips
+
+    t_phase = time.perf_counter() - st["seconds"]
+    cfg, rows, shapes = st["cfg"], st["rows"], st["shapes"]
+    world = TP_MESH[0] * TP_MESH[1]
+    layout = make_ctx(LmMesh(("data", "model"), TP_MESH, (0, 0), dev,
+                             "gloo-staged"))
+    coords = [o["train.coords"] for o in outs]
+    want_m = st["metrics"]
+
+    def assembled(what, k):
+        spec = spec_for(k, len(shapes[k]), layout)
+        return assemble_rows([o[f"train.{what}.{k}"] for o in outs], coords,
+                             shapes[k], spec, ("data", "model"), TP_MESH,
+                             rows[k])
+
+    def rel(got, want):
+        return {k: float(np.linalg.norm(got[k].astype(np.float64)
+                                        - want[k])
+                         / np.linalg.norm(want[k].astype(np.float64)))
+                for k in want}
+
+    metrics = [o["train.metrics"] for o in outs]
+    same = all(m == metrics[0] for m in metrics)
+    launches = [o["train.flash_launches"] for o in outs]
+    plain = [o["train.plain_calls"] for o in outs]
+    want_l = 2 * cfg.n_layers * MESH_TRAIN_STEPS
+    bad_struct = [o["train.struct_mismatches"] for o in outs]
+    phase("17.train", transport=repr(outs[0]["transport"]),
+          mesh="x".join(map(str, TP_MESH)), batch=MESH_TRAIN_B, seq=TRAIN_S,
+          steps=MESH_TRAIN_STEPS, lr=LEARN_LR,
+          step_s=json.dumps([[round(x, 3) for x in o["train.step_s"]]
+                             for o in outs]),
+          step1_grads_update_s=json.dumps(
+              [round(x, 3) for x in outs[0]["train.step_split_s"]]),
+          step_wire_s=json.dumps([round(x, 3)
+                                  for x in outs[0]["train.step_wire_s"]]),
+          pin_s=json.dumps([round(o["train.pin_s"], 3) for o in outs]),
+          run_s=json.dumps([round(o["train.run_s"], 2) for o in outs]),
+          loss=json.dumps([round(x["loss"], 5) for x in metrics[0]]),
+          grad_norm=json.dumps([round(x["grad_norm"], 5)
+                                for x in metrics[0]]),
+          metrics_equal_on_ranks=same,
+          collective_calls=json.dumps([o["train.calls"] for o in outs]),
+          bytes_in=json.dumps([o["train.bytes_in"] for o in outs]),
+          bytes_out=json.dumps([o["train.bytes_out"] for o in outs]),
+          stage_s=json.dumps([round(o["train.stage_s"], 3) for o in outs]),
+          wire_s=json.dumps([round(o["train.wire_s"], 3) for o in outs]),
+          card_peak_bytes=json.dumps([o.get("train.card_peak_bytes")
+                                      for o in outs]),
+          flash_launches=json.dumps(launches), want=want_l,
+          plain_calls=json.dumps(plain),
+          state_struct_equal=not any(bad_struct))
+    fails = []
+    if not same:
+        fails.append("the ranks' metrics differ")
+    if launches != [want_l] * world or any(plain):
+        fails.append(f"flash launches {launches} (want {want_l} a rank), "
+                     f"plain calls {plain}")
+    if any(bad_struct):
+        fails.append(f"state blocks unlike train_state_struct: {bad_struct}")
+
+    # the loss of every step
+    dl = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+          for g, w in zip(metrics[0], want_m)]
+    ok = max(dl) <= TRAIN_LOSS_BOUND
+    phase("check", what="[17.train] loss of each step vs unsharded",
+          got=json.dumps([round(x["loss"], 5) for x in metrics[0]]),
+          want=json.dumps([round(x["loss"], 5) for x in want_m]),
+          max_rel=f"{max(dl):.3e}", bound=TRAIN_LOSS_BOUND, within=ok)
+    if not ok:
+        fails.append("losses")
+
+    # the first step's gradients
+    grads, equal = {}, {}
+    for k in MESH_TRAIN_TENSORS:
+        grads[k], equal[k] = assembled("grad", k)
+    g_rel = rel(grads, st["grad"])
+    ok = max(g_rel.values()) <= TRAIN_GRAD_BOUND and all(equal.values())
+    phase("check", what="[17.train] step 1 gradients vs unsharded",
+          max_rel=worst(g_rel, len(g_rel)), bound=TRAIN_GRAD_BOUND,
+          copies_equal=json.dumps(equal), embed_rows=len(rows["embed.table"]),
+          head_rows=len(rows["lm_head.w"]), within=ok)
+    if not ok:
+        fails.append("gradients")
+    bad = rel(grads, st["half"])
+    rejected = min(bad.values()) > TRAIN_GRAD_BOUND
+    phase("control", what="[17.train] the unsharded gradient of data row "
+          "0's half of the batch", min_rel=f"{min(bad.values()):.3e}",
+          max_rel=worst(bad), rejected=rejected)
+    if not rejected:
+        fails.append("the half-batch control")
+
+    # grad_norm and each spec kind's part, as the ranks' global_norm gives
+    specs_ = {str(spec_for(k, len(v), layout)): spec_for(k, len(v), layout)
+              for k, v in shapes.items()}
+    norms = [o["train.kind_norms"] for o in outs]
+    parts = {k: v * v for k, v in norms[0].items()}
+    twice = {k: v * (1 if layout.tp in specs_[k] else TP_MESH[1])
+             for k, v in parts.items()}
+    gn = [x["grad_norm"] for x in metrics[0]]
+    dn = abs(gn[0] - want_m[0]["grad_norm"]) / want_m[0]["grad_norm"]
+    p_rel = {k: abs(parts.get(k, 0.0) - v) / v
+             for k, v in st["parts"].items()}
+    ok = (dn <= TRAIN_LOSS_BOUND and max(p_rel.values()) <= NORM_PART_BOUND
+          and set(parts) == set(st["parts"])
+          and all(n == norms[0] for n in norms)
+          and len({o["train.metrics"][0]["grad_norm"] for o in outs}) == 1)
+    phase("check", what="[17.train] step 1 grad_norm, and each spec kind's "
+          "part of its square by the ranks' global_norm, vs unsharded",
+          grad_norm=f"{gn[0]:.6f}",
+          want=f"{want_m[0]['grad_norm']:.6f}", rel=f"{dn:.3e}",
+          bound=TRAIN_LOSS_BOUND, part_rel=worst(p_rel, len(p_rel)),
+          part_bound=NORM_PART_BOUND,
+          part_share=json.dumps({k: f"{v / sum(st['parts'].values()):.3e}"
+                                 for k, v in st["parts"].items()}),
+          within=ok)
+    if not ok:
+        fails.append("grad_norm")
+    t_rel = {k: abs(twice.get(k, 0.0) - v) / v
+             for k, v in st["parts"].items()}
+    rejected = max(t_rel.values()) > NORM_PART_BOUND
+    phase("control", what="[17.train] a norm counting each tp-replicated "
+          "tensor once a model rank", part_rel=worst(t_rel, len(t_rel)),
+          rejected=rejected)
+    if not rejected:
+        fails.append("the norm control")
+
+    # the masters after the last step
+    flips = {}
+    unit = MASTER_MOVE_UNIT * LEARN_LR
+    for k in MESH_TRAIN_TENSORS:
+        got, eq = assembled("master", k)
+        g, w, s0 = (torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            got, st["end"][k], st["start"][k]))
+        far = (g - w).abs() > unit
+        try:
+            flips[k] = assert_rare_flips(torch.where(far, g, w), w, s0,
+                                         what=k, share=MASTER_FLIP_SHARE)
+        except AssertionError as e:
+            flips[k] = str(e)
+            fails.append(f"master {k}")
+        if not eq:
+            fails.append(f"master {k} copies differ")
+    phase("check", what=f"[17.train] masters after step {MESH_TRAIN_STEPS} "
+          f"vs unsharded, moves apart by more than {MASTER_MOVE_UNIT} lr "
+          "(differing, updated)", flips=json.dumps(flips),
+          share_bound=MASTER_FLIP_SHARE,
+          within=not any(isinstance(v, str) for v in flips.values()))
+    if fails:
+        raise AssertionError(f"[17.train]: {fails}")
+
+    # the flash kernel with L at the shape every rank trains it at
+    rec = train_flash_checks(dev, dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // TP_MESH[1],
+        n_kv_heads=cfg.n_kv_heads // TP_MESH[1]), "17", (
+        f"[17.train]: the ranks' training forwards and their recomputation "
+        f"under remat, summed over its {world} ranks"))
+    rec["launches"] = sum(launches)
+    phase("17.done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return rec
+
+
 def mesh_phases(dev) -> list:
     """Phases 15 and 16: their unsharded runs in this process
     (:func:`tp_runs`, :func:`ep_runs`), then all their sharded runs in
@@ -2714,21 +3101,25 @@ def mesh_phases(dev) -> list:
     t0 = time.perf_counter()
     runs15, st15 = tp_runs(dev)
     runs16, st16 = ep_runs(dev)
+    runs17, st17 = mesh_train_runs(dev)
     t_spawn, t1 = time.time(), time.perf_counter()
     outs = spawn_ranks(run_lm_on_mesh, TP_MESH[0] * TP_MESH[1],
-                       runs15 + runs16, None, timeout=TP_TIMEOUT)
+                       runs15 + runs16 + runs17, None, timeout=TP_TIMEOUT)
     spawn_s = time.perf_counter() - t1
 
     def run_s(runs):
         return sum(outs[0][f"{r['name']}.run_s"] for r in runs)
 
-    phase("15.spawn", ranks=len(outs), runs=len(runs15) + len(runs16),
+    phase("15.spawn", ranks=len(outs),
+          runs=len(runs15) + len(runs16) + len(runs17),
           seconds=f"{spawn_s:.1f}", spawn_to_ready_s=(
               f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
           phase15_runs_s=f"{run_s(runs15):.1f}",
-          phase16_runs_s=f"{run_s(runs16):.1f}")
-    recs = [tp_check(dev, st15, outs), ep_check(dev, st16, outs)]
-    phase("15+16.done", seconds=f"{time.perf_counter() - t0:.1f}")
+          phase16_runs_s=f"{run_s(runs16):.1f}",
+          phase17_runs_s=f"{run_s(runs17):.1f}")
+    recs = [tp_check(dev, st15, outs), ep_check(dev, st16, outs),
+            mesh_train_check(dev, st17, outs)]
+    phase("15+16+17.done", seconds=f"{time.perf_counter() - t0:.1f}")
     return recs
 
 

@@ -34,16 +34,10 @@ from ..launch.mesh import LmMesh
 
 Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 
-#: what a sharding context still waits for: training
-TRAIN_ITEM = "ROADMAP Queue 1 item 25 (training with a sharding context)"
-
-
-def no_ctx(ctx, what: str, item: str = TRAIN_ITEM) -> None:
-    """Raise ``NotImplementedError`` naming ``item`` when ``ctx`` is
-    given to ``what``, which does not take one yet."""
-    if ctx is not None:
-        raise NotImplementedError(f"{what} with a sharding context (ctx) is "
-                                  f"not ported yet: {item}; pass ctx=None")
+#: what a sharding context still waits for: training the MoE, SSM and
+#: hybrid families
+TRAIN_ITEM = ("ROADMAP Queue 1 item 26 (MoE, SSM and hybrid training with "
+              "a sharding context)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,3 +193,79 @@ def check_divisible(cfg, ctx: ShardingCtx) -> None:
             raise ValueError(f"{field}={val} is not divisible by the "
                              f"{axis} size {n} (the port does not pad "
                              "uneven shards)")
+
+
+def check_train_ctx(cfg, ctx) -> None:
+    """Raise ``NotImplementedError`` naming :data:`TRAIN_ITEM` when
+    ``ctx`` is given to train a config with a layer other than attention
+    and a SwiGLU (its MoE or Mamba layers have no gradient rules on the
+    mesh yet)."""
+    if ctx is None:
+        return
+    if any(cfg.layer_kind(i) != "attn" or cfg.mlp_kind(i) != "dense"
+           for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"training {cfg.name} with a sharding context (ctx) is not "
+            f"ported yet: {TRAIN_ITEM}; pass ctx=None")
+
+
+def _axes(spec: Spec) -> set:
+    """The mesh axes a spec shards over."""
+    out = set()
+    for a in spec:
+        if a is not None:
+            out.update((a,) if isinstance(a, str) else a)
+    return out
+
+
+def block_shape(shape, spec: Spec, ctx: ShardingCtx) -> Tuple[int, ...]:
+    """The shape of a rank's block of a tensor of ``shape`` under
+    ``spec`` (every rank's is the same: the port does not pad)."""
+    return tuple(n if a is None else n // ctx.mesh.size(a)
+                 for n, a in zip(shape, spec))
+
+
+def copies(spec: Spec, ctx: ShardingCtx) -> int:
+    """How many ranks hold each block of a tensor under ``spec``: the
+    product of the sizes of the mesh axes it leaves out."""
+    used = _axes(spec)
+    return ctx.mesh.size(tuple(a for a in ctx.mesh.axis_names
+                               if a not in used))
+
+
+def reduce_grads(grads: Dict[str, torch.Tensor], ctx: ShardingCtx
+                 ) -> Dict[str, torch.Tensor]:
+    """After a backward on the mesh: the gradients (``{state_dict name:
+    this rank's block}``) of parameters whose spec has no dp axis (norm
+    scales, biases) summed over dp, in fp32 and rounded once, in one
+    collective; the rest (reduce-scattered over dp by their gathers'
+    backward) as they are.  Nothing is summed over tp: a tp-replicated
+    parameter's gradient is already the same on every model rank.
+    Returns a new dict."""
+    dp = set(ctx.dp if isinstance(ctx.dp, tuple) else (ctx.dp,))
+    names = [k for k, g in grads.items()
+             if not dp & _axes(spec_for(k, g.dim(), ctx))]
+    out = dict(grads)
+    if not names or ctx.dp_size == 1:
+        return out
+    flat = ctx.mesh.all_reduce(torch.cat([grads[k].float().reshape(-1)
+                                          for k in names]), ctx.dp)
+    for k, part in zip(names, flat.split([grads[k].numel()
+                                          for k in names])):
+        out[k] = part.reshape(grads[k].shape).to(grads[k].dtype)
+    return out
+
+
+def global_norm(grads: Dict[str, torch.Tensor], ctx: ShardingCtx
+                ) -> torch.Tensor:
+    """The global norm of gradients held as blocks (``{state_dict name:
+    this rank's block}``, after :func:`reduce_grads`): each block's fp32
+    sum of squares divided by its :func:`copies`, summed over the
+    tensors and over every rank, square-rooted.  Every rank gets the
+    same 0-d fp32 value, the unsharded ``optim.adamw.global_norm``'s up
+    to the order of summation."""
+    total = sum(torch.sum(torch.square(g.float()))
+                / copies(spec_for(k, g.dim(), ctx), ctx)
+                for k, g in grads.items())
+    axes = tuple(ctx.mesh.axis_names)
+    return torch.sqrt(ctx.mesh.all_reduce(total.reshape(1), axes)[0])

@@ -388,9 +388,9 @@ class LmMesh:
     return their input.  Under ``"gloo-staged"`` every operand is copied
     to a pinned host buffer and the result back; where nothing is summed
     the tensors travel as their bytes.  ``stats`` counts the calls, the
-    bytes handed in and out, and the host seconds of staging (``stage_s``)
-    and of the collective itself (``wire_s``; under ``"nccl"`` the time
-    to enqueue it)."""
+    bytes handed in and out, and the host seconds of staging (``stage_s``),
+    of pinning new staging buffers (``pin_s``) and of the collective
+    itself (``wire_s``; under ``"nccl"`` the time to enqueue it)."""
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     coords: Tuple[int, ...]
@@ -399,8 +399,9 @@ class LmMesh:
     groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
         default_factory=dict, repr=False)
     stats: Dict[str, float] = dataclasses.field(default_factory=lambda: dict(
-        calls=0, bytes_in=0, bytes_out=0, stage_s=0.0, wire_s=0.0))
-    _pinned: Dict[tuple, torch.Tensor] = dataclasses.field(
+        calls=0, bytes_in=0, bytes_out=0, stage_s=0.0, pin_s=0.0,
+        wire_s=0.0))
+    _pinned: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
     def _key(self, axes: Axes) -> Tuple[str, ...]:
@@ -442,14 +443,24 @@ class LmMesh:
         return self.groups[key]
 
     def _buffer(self, role: str, shape, dtype) -> torch.Tensor:
-        """A pinned host buffer, one per (role, shape, dtype), kept for the
-        mesh's life."""
-        key = (role, tuple(shape), dtype)
-        buf = self._pinned.get(key)
-        if buf is None:
-            buf = self._pinned[key] = torch.empty(shape, dtype=dtype,
-                                                  pin_memory=True)
-        return buf
+        """A pinned host buffer of ``shape`` and ``dtype``: a view of the
+        role's one pinned arena, kept for the mesh's life and pinned anew
+        only when a larger one is asked for, so that a run of many shapes
+        (a training step's gathers and reduce-scatters) pins each role's
+        largest once.  Pinning is slow (about a second a GB where four
+        ranks share a host), and a collective's result is copied to the
+        device before it returns, so the next call may reuse the arena."""
+        n = int(np.prod(shape)) * dtype.itemsize
+        arena = self._pinned.get(role)
+        if arena is None or arena.numel() < n:
+            # release the smaller arena before pinning its successor
+            self._pinned.pop(role, None)
+            del arena
+            t0 = time.perf_counter()
+            arena = self._pinned[role] = torch.empty(n, dtype=torch.uint8,
+                                                     pin_memory=True)
+            self.stats["pin_s"] += time.perf_counter() - t0
+        return arena[:n].view(dtype).view(tuple(shape))
 
     def _host(self, t: torch.Tensor, role: str) -> torch.Tensor:
         """``t`` where the collective reads it: a pinned host copy under

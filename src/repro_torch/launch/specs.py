@@ -1,6 +1,7 @@
-"""Specs for sharded serving: the decode caches' layout (the JAX
-package's ``launch/specs.py::_cache_leaf_spec``/``cache_struct``,
-:82-118).
+"""Specs for sharded serving and training: the decode caches' layout
+(the JAX package's ``launch/specs.py::_cache_leaf_spec``/
+``cache_struct``, :82-118) and the train state's blocks
+(``train_state_struct``, :37).
 
 A KV cache ``(B, S_max, Hkv, D)`` keeps its batch as the batch is laid
 out (:func:`batch_dim_spec`) and shards its sequence axis: over tp when
@@ -11,15 +12,18 @@ shards: a rank's slice is ``ceil(S_max / n)`` positions and the cache
 holds ``n`` slices (the positions past ``S_max`` are never attended).
 An SSM layer's state keeps its batch likewise and shards ``d_inner``
 over tp: the conv history ``(B, K-1, d_inner)`` and the recurrent state
-``(B, d_inner, N)``.  The rest of the reference's module (the dry-run's
-input and state structs) is not ported yet (ROADMAP Queue 1 items 16 and
-17).
+``(B, d_inner, N)``.  A train state's params, m, v and master are
+sharded by the parameters' specs, its step replicated.  The rest of the
+reference's module (the dry-run's input structs) is not ported yet
+(ROADMAP Queue 1 items 16 and 17).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
-from ..distributed.sharding import ShardingCtx, Spec
+import torch
+
+from ..distributed.sharding import ShardingCtx, Spec, block_shape, spec_for
 
 
 class Leaf(NamedTuple):
@@ -108,3 +112,39 @@ def ssm_state_shapes(cfg, B: int, ctx: Optional[ShardingCtx] = None
         rows = B // ctx.dp_size if batch_dim_spec(B, ctx) is not None else B
         di //= ctx.tp_size
     return (rows, cfg.ssm_conv - 1, di), (rows, di, cfg.ssm_state)
+
+
+class StateLeaf(NamedTuple):
+    """A train-state leaf on one rank: its block's shape, its dtype and
+    the spec it is cut by."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Spec
+
+
+def train_state_struct(cfg, ctx: ShardingCtx, opt_cfg
+                       ) -> Dict[str, Dict[str, object]]:
+    """What every rank's train state (``launch.train.init_state(...,
+    ctx=ctx)``) holds, without allocating: ``{"params": {name:
+    StateLeaf}, "opt": {"m", "v"[, "master"]: {name: StateLeaf}, "step":
+    StateLeaf}}``.  Params, m, v and master are the rank's blocks under
+    the parameters' specs (``sharding.spec_for``), in the parameters'
+    dtype, ``opt_cfg.state_dtype`` and ``opt_cfg.master_dtype``; the step
+    is a replicated 0-d int32 (the reference's ``train_state_struct``)."""
+    from ..models.transformer import Transformer
+    model = Transformer(cfg, device="meta")
+
+    def leaves(dtype=None):
+        out = {}
+        for name, p in model.named_parameters():
+            spec = spec_for(name, p.dim(), ctx)
+            out[name] = StateLeaf(block_shape(p.shape, spec, ctx),
+                                  dtype or p.dtype, spec)
+        return out
+
+    opt = {"m": leaves(getattr(torch, opt_cfg.state_dtype)),
+           "v": leaves(getattr(torch, opt_cfg.state_dtype)),
+           "step": StateLeaf((), torch.int32, ())}
+    if opt_cfg.master_dtype is not None:
+        opt["master"] = leaves(getattr(torch, opt_cfg.master_dtype))
+    return {"params": leaves(), "opt": opt}

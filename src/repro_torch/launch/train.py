@@ -12,6 +12,15 @@ CLI (a real small-model training on the card, or ``--device cpu``):
 
 Checkpoints are written in the JAX package's layout
 (``checkpoint.save_train_state``), so either package resumes the other's.
+
+On a (data, model) mesh of ranks (``ctx``, a
+``distributed.sharding.ShardingCtx``; the dense families only), every
+rank calls the same functions with the same whole batch:
+``init_state(..., ctx=ctx)`` draws the whole model and keeps the rank's
+blocks with AdamW's m, v and master of them, and the step computes the
+rank's share of the global loss, sums over dp the gradients no FSDP
+gather has reduced (``sharding.reduce_grads``) and clips by the global
+norm.  The CLI trains without a mesh, as the reference's does.
 """
 from __future__ import annotations
 
@@ -21,8 +30,9 @@ from typing import Dict
 import torch
 
 from .._device import resolve_device
+from ..convert import shard_lm_params
+from ..distributed import sharding
 from ..models import transformer as T
-from ..distributed.sharding import TRAIN_ITEM, no_ctx
 from ..models.config import ModelConfig
 from ..optim import adamw as optim
 from ..optim.schedule import cosine_warmup
@@ -51,7 +61,12 @@ def grads_and_metrics(params: T.Transformer, cfg: ModelConfig, batch, *,
     into that many microbatches run one after another; their gradients
     are summed in fp32, each divided by ``grad_accum``, and the metrics
     averaged (the reference's ``lax.scan``).  Otherwise the gradients are
-    in the parameters' dtype."""
+    in the parameters' dtype.
+
+    With ``ctx``: ``batch`` is the global batch (split into microbatches
+    first, each then cut to the rank's rows), the gradients are the
+    rank's blocks of the global loss's, summed over dp where no gather
+    did (``sharding.reduce_grads``), and the metrics the global ones."""
     named = dict(params.named_parameters())
     B = batch["inputs"].shape[0]
     if B % grad_accum:
@@ -71,22 +86,27 @@ def grads_and_metrics(params: T.Transformer, cfg: ModelConfig, batch, *,
             p.requires_grad_(True)
         if grad_accum == 1:
             grads, metrics = one(batch)
-            return dict(zip(named, grads)), metrics
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in named.items()}
-        sums = dict.fromkeys(METRICS, 0.0)
-        for i in range(grad_accum):
-            grads, metrics = one({k: x[i * n:(i + 1) * n]
-                                  for k, x in batch.items()})
-            for a, g in zip(acc.values(), grads):
-                a.add_(g.float() / grad_accum)
-            del grads
-            for k in METRICS:
-                sums[k] = sums[k] + metrics[k]
+            grads = dict(zip(named, grads))
+        else:
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in named.items()}
+            sums = dict.fromkeys(METRICS, 0.0)
+            for i in range(grad_accum):
+                part, m = one({k: x[i * n:(i + 1) * n]
+                               for k, x in batch.items()})
+                for a, g in zip(grads.values(), part):
+                    a.add_(g.float() / grad_accum)
+                del part
+                for k in METRICS:
+                    sums[k] = sums[k] + m[k]
+            metrics = {k: v / grad_accum for k, v in sums.items()}
     finally:
         for k, p in named.items():
             p.requires_grad_(was[k])
-    return acc, {k: v / grad_accum for k, v in sums.items()}
+    if ctx is not None:
+        grads = sharding.reduce_grads(grads, ctx)
+    return grads, metrics
 
 
 def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
@@ -101,8 +121,16 @@ def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
     shrink by the factor; the arithmetic is the same).  ``batch`` holds
     numpy arrays or tensors; they are moved to the model's device.
     Metrics are 0-d tensors: ``loss``, ``xent``, ``aux_loss``,
-    ``dropped``, ``grad_norm``, ``lr``."""
-    no_ctx(ctx, "make_train_step", TRAIN_ITEM)
+    ``dropped``, ``grad_norm``, ``lr``.
+
+    With ``ctx`` the state is the rank's (``init_state(..., ctx=ctx)``)
+    and every rank runs the step on the same global batch; the metrics
+    are the global batch's, equal on every rank.  Raises ``TypeError``
+    for a ctx that is not a ``ShardingCtx``, ``ValueError`` where the
+    mesh does not divide the config, and ``NotImplementedError`` for an
+    MoE, SSM or hybrid config (``sharding.check_train_ctx``)."""
+    T._check_ctx(cfg, ctx)
+    sharding.check_train_ctx(cfg, ctx)
 
     def train_step(state, batch):
         params = state["params"]
@@ -112,17 +140,26 @@ def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
         lr_scale = cosine_warmup(state["opt"]["step"], base_lr=1.0,
                                  warmup=warmup, total=total_steps)
         _, _, opt_metrics = optim.adamw_update(params, grads, state["opt"],
-                                               opt_cfg, lr_scale=lr_scale)
+                                               opt_cfg, lr_scale=lr_scale,
+                                               ctx=ctx)
         return state, {**metrics, **opt_metrics}
 
     return train_step
 
 
 def init_state(key, cfg: ModelConfig, opt_cfg: optim.AdamWConfig, *,
-               device=None) -> dict:
+               device=None, ctx=None) -> dict:
     """A fresh train state on ``device`` (``None`` = ``"cuda"``): the
-    model from ``init_params(key, cfg)`` and its AdamW state."""
+    model from ``init_params(key, cfg)`` and its AdamW state.  With
+    ``ctx`` the whole model is drawn, then cut to the rank's blocks
+    (``convert.shard_lm_params``), and the AdamW state is of the blocks:
+    its master holds the blocks of the unsharded master
+    (``launch.specs.train_state_struct`` gives their shapes and
+    specs)."""
+    T._check_ctx(cfg, ctx)
     params = T.init_params(key, cfg, device=resolve_device(device))
+    if ctx is not None:
+        params = shard_lm_params(params, cfg, ctx)
     return {"params": params, "opt": optim.adamw_init(params, opt_cfg)}
 
 

@@ -170,7 +170,10 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     With ``ctx``: x is this rank's batch, and the rank's ``Hq/tp`` query
     and ``Hkv/tp`` KV heads are projected (wq, wk, wv gathered over dp),
     attended and summed through the row-parallel wo; the cache holds
-    those KV heads.
+    those KV heads.  Under autograd x enters the model group once
+    (``tp.copy_to_tp``, its gradient summed over tp) and wo's sum passes
+    the gradient to every rank's heads (``tp.psum_tp``), so the flash
+    forward and backward run on the rank's heads only.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -179,8 +182,8 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     if ctx is None:
         proj = [layers.dense(lin, x) for lin in (p.wq, p.wk, p.wv)]
     else:
-        proj = [tp.col_parallel_dense(x, lin.w, ctx, lin.b)
-                for lin in (p.wq, p.wk, p.wv)]
+        proj = tp.col_parallel_many(x, [(lin.w, lin.b)
+                                        for lin in (p.wq, p.wk, p.wv)], ctx)
     q = proj[0].reshape(B, S, hq, hd)
     k = proj[1].reshape(B, S, hkv, hd)
     v = proj[2].reshape(B, S, hkv, hd)

@@ -48,8 +48,16 @@ activations are the rank's rows, whole and the same on every model rank
 (also after the 2-D forms of ``"manual"`` decode), which is the layout
 the MoE takes its tokens in.  An MoE layer's capacity counts the rank's
 tokens, so a sharded run equals the unsharded one on each dp shard's
-rows (on the whole batch where it is replicated).  Training refuses a
-ctx (ROADMAP Queue 1 item 25).
+rows (on the whole batch where it is replicated).
+
+The dense families (every layer attention and a SwiGLU: Qwen2.5,
+Llama-3, Mistral, DeepSeek, Qwen2-VL, MusicGen) also train with a ctx:
+the collectives are differentiable (``distributed.tp``'s ``f``/``g``
+pairs and FSDP gathers), the loss is the vocabulary-parallel
+cross-entropy, and :func:`loss_and_metrics` returns the rank's share of
+the global loss (``launch.train`` sums the gradients over dp:
+``sharding.reduce_grads``).  A forward under autograd with a ctx for an
+MoE, SSM or hybrid config raises (ROADMAP Queue 1 item 26).
 """
 from __future__ import annotations
 
@@ -61,8 +69,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..distributed import tp
-from ..distributed.sharding import (TRAIN_ITEM, ShardingCtx,
-                                    check_divisible, no_ctx)
+from ..distributed.sharding import (ShardingCtx, check_divisible,
+                                    check_train_ctx)
 from ..launch import specs
 from . import attention, layers, mamba, moe, rope
 from .attention import KVCache
@@ -262,10 +270,9 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     ctx, the rank's blocks (see the module's docstring; ``positions``
     too are the whole batch's)."""
     _check_ctx(cfg, ctx)
-    if ctx is not None and torch.is_grad_enabled() and any(
-            p.requires_grad for p in params.parameters()):
-        raise NotImplementedError(f"gradients through a sharding context "
-                                  f"are not ported yet: {TRAIN_ITEM}")
+    if torch.is_grad_enabled() and any(p.requires_grad
+                                       for p in params.parameters()):
+        check_train_ctx(cfg, ctx)
     x = _embed_inputs(params, cfg, inputs, ctx)
     B, S = x.shape[:2]
     if positions is None:
@@ -277,13 +284,14 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_sum: Dict[str, Any] = {"aux_loss": zero, "dropped": zero}
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
+    batch = inputs.shape[0]
     for layer in params.layers:
         if remat:
-            x, aux = checkpoint(_layer_out, layer, x, angles, impl,
-                                use_reentrant=False)
+            x, aux = checkpoint(_layer_out, layer, x, angles, impl, ctx,
+                                batch, use_reentrant=False)
         else:
             x, cache, aux = layer(x, angles=angles, impl=impl, ctx=ctx,
-                                  batch=inputs.shape[0])
+                                  batch=batch)
             if want_cache:
                 caches.append(cache)
         if aux is not None:
@@ -297,10 +305,12 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     return logits, (caches if want_cache else None), aux_sum
 
 
-def _layer_out(layer: DecoderLayer, x, angles, impl):
+def _layer_out(layer: DecoderLayer, x, angles, impl, ctx, batch):
     """The layer's output and aux (remat's checkpointed function: the
-    aux must come out of it, or remat would drop the MoE's loss)."""
-    x, _, aux = layer(x, angles=angles, impl=impl)
+    aux must come out of it, or remat would drop the MoE's loss; with a
+    ctx its recomputation gathers the weights again, every rank in the
+    same order)."""
+    x, _, aux = layer(x, angles=angles, impl=impl, ctx=ctx, batch=batch)
     return x, aux
 
 
@@ -310,14 +320,32 @@ def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
     the model's device.  Returns ``(loss, {"loss", "xent", "aux_loss",
     "dropped"})``, 0-d fp32 tensors; ``aux_loss`` and ``dropped`` are
     summed over the MoE layers (zeros without any), and ``loss`` is
-    ``xent + aux_weight * aux_loss``."""
-    no_ctx(ctx, "loss_and_metrics", TRAIN_ITEM)
+    ``xent + aux_weight * aux_loss``.
+
+    With ``ctx`` (dense configs: ``sharding.check_train_ctx``): the batch
+    is the whole batch on every rank (``labels`` cut to the rank's rows
+    as ``inputs`` are), ``params`` the rank's blocks, and the
+    cross-entropy vocabulary-parallel
+    (``tp.vocab_parallel_cross_entropy``).  The metrics are the global
+    batch's, the same on every rank; the first element is this rank's
+    share of the global loss, whose sum over dp is the loss (its token
+    sum over the global count, or the loss over dp where the batch is
+    replicated), so the gradients summed over dp
+    (``sharding.reduce_grads``) are the global loss's."""
+    _check_ctx(cfg, ctx)
     logits, _, aux = forward(params, cfg, batch["inputs"],
                              positions=batch.get("positions"), ctx=ctx,
                              impl=impl)
-    xent = layers.cross_entropy(logits, batch["labels"])
-    loss = xent + aux_weight * aux["aux_loss"]
-    return loss, {"loss": loss, "xent": xent, **aux}
+    if ctx is None:
+        xent = layers.cross_entropy(logits, batch["labels"])
+        loss = xent + aux_weight * aux["aux_loss"]
+        return loss, {"loss": loss, "xent": xent, **aux}
+    share, xent = tp.vocab_parallel_cross_entropy(
+        logits, tp.local_batch(batch["labels"], ctx), ctx,
+        sharded=tp.batch_sharded(batch["inputs"].shape[0], ctx))
+    share = share + aux_weight * aux["aux_loss"] / ctx.dp_size
+    loss = xent + aux_weight * aux["aux_loss"].detach()
+    return share, {"loss": loss, "xent": xent, **aux}
 
 
 def prefill(params: Transformer, cfg: ModelConfig, inputs, *,

@@ -16,6 +16,12 @@ arithmetic is the reference's, operation for operation (the clip
 fp32, ``master - lr (m^ / (sqrt(v^) + eps) + wd master)``).  It is not
 ``torch.optim.AdamW``, whose decoupled decay rounds differently and which
 keeps neither a master copy nor bf16 state.
+
+On a mesh (``ctx``, a ``distributed.sharding.ShardingCtx``) the
+parameters, gradients, m, v and master are each rank's blocks under the
+parameters' specs; only the clip is global, from
+``sharding.global_norm``, so every rank gets the same ``grad_norm`` and
+clip and the update is the unsharded one, block by block.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+
+from ..distributed import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +80,13 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0, *,
+                 ctx=None):
     """One AdamW step.  Updates ``params`` and ``state`` in place and
     returns ``(params, state, metrics)``, metrics ``{"grad_norm", "lr"}``
     as 0-d fp32 tensors.  ``lr_scale`` is a number or a 0-d tensor (a
-    schedule's value)."""
+    schedule's value).  With ``ctx`` everything is this rank's blocks
+    and the clip uses the global norm of all ranks' blocks."""
     ps = named(params)
     if set(grads) != set(ps):
         raise ValueError(f"grads for {sorted(set(grads) ^ set(ps))} do not "
@@ -84,7 +94,10 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     dev = _device(ps)
     state["step"] += 1
     step = state["step"].to(torch.float32)
-    gnorm = global_norm(grads[k] for k in ps)
+    if ctx is None:
+        gnorm = global_norm(grads[k] for k in ps)
+    else:
+        gnorm = sharding.global_norm({k: grads[k] for k in ps}, ctx)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.grad_clip else 1.0)
     b1, b2 = cfg.b1, cfg.b2

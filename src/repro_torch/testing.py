@@ -110,18 +110,20 @@ def flips(got: torch.Tensor, want: torch.Tensor, start: torch.Tensor
 
 
 def assert_rare_flips(got: torch.Tensor, want: torch.Tensor,
-                      start: torch.Tensor, what: str = "") -> tuple:
+                      start: torch.Tensor, what: str = "",
+                      share: float = FLIP_SHARE) -> tuple:
     """Raise unless both are finite and ``got`` differs from ``want`` on
-    at most ``FLIP_SLACK + FLIP_SHARE * changed`` elements
-    (:func:`flips`); return ``(differing, changed)``."""
+    at most ``FLIP_SLACK + share * changed`` elements (:func:`flips`;
+    ``share`` is :data:`FLIP_SHARE` unless the caller states its own);
+    return ``(differing, changed)``."""
     if not (bool(torch.isfinite(got).all())
             and bool(torch.isfinite(want).all())):
         raise AssertionError(f"{what}: non-finite values")
     differing, changed = flips(got, want, start)
-    if differing > FLIP_SLACK + FLIP_SHARE * changed:
+    if differing > FLIP_SLACK + share * changed:
         raise AssertionError(
             f"{what}: {differing} elements differ of {changed} updated "
-            f"(bound {FLIP_SLACK} + {FLIP_SHARE:g} x updated)")
+            f"(bound {FLIP_SLACK} + {share:g} x updated)")
     return differing, changed
 
 
@@ -718,6 +720,264 @@ def _lm_weights(run: dict, cfg, ctx, dev):
     return model, other, param_fingerprint(model)
 
 
+def split_train_step(state, batch, cfg, opt_cfg, *, ctx=None,
+                     impl: str = "pallas", grad_accum: int = 1,
+                     warmup: int = 100, total_steps: int = 10000):
+    """One step of ``launch.train.make_train_step(cfg, ctx, opt_cfg,
+    ...)`` made of the two public calls that step makes,
+    ``launch.train.grads_and_metrics`` and then
+    ``optim.adamw.adamw_update(ctx=ctx)``, so that a caller reads the
+    step's gradients as the update was given them.  Returns ``(state,
+    metrics, grads, (grads_s, update_s))``: the seconds of each part,
+    the device synchronised between them."""
+    from .launch import train as ltrain
+    from .optim import adamw
+    from .optim.schedule import cosine_warmup
+
+    params = state["params"]
+    dev = params.lm_head.w.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.perf_counter()
+    grads, metrics = ltrain.grads_and_metrics(
+        params, cfg, ltrain.to_device(batch, dev), ctx=ctx, impl=impl,
+        grad_accum=grad_accum)
+    sync()
+    t1 = time.perf_counter()
+    lr_scale = cosine_warmup(state["opt"]["step"], base_lr=1.0,
+                             warmup=warmup, total=total_steps)
+    _, _, opt_metrics = adamw.adamw_update(params, grads, state["opt"],
+                                           opt_cfg, lr_scale=lr_scale,
+                                           ctx=ctx)
+    sync()
+    return (state, {**metrics, **opt_metrics}, grads,
+            (t1 - t0, time.perf_counter() - t1))
+
+
+def kind_norms(grads, ctx) -> dict:
+    """``{str(spec): sharding.global_norm of the gradients of that spec
+    kind}`` (``grads``: ``{state_dict name: this rank's block}``), the
+    kinds in sorted order on every rank: each kind's part of the global
+    norm, as the program computes it."""
+    from .distributed.sharding import global_norm, spec_for
+    kinds = {}
+    for k, g in grads.items():
+        kinds.setdefault(str(spec_for(k, g.dim(), ctx)), {})[k] = g
+    return {kind: float(global_norm(kinds[kind], ctx))
+            for kind in sorted(kinds)}
+
+
+def block_rows(t: torch.Tensor, spec, ctx, rows=None):
+    """A rank's block ``t`` of a tensor cut by ``spec`` (dim 0 of at most
+    two), restricted to the global rows ``rows`` (a sorted numpy array of
+    indices along dim 0; ``None``: all) that lie in the block, as an fp32
+    numpy copy: what :func:`assemble_rows` puts back together.  ``ctx``
+    may be ``None`` where ``spec`` leaves dim 0 whole."""
+    import numpy as np
+    if rows is None:
+        return np.array(t.detach().float().cpu().numpy())
+    n0 = t.shape[0]
+    lo = 0 if spec[0] is None else ctx.mesh.index(spec[0]) * n0
+    mine = rows[(rows >= lo) & (rows < lo + n0)] - lo
+    return t.detach()[torch.from_numpy(mine).to(t.device)].float().cpu(
+        ).numpy()
+
+
+def assemble_rows(parts, coords, shape, spec, axis_names, mesh_shape,
+                  rows=None):
+    """The whole tensor (or its global ``rows``) from every rank's
+    :func:`block_rows` (``parts``, in rank order, ranks at ``coords`` on
+    a mesh of ``axis_names`` and ``mesh_shape``), fp32 numpy.  Returns
+    ``(array, copies_equal)``: whether every rank that holds a block
+    holds the same values (replicated copies equal)."""
+    import numpy as np
+
+    def size_index(axes, c):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        pos = [axis_names.index(a) for a in axis_names if a in axes]
+        return (int(np.prod([mesh_shape[i] for i in pos])),
+                int(np.ravel_multi_index([c[i] for i in pos],
+                                         [mesh_shape[i] for i in pos])))
+    n_rows = shape[0] if rows is None else len(rows)
+    out = np.zeros((n_rows,) + tuple(shape[1:]), np.float32)
+    seen = np.zeros(out.shape, bool)
+    equal = True
+    for part, c in zip(parts, coords):
+        sl = []
+        for dim, axes in enumerate(spec):
+            n = shape[dim]
+            if axes is None:
+                sl.append((0, n))
+            else:
+                k, i = size_index(axes, c)
+                sl.append((i * n // k, (i + 1) * n // k))
+        if rows is None:
+            idx = np.arange(sl[0][0], sl[0][1])
+        else:
+            idx = np.nonzero((rows >= sl[0][0]) & (rows < sl[0][1]))[0]
+        key = (idx,) + tuple(slice(a, b) for a, b in sl[1:])
+        old, had = out[key], seen[key]
+        equal &= bool(np.array_equal(old[had], part[had]))
+        out[key] = part
+        seen[key] = True
+    return out, equal
+
+
+def _train_case(run: dict, mesh, ctx, out: dict) -> None:
+    """A ``"train"`` case of :func:`run_lm_on_mesh`: see there."""
+    import dataclasses
+
+    from .convert import lm_params_from_reference, shard_lm_params
+    from .distributed.sharding import spec_for
+    from .launch import specs
+    from .launch import train as ltrain
+    from .optim import adamw
+
+    name, dev = run["name"], mesh.device
+    cfg = dataclasses.replace(run["cfg"], tp_collectives=run["mode"],
+                              **run.get("cfg_kw", {}))
+    opt_cfg = adamw.AdamWConfig(**run.get("opt", {}))
+    keep = run.get("keep")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if "params" in run:
+        full = lm_params_from_reference(run["params"], cfg, device="cpu")
+        params = shard_lm_params(full, cfg, ctx, device=dev)
+        del full
+        state = {"params": params, "opt": adamw.adamw_init(params, opt_cfg)}
+    else:
+        state = ltrain.init_state(torch.Generator(device=dev).manual_seed(
+            run["seed"]), cfg, opt_cfg, device=dev, ctx=ctx)
+    want = specs.train_state_struct(cfg, ctx, opt_cfg)
+    have = {"params": dict(state["params"].named_parameters()),
+            **{o: state["opt"][o] for o in ("m", "v", "master")
+               if o in state["opt"]}}
+    wanted = {"params": want["params"],
+              **{o: want["opt"][o] for o in ("m", "v", "master")
+                 if o in want["opt"]}}
+    bad = [f"{part}/{k}" for part, leaves in wanted.items()
+           for k, leaf in leaves.items()
+           if (tuple(have[part][k].shape), have[part][k].dtype)
+           != (leaf.shape, leaf.dtype)]
+    st, leaf = state["opt"]["step"], want["opt"]["step"]
+    if set(have) != set(wanted) or (tuple(st.shape), st.dtype) != (
+            leaf.shape, leaf.dtype):
+        bad.append("parts or step")
+    out[f"{name}.struct_mismatches"] = bad
+    names = [k for k, _ in state["params"].named_parameters()]
+    specs_of = {k: spec_for(k, p.dim(), ctx)
+                for k, p in state["params"].named_parameters()}
+
+    def window(prefix, tensors):
+        for k in (names if keep is None else keep):
+            rows = None if keep is None else keep[k]
+            out[f"{name}.{prefix}.{k}"] = block_rows(tensors[k],
+                                                     specs_of[k], ctx, rows)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    kw = dict(impl=run.get("impl", "pallas"),
+              total_steps=run.get("total_steps", 10),
+              warmup=run.get("warmup", 0),
+              grad_accum=run.get("grad_accum", 1))
+    step = ltrain.make_train_step(cfg, ctx, opt_cfg, **kw)
+    for k in mesh.stats:
+        mesh.stats[k] = 0
+    metrics, secs, wire = [], [], []
+    with FlashCounts() as fc:
+        for i, batch in enumerate(run["batches"]):
+            sync()
+            w0 = mesh.stats["wire_s"]
+            t0 = time.perf_counter()
+            if i == 0:
+                # the first step through the calls make_train_step makes,
+                # to read its gradients; the rest as a user runs them
+                state, m, grads, split = split_train_step(
+                    state, batch, cfg, opt_cfg, ctx=ctx, **kw)
+            else:
+                state, m = step(state, batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            wire.append(mesh.stats["wire_s"] - w0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                # read outside the steps' collective counters
+                counted = dict(mesh.stats)
+                window("grad", grads)
+                out[f"{name}.kind_norms"] = kind_norms(grads, ctx)
+                mesh.stats.update(counted)
+                del grads
+    out[f"{name}.names"] = names
+    out[f"{name}.metrics"] = metrics
+    out[f"{name}.step_s"] = secs
+    out[f"{name}.step_split_s"] = list(split)
+    out[f"{name}.step_wire_s"] = wire
+    out[f"{name}.flash_launches"] = fc.launches
+    out[f"{name}.plain_calls"] = fc.plain_calls
+    out.update({f"{name}.{k}": v for k, v in mesh.stats.items()})
+    for part in run.get("state_keys", ("params", "m", "v", "master")):
+        window(part, have[part])
+    out[f"{name}.step"] = int(state["opt"]["step"])
+    if dev.type == "cuda":
+        out[f"{name}.card_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+
+def _tp_grad_case(run: dict, ctx, put, arr, rng) -> None:
+    """A ``"tp_grad"`` case of :func:`run_lm_on_mesh`: see there."""
+    from .distributed import tp
+    from .distributed.sharding import shard_tensor
+
+    B, S, d, f, V = run["B"], 3, 8, 12, 16
+    x, xf = arr(B, S, d), arr(B, S, f)
+    w_col, w_row, b_col, b_row = arr(d, f), arr(f, d), arr(f), arr(d)
+    table, logits = arr(V, d), arr(B, S, V, scale=3.0)
+    ct_col, ct_row, ct_emb = arr(B, S, f), arr(B, S, d), arr(B, S, d)
+    tokens = torch.from_numpy(rng.integers(0, V, (B, S))).to(x.device)
+    labels = torch.from_numpy(rng.integers(0, V, (B, S))).to(x.device)
+    labels[0, :2] = -100
+    sharded = tp.batch_sharded(B, ctx)
+    share = 1.0 if sharded else 1.0 / ctx.dp_size
+
+    def block(t, *spec):
+        return shard_tensor(t, spec, ctx).clone().requires_grad_(True)
+
+    def rows(t):
+        return tp.local_batch(t, ctx)
+
+    xl, xfl = block(rows(x), None, None, None), block(
+        rows(xf), None, None, ctx.tp)
+    wc, wr = block(w_col, ctx.dp, ctx.tp), block(w_row, ctx.tp, ctx.dp)
+    bc, br = block(b_col, ctx.tp), block(b_row, None)
+    y = tp.col_parallel_dense(xl, wc, ctx, bc)
+    y.backward(shard_tensor(rows(ct_col), (None, None, ctx.tp), ctx) * share)
+    for key, t in (("x", xl), ("w", wc), ("b", bc)):
+        put(f"col.{key}", t.grad)
+    for mode in ("manual", "gspmd"):
+        for t in (xfl, wr, br):
+            t.grad = None
+        y = tp.row_parallel_dense(xfl, wr, ctx, br, collectives=mode)
+        y.backward(rows(ct_row) * share)
+        for key, t in (("x", xfl), ("w", wr), ("b", br)):
+            put(f"row_{mode}.{key}", t.grad)
+    tab = block(table, ctx.tp, ctx.dp)
+    emb = tp.vocab_parallel_embed(tab, rows(tokens), ctx)
+    emb.backward(rows(ct_emb) * share)
+    put("embed.table", tab.grad)
+    lg = block(rows(logits), None, None, ctx.tp)
+    loss, xent = tp.vocab_parallel_cross_entropy(lg, rows(labels), ctx,
+                                                 sharded=sharded)
+    loss.backward()
+    put("xent.logits", lg.grad)
+    put("xent.value", xent)
+    put("xent.share", loss)
+
+
 def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
     """One case of :func:`run_lm_on_mesh`, its results under
     ``out[run["name"] + "." + ...]``."""
@@ -775,6 +1035,10 @@ def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
         put("embed", tp.vocab_parallel_embed(tab, tp.local_batch(tokens,
                                                                  ctx), ctx))
         put("embed_2dtp", tp.vocab_parallel_embed_2dtp(tab, tokens, ctx))
+    elif kind == "tp_grad":
+        _tp_grad_case(run, ctx, put, arr, rng)
+    elif kind == "train":
+        _train_case(run, mesh, ctx, out)
     elif kind == "decode_attention":
         B, Hq, Hkv, S, D, cur = 2, 4, 2, 64, 16, run["cur_len"]
         q = arr(B, Hq, D, scale=0.5)
@@ -828,6 +1092,32 @@ def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
       W (32, 12 M) (``dtype`` optional);
     * ``"tp"``: each primitive of ``distributed.tp`` on seeded inputs
       with a batch of ``B``;
+    * ``"tp_grad"``: the backward of ``col_parallel_dense``,
+      ``row_parallel_dense`` (both ``collectives``),
+      ``vocab_parallel_embed`` and ``vocab_parallel_cross_entropy`` on
+      seeded inputs and cotangents with a batch of ``B`` (each rank's
+      cotangent its block of the whole one, over ``dp`` where the batch
+      is replicated, as the loss's share is): the gradient blocks, and
+      the cross-entropy's value and share;
+    * ``"train"``: ``launch.train.make_train_step(cfg, ctx, ...)`` under
+      ``tp_collectives=mode`` (``cfg_kw`` replaces more fields) with
+      AdamW ``opt`` (``AdamWConfig`` keywords), ``warmup``,
+      ``total_steps``, ``grad_accum`` and ``impl``, one step for each of
+      ``batches`` (global batches, numpy), from the rank's blocks of the
+      reference's tree ``params`` or from ``init_state(seed, ctx=ctx)``:
+      each step's metrics, seconds and its collectives' wire seconds
+      (``step_wire_s``), the first step (:func:`split_train_step`, the
+      later ones through ``make_train_step``) split into its gradients
+      (forward, backward and the sums over dp) and its update
+      (``step_split_s``), that step's gradients and the state after the
+      last step (``state_keys`` of ``params``, ``m``, ``v``, ``master``)
+      as :func:`block_rows` (the rows ``keep[name]`` of the tensors
+      ``keep`` names, else every tensor whole), each spec kind's part of
+      the first step's global gradient norm (:func:`kind_norms`), the
+      state's leaves that
+      differ from ``launch.specs.train_state_struct``
+      (``struct_mismatches``), the flash launches and plain calls and the
+      collective counters of the steps, the card's peak;
     * ``"decode_attention"``: ``decode_attention_sharded`` over the
       model axis on a seeded cache (B 2, Hq 4, Hkv 2, S 64, D 16) at
       ``cur_len``;
@@ -840,7 +1130,7 @@ def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
       with those blocks replaced by the next model rank's.
 
     Returns the rank's blocks of each result (numpy, fp32) under
-    ``"<name>.<what>"``: a serve run's :func:`serve_record` (tokens,
+    ``"<name>.<what>"``: a train run's as above, a serve run's :func:`serve_record` (tokens,
     logits, routes and their digests, the prefill's aux, SSM states,
     timings, flash launches and plain calls), the mesh's collective
     counters, the weights' fingerprint (:func:`param_fingerprint`) and

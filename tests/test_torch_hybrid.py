@@ -549,7 +549,8 @@ def test_a_sharding_context_still_raises():
     24: on a mesh of one rank (no process group) ``forward``,
     ``decode_step`` and ``moe_apply`` serve and equal the unsharded ones
     bitwise (``tests/test_torch_lm_ep_spmd.py`` serves on 4 ranks).
-    Training still raises (item 25), also a forward under autograd."""
+    Training them with a ctx still raises (item 26), also a forward under
+    autograd."""
     from repro_torch.distributed.sharding import make_ctx
     from repro_torch.launch.mesh import make_test_mesh
     ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
@@ -565,10 +566,10 @@ def test_a_sharding_context_still_raises():
                                                   ctx=c), 0, ctx=c)[0]
                      for c in (None, ctx)]
         assert torch.equal(steps[1], steps[0])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
             ttrain.make_train_step(cfg, ctx, TA.AdamWConfig())
         model.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
             TT.forward(model, cfg, x, ctx=ctx)
     cfg = tconfigs.get_smoke_config("qwen3_moe_30b_a3b")
     layer = TT.init_params(0, cfg, device=CPU).layers[0]

@@ -407,18 +407,38 @@ def test_training_runs_the_moe_and_ssm_families(arch):
     assert float(m["loss"]) == pytest.approx(
         float(m["xent"]) + 0.01 * float(m["aux_loss"]), rel=1e-6)
     assert (float(m["aux_loss"]) > 0) == bool(cfg.n_experts)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
-        ttrain.make_train_step(cfg, object(), opt)
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_test_mesh
+    ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
+        ttrain.make_train_step(cfg, ctx, opt)
 
 
 def test_training_refuses_a_sharding_context():
+    """A ctx that is not a ``ShardingCtx`` raises ``TypeError`` in
+    ``make_train_step``, ``init_state`` and ``loss_and_metrics``; a
+    real one on a mesh of one rank trains the dense smoke model to the
+    same gradients as no ctx (``tests/test_torch_lm_train_spmd.py``
+    trains on 4 ranks)."""
+    from repro_torch.distributed.sharding import make_ctx
+    from repro_torch.launch.mesh import make_test_mesh
     cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+    with pytest.raises(TypeError, match="ShardingCtx"):
         ttrain.make_train_step(cfg, object(), TA.AdamWConfig())
+    with pytest.raises(TypeError, match="ShardingCtx"):
+        ttrain.init_state(0, cfg, TA.AdamWConfig(), device=CPU,
+                          ctx=object())
     model = TT.init_params(0, cfg, device=CPU)
     batch = ttrain.to_device(_batch(cfg), CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 25"):
+    with pytest.raises(TypeError, match="ShardingCtx"):
         TT.loss_and_metrics(model, cfg, batch, ctx=object())
+    ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
+    want, wm = ttrain.grads_and_metrics(model, cfg, batch)
+    got, gm = ttrain.grads_and_metrics(model, cfg, batch, ctx=ctx)
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-6)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 # --------------------------------------------------------------------- #
