@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # Netflix x 0.1, k=100, p=8, 3 epochs;
                                      # Qwen2.5-32B serving and training;
                                      # the MoE, SSM and hybrid LMs;
-                                     # the LMs on 4 ranks (serving,
-                                     # and Qwen2.5-32B training);
+                                     # the LMs on 4 ranks (serving;
+                                     # Qwen2.5-32B, Qwen3-MoE and
+                                     # Falcon-Mamba training);
                                      # streaming; then
                                      # the full Netflix size: NOMAD, its
                                      # SPMD executor in 8 ranks, then the
@@ -219,9 +220,9 @@ Phases, one line each (any failure raises and exits non-zero):
    split into forward, backward and optimizer, then a repeated batch
    whose loss must fall); ``[14.kimi]``: Kimi-K2's dense prologue and one
    384-expert layer with its shared expert, 2 prompts of 1,024 tokens, 4
-   decode steps; ``[14.ssm]``: Falcon-Mamba-7B at full depth (64
-   layers), 4 prompts of 1,024 tokens, 4 decode steps, once, with no
-   warm-up run (no TPU kernel:
+   decode steps; ``[14.ssm]``: Falcon-Mamba-7B at full width, 32 of its
+   64 layers (64 before phase 18 came), 4 prompts of 1,024 tokens, 4
+   decode steps, once, with no warm-up run (no TPU kernel:
    attention-free), and ``[14.ssm.check]``: prefill of 192 tokens and a
    decode step against the prefill of 193 (logits and each layer's
    state, printed layer by layer), with a control (the states zeroed),
@@ -235,8 +236,8 @@ Phases, one line each (any failure raises and exits non-zero):
    its plain version with two controls, its time beside its bound, the
    plain version's and SDPA's: each shape a kernel record of its own,
    whose launches are its models' measured prefills.
-15. sharded LM serving (after phase 14): Qwen2.5-32B at full width, 4 of
-   its 64 layers, bf16, seeded, served unsharded in this process
+15. sharded LM serving (after phase 14): Qwen2.5-32B at full width, 2 of
+   its 64 layers (4 before phase 18 came), bf16, seeded, served unsharded in this process
    (``launch.serve.generate``, 4 prompts of 1,024 tokens, 1 greedy
    decode step, every step's logits kept), then by 4 ranks on a (2, 2)
    (data, model) mesh started by ``launch.mesh.spawn_ranks`` (they share
@@ -305,6 +306,41 @@ Phases, one line each (any failure raises and exits non-zero):
    plain version with a control, beside its bound, the torch-ops
    backward's and SDPA's times, a kernel record whose launches are the
    ranks'.
+18. MoE and SSM training on the same mesh (in phase 15's spawn, after
+   phase 17): ``[18.moe.train]`` Qwen3-30B-A3B (128 experts, top-8; 64
+   a model rank) and ``[18.ssm.train]`` Falcon-Mamba-7B (``d_inner``
+   8,192; 4,096 a model rank), each at full width, 2 layers, bf16,
+   ``remat``, ``"gspmd"``, seeded, first run unsharded in this process on
+   each data row's rows of a global batch of 4 x 1,024 tokens and
+   combined as the sharded loss combines them
+   (``testing.row_oracle``; ``[18.*.unsharded]``, the state freed), then
+   one step by the 4 ranks through ``init_state(ctx=)`` and the two calls
+   ``make_train_step(cfg, ctx, ...)`` makes (``testing.split_train_step``),
+   after gradient passes on the same state: Qwen3-MoE's routers'
+   gradients of the aux term alone (every label ignored, aux_weight 1);
+   two controls, each a backward of the step's loss in which one kind of
+   ``tp.copy_to_tp`` passes on the rank's own gradient instead of the
+   model group's sum (``testing.unsum_over_tp``): Qwen3-MoE's routers'
+   with the combine weights' (``testing.combine_weights``), Falcon's
+   ``x_proj``'s with the one after the sum of its partials
+   (``testing.x_proj_partials``).
+   Checks: the loss; the gradients of one tensor of each spec kind (the
+   router, the experts, ``x_proj``, ``dt_proj``, ``A_log`` among them),
+   each as one tensor, an MoE layer's within a bound that holds moved
+   routes; ``grad_norm`` (equal on every rank) and each spec kind's part
+   by ``sharding.global_norm``; the state blocks; 2 flash launches a
+   layer on every rank for Qwen3-MoE, 0 for Falcon, 0 plain calls; the
+   aux term's router gradients; and the controls (the norm counting the
+   tp-replicated tensors once a model rank; the routers' gradients with
+   the combine weights' sum over tp dropped, against the MoE layers'
+   bound; each model rank's unsummed ``x_proj`` gradient).  Prints each
+   rank's step seconds (its gradients and its update), the gradient
+   passes', wire seconds, bytes and card peak (the step's, and each
+   pass's apart); then
+   the flash kernel with ``L`` at the Qwen3-MoE ranks' training shape
+   (B=2, Hq=16, Hkv=2) against its plain version with a control, beside
+   its bound, the torch-ops backward's and SDPA's times, a kernel record
+   whose launches are the ranks' (``[18.flash]``).
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -316,6 +352,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1865,11 +1902,13 @@ ROUTE_SHARE_BOUND, MOE_CHECK_LAYERS = 0.05, 2
 MOE_TRAIN_STEPS, MOE_LEARN_STEPS = 2, 2
 #: [14.kimi]: Kimi-K2 at full width, its dense prologue and one MoE layer
 KIMI_LAYERS, KIMI_B, KIMI_P, KIMI_G = 2, 2, 1024, 4
-#: [14.ssm]: Falcon-Mamba-7B at full width and depth, served once (its
-#: warm-up, ~8 s repeating the measured prefill and decode, and 12 of its
-#: 16 decode steps, ~48 ms each, were cut to pay for phase 17; the process
-#: is warm from the models before it)
-SSM_B, SSM_P, SSM_G = 4, 1024, 4
+#: [14.ssm]: Falcon-Mamba-7B at full width and SSM_LAYERS of its 64
+#: layers, served once (its warm-up, ~8 s repeating the measured prefill
+#: and decode, and 12 of its 16 decode steps, ~48 ms each, were cut to pay
+#: for phase 17; half its depth, ~3.4 s of scan in each of its two
+#: prefills, to pay for phase 18; the process is warm from the models
+#: before it)
+SSM_LAYERS, SSM_B, SSM_P, SSM_G = 32, 4, 1024, 4
 #: [14.ssm.check]: prefill(P) and one decode step against prefill(P + 1),
 #: both within one scan chunk
 SSM_CHECK_P = 192
@@ -2152,8 +2191,9 @@ def lm_families_phase(dev) -> list:
     del model
     free_cuda()
 
-    # [14.ssm]: Falcon-Mamba-7B, full width and depth: no TPU kernel
-    model, cfg = family_model("14.ssm", "falcon_mamba_7b", dev)
+    # [14.ssm]: Falcon-Mamba-7B, full width, SSM_LAYERS: no TPU kernel
+    t_ssm = time.perf_counter()
+    model, cfg = family_model("14.ssm", "falcon_mamba_7b", dev, SSM_LAYERS)
     prompts = serve("14.ssm", model, cfg, SSM_B, SSM_P, SSM_G,
                     warm_up=False)
     phase("14.ssm.kernels", tpu_kernels="none: attention-free, so no flash "
@@ -2162,6 +2202,8 @@ def lm_families_phase(dev) -> list:
     ssm_check(model, cfg, prompts, dev)
     del model
     free_cuda()
+    phase("14.ssm.done", layers=cfg.n_layers,
+          seconds=f"{time.perf_counter() - t_ssm:.1f}")
 
     # [14.hybrid]: Jamba-1.5-Large's first HYB_LAYERS layers
     model, cfg = family_model("14.hybrid", "jamba_1_5_large_398b", dev,
@@ -2192,13 +2234,15 @@ def lm_families_phase(dev) -> list:
 #: served by TP_MESH = (data, model) ranks that share the card, LM_B
 #: prompts of LM_P tokens and TP_G greedy decode steps (cut from 8 to pay
 #: for phase 17: ~1.0 s a step on the ranks under "gspmd", ~0.22 under
-#: "manual")
-TP_LAYERS, TP_MESH, TP_G = 4, (2, 2), 1
+#: "manual"; the layers cut from 4 to 2, the depth of [16.*] and
+#: [17.train], to pay for phase 18)
+TP_LAYERS, TP_MESH, TP_G = 2, (2, 2), 1
 TP_SEED, TP_TIMEOUT = 15, 600
 #: max |logit difference| of the sharded run against the unsharded one
 #: (and of "manual" against "gspmd") on the same bf16 weights, derived as
-#: LM_LOGIT_BOUND is: 8 residual additions instead of 128 walk to a
-#: quarter of its ~2 % (sqrt(8/128)); a sharded sublayer rounds each
+#: LM_LOGIT_BOUND is: 8 residual additions (4 layers; 2 since phase 18
+#: came, a shorter walk) instead of 128 walk to a quarter of its ~2 %
+#: (sqrt(8/128)); a sharded sublayer rounds each
 #: rank's partial product to bf16 before the sum over the model axis and
 #: the sum once more, two roundings where one rank makes one, which at
 #: most doubles that walk's variance: ~0.7 % of the final norm's input,
@@ -2399,7 +2443,9 @@ def tp_check(dev, st: dict, outs: list) -> dict:
                 want_toks[:, :1], LM_TP_LOGIT_BOUND, tag="control"):
         raise AssertionError("the sharded logits check cannot tell two "
                              "swapped wo blocks")
-    phase("control", what="[15.tp] swapped wo blocks", rejected=True)
+    phase("control", what="[15.tp] swapped wo blocks", rejected=True,
+          prefill_ms=json.dumps([round(o["control.prefill_s"] * 1e3, 2)
+                                 for o in outs]))
     finite = all(bool(torch.isfinite(g[0]).all()) for g in got.values())
     if not finite:
         raise AssertionError("[15.tp] non-finite logits")
@@ -3088,38 +3134,418 @@ def mesh_train_check(dev, st: dict, outs: list) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------- #
+# 18. MoE and SSM training on the mesh                                   #
+# --------------------------------------------------------------------- #
+
+#: [18.moe.train], [18.ssm.train]: each model at full width, TRAIN_LAYERS
+#: of its layers, bf16, remat, "gspmd", seeded from EP_TRAIN_SEED, one
+#: step by the TP_MESH ranks on a global batch of MESH_TRAIN_B x TRAIN_S
+#: tokens at LEARN_LR without warm-up, against the unsharded port's run
+#: on each data row's rows in this process (testing.row_oracle)
+EP_TRAIN_MODELS = (("18.moe.train", "qwen3_moe_30b_a3b"),
+                   ("18.ssm.train", "falcon_mamba_7b"))
+EP_TRAIN_SEED = 18
+#: the tensors held against the unsharded run: one of each spec kind (the
+#: experts' two, the router's, the Mamba mixer's tp-only ones among them),
+#: each as one tensor (the experts of a layer together)
+EP_TRAIN_TENSORS = {
+    "qwen3_moe_30b_a3b": (
+        "layers.0.mixer.wq.w", "layers.1.mixer.wo.w",
+        "layers.0.norm1.scale", "layers.1.norm2.scale", "final_norm.scale",
+        "layers.0.moe.router.w", "layers.1.moe.router.w",
+        "layers.0.moe.gate", "layers.1.moe.up", "layers.1.moe.down",
+        "embed.table", "lm_head.w"),
+    "falcon_mamba_7b": (
+        "layers.0.mixer.in_proj.w", "layers.1.mixer.out_proj.w",
+        "layers.0.mixer.x_proj.w", "layers.1.mixer.x_proj.w",
+        "layers.0.mixer.dt_proj.w", "layers.1.mixer.dt_proj.w",
+        "layers.0.mixer.A_log", "layers.1.mixer.A_log",
+        "layers.1.mixer.conv_w", "layers.0.mixer.conv_b",
+        "layers.0.mixer.dt_bias", "layers.1.mixer.D",
+        "layers.0.norm1.scale", "final_norm.scale", "embed.table",
+        "lm_head.w")}
+#: of a tensor larger than this many elements, the first rows of each
+#: half of dim 0 are held: EP_TRAIN_EXPERTS experts of each model rank's,
+#: else MESH_TRAIN_W_ROWS (the embedding's: as mesh_train_rows)
+EP_TRAIN_WHOLE, EP_TRAIN_EXPERTS = 1 << 22, 8
+#: a step's gradient of an MoE layer's tensor (router, experts, the norm
+#: before it), ||g - want|| / ||want||: the ranks' bf16 activations differ
+#: from one card's by an ulp, which moves ~1.6 % of the routes ([16.ep]),
+#: and a moved route moves its token's whole share of the experts' and the
+#: router's gradients.  At moderate width on the CPU in bf16 (d_model
+#: 512, 128 experts, top-8, 4 x 256 tokens; PERF.md) these read 4.3-8.6
+#: %; the bound is 2^-2, 3x that.  The fault it is there for, a missing
+#: sum over tp of the expert path's gradient, is run as a control: the
+#: combine weights' f passing on each model rank's own share
+#: (testing.combine_weights).  The rest keep [17.train]'s
+#: TRAIN_GRAD_BOUND.
+EP_GRAD_BOUND = 2.0 ** -2
+#: the routers' gradients of the aux term alone (aux_weight 1, every
+#: label ignored): the dispatch fractions move with the routes, 4.0-5.6 %
+#: on the CPU run above; the bound is 2^-2 (an aux path dropped, the
+#: fault it is there for, leaves no gradient: has_gradient False)
+AUX_GRAD_BOUND = 2.0 ** -2
+
+
+def ep_train_rows(arch: str, cfg, shapes: dict, batch) -> dict:
+    """``{tensor: global rows of dim 0 or None}`` of the tensors
+    EP_TRAIN_TENSORS names for ``arch``: the embedding's as
+    :func:`mesh_train_rows` names them, a tensor above EP_TRAIN_WHOLE
+    elements the first rows of each half of dim 0 (EP_TRAIN_EXPERTS
+    experts, else MESH_TRAIN_W_ROWS), the rest whole."""
+    out = {}
+    for k in EP_TRAIN_TENSORS[arch]:
+        shape = shapes[k]
+        if k == "embed.table":
+            out[k] = mesh_train_rows(cfg, batch)["embed.table"]
+        elif int(np.prod(shape)) <= EP_TRAIN_WHOLE:
+            out[k] = None
+        else:
+            n = EP_TRAIN_EXPERTS if ".moe." in k else MESH_TRAIN_W_ROWS
+            half = shape[0] // 2
+            out[k] = np.concatenate([np.arange(n), half + np.arange(n)])
+    return out
+
+
+def ep_train_runs(dev):
+    """[18.*.unsharded]: each of EP_TRAIN_MODELS drawn from EP_TRAIN_SEED
+    in this process and its gradients on the global batch taken by
+    ``testing.row_oracle`` (each data row's rows on their own, combined
+    as the sharded loss combines them), with an MoE model also its
+    gradients of the aux term alone (aux_weight 1, every label ignored);
+    the rows of EP_TRAIN_TENSORS, each spec kind's part of the squared
+    norm and ``grad_norm`` kept, the model then freed.  Returns the
+    ranks' runs (one step each, after gradient passes on the same state:
+    the MoE's aux term alone with respect to the routers and its
+    routers' control, ``testing.unsum_over_tp`` with
+    ``testing.combine_weights``, both without remat; Falcon's ``x_proj``
+    control, with ``testing.x_proj_partials``, with remat: without it
+    the scan's saved chunks, ~18 GB a rank, put the 4 ranks past the
+    card) and what :func:`ep_train_check` holds them to."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.sharding import make_ctx, spec_for
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import (FlashCounts, block_rows,
+                                     combine_weights, row_oracle,
+                                     x_proj_partials)
+
+    t_phase = time.perf_counter()
+    layout = make_ctx(LmMesh(("data", "model"), TP_MESH, (0, 0), dev,
+                             "gloo-staged"))
+    runs, oracle = [], {}
+    for tag, arch in EP_TRAIN_MODELS:
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+        pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                             global_batch=MESH_TRAIN_B, seed=EP_TRAIN_SEED)
+        batch = pipe.batch_at(0)
+        aux_batch = dict(batch, labels=np.full_like(batch["labels"], -100))
+        model, init_s, held = build_on_card(lambda: T.init_params(
+            torch.Generator(device=dev).manual_seed(EP_TRAIN_SEED), cfg,
+            device=dev))
+        shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+        rows = ep_train_rows(arch, cfg, shapes, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with FlashCounts() as fc:
+            grads, m = row_oracle(model, cfg, batch, TP_MESH[0])
+        torch.cuda.synchronize()
+        grads_s = time.perf_counter() - t0
+        want = {k: block_rows(grads[k], (None,) * len(shapes[k]), None,
+                              r) for k, r in rows.items()}
+        parts = {}
+        for k, g in grads.items():
+            kind = str(spec_for(k, g.dim(), layout))
+            parts[kind] = parts.get(kind, 0.0) + float(
+                torch.sum(torch.square(g.double())))
+        del grads
+        routers = [k for k in shapes if k.endswith("router.w")]
+        aux = {}
+        if routers:
+            ga, am = row_oracle(model, cfg, aux_batch, TP_MESH[0],
+                                aux_weight=1.0)
+            aux = {k: ga[k].cpu().numpy() for k in routers}
+            del ga
+        phase(f"{tag}.unsharded", model=cfg.name,
+              layers=f"{cfg.n_layers} of {full.n_layers}",
+              params=sum(p.numel() for p in model.parameters()),
+              state_bytes=held, init_s=f"{init_s:.2f}",
+              row_grads_s=f"{grads_s:.3f}", rows=TP_MESH[0],
+              loss=f"{m['loss']:.6f}", xent=f"{m['xent']:.6f}",
+              aux_loss=f"{m['aux_loss']:.6f}",
+              grad_norm=f"{math.sqrt(sum(parts.values())):.6f}",
+              flash_launches=fc.launches, plain_calls=fc.plain_calls,
+              card_peak_bytes=torch.cuda.max_memory_allocated())
+        del model
+        free_cuda()
+        extra = ({"aux": dict(batch=aux_batch, aux_weight=1.0,
+                              only=("router",), cfg_kw=dict(remat=False)),
+                  "combine_unsummed": dict(batch=batch, only=("router",),
+                                           unsum=combine_weights,
+                                           cfg_kw=dict(remat=False))}
+                 if routers else
+                 {"x_proj_unsummed": dict(batch=batch, only=("x_proj",),
+                                          unsum=x_proj_partials)})
+        runs.append(dict(name=tag, kind="train", mesh=TP_MESH, mode="gspmd",
+                         cfg=cfg, seed=EP_TRAIN_SEED, batches=[batch],
+                         opt=dict(lr=LEARN_LR), warmup=0, total_steps=1,
+                         impl="pallas", keep=rows, state_keys=(),
+                         extra=extra))
+        oracle[tag] = dict(cfg=cfg, shapes=shapes, rows=rows, want=want,
+                           parts=parts, metrics=m, aux=aux,
+                           grad_norm=math.sqrt(sum(parts.values())))
+    return runs, dict(oracle=oracle, seconds=time.perf_counter() - t_phase)
+
+
+def ep_train_check(dev, st: dict, outs: list) -> dict:
+    """[18.moe.train] and [18.ssm.train]: the ranks' step (``outs``)
+    against :func:`ep_train_runs`'s ``st``.  Checks, for each model: the
+    loss (TRAIN_LOSS_BOUND, relative); the step's gradients of
+    EP_TRAIN_TENSORS, each as one tensor (EP_GRAD_BOUND for an MoE
+    layer's, TRAIN_GRAD_BOUND for the rest; the ranks' copies of a
+    replicated block equal; Mamba's ``in_proj`` back in its ``[x | z]``
+    layout, ``testing.unhalve``); ``grad_norm`` (the same on every rank,
+    TRAIN_LOSS_BOUND) and each spec kind's part of its square by the
+    ranks' ``sharding.global_norm`` (NORM_PART_BOUND), with a control
+    counting the tp-replicated kinds once a model rank; the state blocks
+    against ``launch.specs.train_state_struct``; 2 flash launches a layer
+    on every rank (the forward and its recomputation; 0 for Falcon) and
+    0 plain calls.  Qwen3-MoE: the routers' gradients of the aux term
+    alone (AUX_GRAD_BOUND, a gradient at all), and a control outside
+    EP_GRAD_BOUND: the routers' gradients with the combine weights' f
+    passing on each model rank's own share (one f an MoE layer).
+    Falcon-Mamba: each model rank's unsummed ``x_proj`` gradient (one f
+    a layer), a control outside TRAIN_GRAD_BOUND.  Prints each rank's
+    step seconds (its gradients and its update), the gradient passes',
+    wire seconds, bytes, card peak (the step's; the passes' apart).
+    Then [18.flash]: the flash kernel with L at the MoE ranks' training
+    shape.  Returns its record."""
+    from repro_torch.distributed.sharding import make_ctx, spec_for
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.testing import assemble_rows, unhalve
+
+    t_phase = time.perf_counter() - st["seconds"]
+    world = TP_MESH[0] * TP_MESH[1]
+    layout = make_ctx(LmMesh(("data", "model"), TP_MESH, (0, 0), dev,
+                             "gloo-staged"))
+    fails, moe_launches, moe_cfg = [], 0, None
+    for tag, arch in EP_TRAIN_MODELS:
+        o_ = st["oracle"][tag]
+        cfg, shapes, rows = o_["cfg"], o_["shapes"], o_["rows"]
+        coords = [o[f"{tag}.coords"] for o in outs]
+
+        def assembled(what, k, rows_k):
+            spec = spec_for(k, len(shapes[k]), layout)
+            got, eq = assemble_rows([o[f"{tag}.{what}.{k}"] for o in outs],
+                                    coords, shapes[k], spec,
+                                    ("data", "model"), TP_MESH, rows_k)
+            return unhalve(k, got, TP_MESH[1]), eq
+
+        def rel(got, want):
+            w = np.asarray(want, np.float64)
+            return float(np.linalg.norm(np.asarray(got, np.float64) - w)
+                         / np.linalg.norm(w))
+
+        metrics = [o[f"{tag}.metrics"] for o in outs]
+        same = all(x == metrics[0] for x in metrics)
+        m0, want_m = metrics[0][0], o_["metrics"]
+        # the forward's and, under remat, its recomputation's
+        want_l = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers)) * (2 if cfg.remat else 1)
+        launches = [o[f"{tag}.flash_launches"] for o in outs]
+        plain = [o[f"{tag}.plain_calls"] for o in outs]
+        bad_struct = [o[f"{tag}.struct_mismatches"] for o in outs]
+        extras = (("aux", "combine_unsummed") if o_["aux"]
+                  else ("x_proj_unsummed",))
+        phase(tag, transport=repr(outs[0]["transport"]),
+              mesh="x".join(map(str, TP_MESH)), batch=MESH_TRAIN_B,
+              seq=TRAIN_S, model=cfg.name, layers=cfg.n_layers,
+              step_s=json.dumps([round(o[f"{tag}.step_s"][0], 3)
+                                 for o in outs]),
+              grads_update_s=json.dumps([[round(x, 3) for x in o[
+                  f"{tag}.step_split_s"]] for o in outs]),
+              wire_s=json.dumps([round(o[f"{tag}.step_wire_s"][0], 3)
+                                 for o in outs]),
+              pass_s=json.dumps({e: [round(o[f"{tag}.{e}.seconds"], 3)
+                                     for o in outs] for e in extras}),
+              run_s=json.dumps([round(o[f"{tag}.run_s"], 2) for o in outs]),
+              loss=f"{m0['loss']:.6f}", aux_loss=f"{m0['aux_loss']:.6f}",
+              dropped=f"{m0['dropped']:.6f}",
+              grad_norm=f"{m0['grad_norm']:.6f}",
+              metrics_equal_on_ranks=same,
+              collective_calls=json.dumps([o[f"{tag}.calls"] for o in outs]),
+              bytes_in=json.dumps([o[f"{tag}.bytes_in"] for o in outs]),
+              bytes_out=json.dumps([o[f"{tag}.bytes_out"] for o in outs]),
+              card_peak_bytes=json.dumps([o.get(f"{tag}.card_peak_bytes")
+                                          for o in outs]),
+              pass_peak_bytes=json.dumps({e: [o.get(
+                  f"{tag}.{e}.card_peak_bytes") for o in outs]
+                  for e in extras}),
+              flash_launches=json.dumps(launches), want=want_l,
+              plain_calls=json.dumps(plain),
+              state_struct_equal=not any(bad_struct))
+        if not same:
+            fails.append(f"{tag}: the ranks' metrics differ")
+        if launches != [want_l] * world or any(plain):
+            fails.append(f"{tag}: flash launches {launches} (want "
+                         f"{want_l} a rank), plain calls {plain}")
+        if any(bad_struct):
+            fails.append(f"{tag}: state blocks unlike train_state_struct: "
+                         f"{bad_struct}")
+        if want_l:
+            moe_launches, moe_cfg = sum(launches), cfg
+
+        dl = abs(m0["loss"] - want_m["loss"]) / abs(want_m["loss"])
+        ok = dl <= TRAIN_LOSS_BOUND
+        phase("check", what=f"[{tag}] loss vs unsharded on each data row",
+              got=f"{m0['loss']:.6f}", want=f"{want_m['loss']:.6f}",
+              rel=f"{dl:.3e}", bound=TRAIN_LOSS_BOUND,
+              aux_loss=f"{m0['aux_loss']:.6f}",
+              want_aux_loss=f"{want_m['aux_loss']:.6f}", within=ok)
+        if not ok:
+            fails.append(f"{tag}: loss")
+
+        g_rel, equal, bounds = {}, {}, {}
+        for k, r in rows.items():
+            got, equal[k] = assembled("grad", k, r)
+            g_rel[k] = rel(got, o_["want"][k])
+            moe_kind = ".moe." in k or "norm2" in k
+            bounds[k] = EP_GRAD_BOUND if moe_kind else TRAIN_GRAD_BOUND
+        ok = (all(g_rel[k] <= bounds[k] for k in g_rel)
+              and all(equal.values()))
+        phase("check", what=f"[{tag}] step gradients vs unsharded on each "
+              "data row, one tensor of each spec kind",
+              rel=json.dumps({k: f"{v:.3e}" for k, v in g_rel.items()}),
+              bound_moe_layers=EP_GRAD_BOUND, bound=TRAIN_GRAD_BOUND,
+              copies_equal=all(equal.values()), within=ok)
+        if not ok:
+            fails.append(f"{tag}: gradients")
+
+        specs_ = {str(spec_for(k, len(v), layout)): spec_for(k, len(v),
+                                                              layout)
+                  for k, v in shapes.items()}
+        norms = [o[f"{tag}.kind_norms"] for o in outs]
+        parts = {k: v * v for k, v in norms[0].items()}
+        twice = {k: v * (1 if layout.tp in specs_[k] else TP_MESH[1])
+                 for k, v in parts.items()}
+        dn = abs(m0["grad_norm"] - o_["grad_norm"]) / o_["grad_norm"]
+        p_rel = {k: abs(parts.get(k, 0.0) - v) / v
+                 for k, v in o_["parts"].items()}
+        ok = (dn <= TRAIN_LOSS_BOUND
+              and max(p_rel.values()) <= NORM_PART_BOUND
+              and set(parts) == set(o_["parts"])
+              and all(n == norms[0] for n in norms)
+              and len({o[f"{tag}.metrics"][0]["grad_norm"]
+                       for o in outs}) == 1)
+        phase("check", what=f"[{tag}] grad_norm, and each spec kind's part "
+              "of its square by the ranks' global_norm, vs unsharded",
+              grad_norm=f"{m0['grad_norm']:.6f}",
+              want=f"{o_['grad_norm']:.6f}", rel=f"{dn:.3e}",
+              bound=TRAIN_LOSS_BOUND, part_rel=worst(p_rel, len(p_rel)),
+              part_bound=NORM_PART_BOUND, within=ok)
+        if not ok:
+            fails.append(f"{tag}: grad_norm")
+        t_rel = {k: abs(twice.get(k, 0.0) - v) / v
+                 for k, v in o_["parts"].items()}
+        rejected = max(t_rel.values()) > NORM_PART_BOUND
+        phase("control", what=f"[{tag}] a norm counting each tp-replicated "
+              "tensor once a model rank", part_rel=worst(t_rel),
+              rejected=rejected)
+        if not rejected:
+            fails.append(f"{tag}: the norm control")
+
+        if o_["aux"]:
+            a_rel = {}
+            live = all(o[f"{tag}.aux.requires_grad"] for o in outs)
+            for k, w in o_["aux"].items():
+                got, equal[k] = assembled("aux.grad", k, None)
+                a_rel[k] = rel(got, w)
+            ok = live and all(v <= AUX_GRAD_BOUND for v in a_rel.values())
+            phase("check", what=f"[{tag}] the routers' gradients of the aux "
+                  "term alone (aux_weight 1, labels ignored) vs unsharded",
+                  rel=json.dumps({k: f"{v:.3e}" for k, v in a_rel.items()}),
+                  bound=AUX_GRAD_BOUND, has_gradient=live,
+                  copies_equal=all(equal.values()), within=ok)
+            if not ok:
+                fails.append(f"{tag}: the aux term's router gradients")
+        c_rel, c_eq = {}, {}
+        ctl, pick = (("combine_unsummed", ".router.w") if o_["aux"]
+                     else ("x_proj_unsummed", ".x_proj.w"))
+        ctl_bound = EP_GRAD_BOUND if o_["aux"] else TRAIN_GRAD_BOUND
+        for k in rows:
+            if k.endswith(pick):
+                got, c_eq[k] = assembled(f"{ctl}.grad", k, None)
+                c_rel[k] = rel(got, o_["want"][k])
+        n_f = [o[f"{tag}.{ctl}.unsummed"] for o in outs]
+        want_f = sum((cfg.mlp_kind(i) == "moe") if o_["aux"]
+                     else (cfg.layer_kind(i) == "ssm")
+                     for i in range(cfg.n_layers))
+        rejected = (n_f == [want_f] * world
+                    and min(c_rel.values()) > ctl_bound)
+        phase("control", what=(
+            f"[{tag}] the routers' gradients with the combine weights' f "
+            "passing on each model rank's own share (testing."
+            "combine_weights)" if o_["aux"] else
+            f"[{tag}] each model rank's unsummed x_proj gradient "
+            "(testing.x_proj_partials)"),
+              rel=json.dumps({k: f"{v:.3e}" for k, v in c_rel.items()}),
+              bound=ctl_bound, copies_equal=all(c_eq.values()),
+              f_unsummed=json.dumps(n_f), rejected=rejected)
+        if not rejected:
+            fails.append(f"{tag}: the {ctl} control")
+    if fails:
+        raise AssertionError(f"[18]: {fails}")
+
+    rec = train_flash_checks(dev, dataclasses.replace(
+        moe_cfg, n_heads=moe_cfg.n_heads // TP_MESH[1],
+        n_kv_heads=moe_cfg.n_kv_heads // TP_MESH[1]), "18", (
+        f"[18.moe.train]: the ranks' training forwards and their "
+        f"recomputation under remat, summed over its {world} ranks"))
+    rec["launches"] = moe_launches
+    phase("18.done", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return rec
+
+
 def mesh_phases(dev) -> list:
-    """Phases 15 and 16: their unsharded runs in this process
-    (:func:`tp_runs`, :func:`ep_runs`), then all their sharded runs in
-    one ``launch.mesh.spawn_ranks`` of TP_MESH ranks that share the card
-    over staged gloo (the ranks start, and warm up on phase 15's first
-    run, once), then each phase's checks (:func:`tp_check`,
-    :func:`ep_check`).  Prints the spawn's seconds and its ranks' time to
-    their mesh.  Returns the phases' flash kernel records."""
+    """Phases 15 to 18: their unsharded runs in this process
+    (:func:`tp_runs`, :func:`ep_runs`, :func:`mesh_train_runs`,
+    :func:`ep_train_runs`), then all their sharded runs in one
+    ``launch.mesh.spawn_ranks`` of TP_MESH ranks that share the card over
+    staged gloo (the ranks start, and warm up on phase 15's first run,
+    once), then each phase's checks (:func:`tp_check`, :func:`ep_check`,
+    :func:`mesh_train_check`, :func:`ep_train_check`).  Prints the
+    spawn's seconds, each phase's runs' seconds on the ranks and its
+    ranks' time to their mesh.  Returns the phases' flash kernel
+    records."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.testing import run_lm_on_mesh
     t0 = time.perf_counter()
     runs15, st15 = tp_runs(dev)
     runs16, st16 = ep_runs(dev)
     runs17, st17 = mesh_train_runs(dev)
+    runs18, st18 = ep_train_runs(dev)
+    phases = (runs15, runs16, runs17, runs18)
     t_spawn, t1 = time.time(), time.perf_counter()
     outs = spawn_ranks(run_lm_on_mesh, TP_MESH[0] * TP_MESH[1],
-                       runs15 + runs16 + runs17, None, timeout=TP_TIMEOUT)
+                       [r for runs in phases for r in runs], None,
+                       timeout=TP_TIMEOUT)
     spawn_s = time.perf_counter() - t1
 
     def run_s(runs):
         return sum(outs[0][f"{r['name']}.run_s"] for r in runs)
 
-    phase("15.spawn", ranks=len(outs),
-          runs=len(runs15) + len(runs16) + len(runs17),
+    phase("15.spawn", ranks=len(outs), runs=sum(map(len, phases)),
           seconds=f"{spawn_s:.1f}", spawn_to_ready_s=(
               f"{max(o['ready_at'] for o in outs) - t_spawn:.2f}"),
-          phase15_runs_s=f"{run_s(runs15):.1f}",
-          phase16_runs_s=f"{run_s(runs16):.1f}",
-          phase17_runs_s=f"{run_s(runs17):.1f}")
+          **{f"phase{n}_runs_s": f"{run_s(runs):.1f}"
+             for n, runs in zip((15, 16, 17, 18), phases)})
     recs = [tp_check(dev, st15, outs), ep_check(dev, st16, outs),
-            mesh_train_check(dev, st17, outs)]
-    phase("15+16+17.done", seconds=f"{time.perf_counter() - t0:.1f}")
+            mesh_train_check(dev, st17, outs),
+            ep_train_check(dev, st18, outs)]
+    phase("15+16+17+18.done", seconds=f"{time.perf_counter() - t0:.1f}")
     return recs
 
 

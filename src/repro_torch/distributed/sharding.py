@@ -34,12 +34,6 @@ from ..launch.mesh import LmMesh
 
 Spec = Tuple[Optional[Union[str, Tuple[str, ...]]], ...]
 
-#: what a sharding context still waits for: training the MoE, SSM and
-#: hybrid families
-TRAIN_ITEM = ("ROADMAP Queue 1 item 26 (MoE, SSM and hybrid training with "
-              "a sharding context)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardingCtx:
     mesh: LmMesh
@@ -195,20 +189,6 @@ def check_divisible(cfg, ctx: ShardingCtx) -> None:
                              "uneven shards)")
 
 
-def check_train_ctx(cfg, ctx) -> None:
-    """Raise ``NotImplementedError`` naming :data:`TRAIN_ITEM` when
-    ``ctx`` is given to train a config with a layer other than attention
-    and a SwiGLU (its MoE or Mamba layers have no gradient rules on the
-    mesh yet)."""
-    if ctx is None:
-        return
-    if any(cfg.layer_kind(i) != "attn" or cfg.mlp_kind(i) != "dense"
-           for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"training {cfg.name} with a sharding context (ctx) is not "
-            f"ported yet: {TRAIN_ITEM}; pass ctx=None")
-
-
 def _axes(spec: Spec) -> set:
     """The mesh axes a spec shards over."""
     out = set()
@@ -237,11 +217,15 @@ def reduce_grads(grads: Dict[str, torch.Tensor], ctx: ShardingCtx
                  ) -> Dict[str, torch.Tensor]:
     """After a backward on the mesh: the gradients (``{state_dict name:
     this rank's block}``) of parameters whose spec has no dp axis (norm
-    scales, biases) summed over dp, in fp32 and rounded once, in one
+    scales, biases, the MoE's router ``(None, None)``, the Mamba mixer's
+    tp-only ``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``,
+    ``A_log`` and ``D``) summed over dp, in fp32 and rounded once, in one
     collective; the rest (reduce-scattered over dp by their gathers'
-    backward) as they are.  Nothing is summed over tp: a tp-replicated
-    parameter's gradient is already the same on every model rank.
-    Returns a new dict."""
+    backward: the dense kinds and the experts ``(tp, dp, None)`` and
+    ``(tp, None, dp)``) as they are.  Nothing is summed over tp: a
+    tp-replicated parameter's gradient (a norm scale, the router) is
+    already the same on every model rank, and a tp-sharded one is the
+    rank's block's.  Returns a new dict."""
     dp = set(ctx.dp if isinstance(ctx.dp, tuple) else (ctx.dp,))
     names = [k for k, g in grads.items()
              if not dp & _axes(spec_for(k, g.dim(), ctx))]
@@ -261,9 +245,12 @@ def global_norm(grads: Dict[str, torch.Tensor], ctx: ShardingCtx
     """The global norm of gradients held as blocks (``{state_dict name:
     this rank's block}``, after :func:`reduce_grads`): each block's fp32
     sum of squares divided by its :func:`copies`, summed over the
-    tensors and over every rank, square-rooted.  Every rank gets the
-    same 0-d fp32 value, the unsharded ``optim.adamw.global_norm``'s up
-    to the order of summation."""
+    tensors and over every rank, square-rooted: each block counts once
+    whatever its kind (an expert block, held by its dp-and-tp rank alone,
+    has 1 copy; the router, on every rank, ``dp * tp``; a tp-only Mamba
+    block ``dp``).  Every rank gets the same 0-d fp32 value, the
+    unsharded ``optim.adamw.global_norm``'s up to the order of
+    summation."""
     total = sum(torch.sum(torch.square(g.float()))
                 / copies(spec_for(k, g.dim(), ctx), ctx)
                 for k, g in grads.items())

@@ -14,8 +14,8 @@ Checkpoints are written in the JAX package's layout
 (``checkpoint.save_train_state``), so either package resumes the other's.
 
 On a (data, model) mesh of ranks (``ctx``, a
-``distributed.sharding.ShardingCtx``; the dense families only), every
-rank calls the same functions with the same whole batch:
+``distributed.sharding.ShardingCtx``; every family: dense, MoE, SSM and
+hybrid), every rank calls the same functions with the same whole batch:
 ``init_state(..., ctx=ctx)`` draws the whole model and keeps the rank's
 blocks with AdamW's m, v and master of them, and the step computes the
 rank's share of the global loss, sums over dp the gradients no FSDP
@@ -126,11 +126,9 @@ def make_train_step(cfg: ModelConfig, ctx, opt_cfg: optim.AdamWConfig, *,
     With ``ctx`` the state is the rank's (``init_state(..., ctx=ctx)``)
     and every rank runs the step on the same global batch; the metrics
     are the global batch's, equal on every rank.  Raises ``TypeError``
-    for a ctx that is not a ``ShardingCtx``, ``ValueError`` where the
-    mesh does not divide the config, and ``NotImplementedError`` for an
-    MoE, SSM or hybrid config (``sharding.check_train_ctx``)."""
+    for a ctx that is not a ``ShardingCtx`` and ``ValueError`` where the
+    mesh does not divide the config."""
     T._check_ctx(cfg, ctx)
-    sharding.check_train_ctx(cfg, ctx)
 
     def train_step(state, batch):
         params = state["params"]

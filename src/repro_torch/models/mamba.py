@@ -28,7 +28,13 @@ rank's ``d_inner/tp`` channels with no collective, ``x_proj``'s partial
 ``out_proj`` is row-parallel.  Both sums follow ``cfg.tp_collectives``
 as ``tp.row_parallel_dense`` does: in fp32 and cast (``"gspmd"``) or in
 the activation dtype (``"manual"``).  The state is the rank's block:
-its batch rows and ``d_inner/tp`` channels.
+its batch rows and ``d_inner/tp`` channels.  Under autograd the sum of
+``x_proj``'s partials is followed by ``tp.copy_to_tp``, so the
+gradients that reach ``x_proj``, the convolution and ``in_proj`` are
+the whole model group's (:func:`_ssm_inputs`); the tp-local
+weights (``conv_w``, ``conv_b``, ``x_proj``, ``dt_proj``, ``dt_bias``,
+``A_log``, ``D``), whose specs have no dp axis, are summed over dp after
+the backward (``sharding.reduce_grads``).
 """
 from __future__ import annotations
 
@@ -163,11 +169,16 @@ def _in_proj(p: Mamba, x, ctx):
 
 def _ssm_inputs(p: Mamba, x_conv, cfg, ctx):
     """``(dt (.., di) fp32, B_t, C_t)`` from the convolved inputs; with
-    ``ctx`` ``x_proj``'s partial is summed over the model group first."""
+    ``ctx`` ``x_proj``'s partial is summed over the model group first
+    (``g``) and taken into the rank's channels (``f``): the sum of
+    ``(dt_r, B, C)`` is the same on every model rank and each rank's
+    channels use all of it, so its gradient, each rank's channels'
+    share, is summed over the model group on its way back to ``x_proj``
+    and the convolved inputs."""
     r, N = cfg.dt_rank, cfg.ssm_state
     dbl = layers.dense(p.x_proj, x_conv)
     if ctx is not None:
-        dbl = tp.psum_tp(dbl, ctx, cfg.tp_collectives)
+        dbl = tp.copy_to_tp(tp.psum_tp(dbl, ctx, cfg.tp_collectives), ctx)
     dt_r, B_t, C_t = torch.split(dbl, [r, N, N], dim=-1)
     dt = F.softplus(layers.dense(p.dt_proj, dt_r).float()
                     + p.dt_bias.float())

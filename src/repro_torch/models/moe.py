@@ -35,7 +35,10 @@ with the replicated router, computes its own experts' entries and the
 model group sums the partial outputs in the activation dtype under
 either ``tp_collectives``, as the reference's ``psum`` does.  The
 capacity counts the rank's tokens, so a sharded layer drops entries per
-dp shard: it equals the unsharded layer on each dp shard's rows.
+dp shard: it equals the unsharded layer on each dp shard's rows, and its
+aux loss is the mean over dp of each shard's.  Under autograd the
+gradients are the reference's ``shard_map`` transpose's (:func:`moe_apply`
+says where the collectives sit).
 """
 from __future__ import annotations
 
@@ -135,16 +138,21 @@ def routes(x2d: torch.Tensor, router_w: torch.Tensor, cfg
     return probs, topw, topi, rank, rank < capacity(x2d.shape[0], cfg)
 
 
-def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local,
+              enter=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Route + dispatch + expert FFN + combine for experts
     ``[e_offset, e_offset + E_local)``.  Returns ``(partial_out (T, d),
-    aux)``."""
+    aux)``.  ``enter`` (with a ctx, ``tp.copy_to_tp``) takes the tokens
+    and the combine weights into the expert path, which is the rank's
+    own; the router and the aux loss take them as they are."""
     T, d = x2d.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(T, cfg)
 
     probs, topw, topi, rank, kept = routes(x2d, router_w, cfg)
+    x_in = x2d
+    if enter is not None:
+        x_in, topw = enter(x2d), enter(topw)
     flat_e, rank = topi.reshape(-1), rank.reshape(-1)        # (T*k,)
     local = (flat_e >= e_offset) & (flat_e < e_offset + E_local)
     keep = kept.reshape(-1) & local
@@ -155,7 +163,7 @@ def _moe_math(x2d, router_w, wg, wu, wd, cfg, e_offset, E_local
     # slot C that is cut off: written, never accumulated, never read
     tok = torch.arange(T, device=x2d.device).repeat_interleave(k)
     buf = x2d.new_zeros((E_local, C + 1, d)).index_put(
-        (e_loc, torch.where(keep, rank, C)), x2d[tok])[:, :C]
+        (e_loc, torch.where(keep, rank, C)), x_in[tok])[:, :C]
     h = torch.bmm(buf, wg)
     u = torch.bmm(buf, wu)
     y = torch.bmm(F.silu(h) * u, wd)                          # (E_l, C, d)
@@ -184,9 +192,20 @@ def moe_apply(p: MoE, x, cfg, ctx=None, *, batch=None, decode=False):
     ``down`` ``(E/tp, ff, d/dp)``, the router whole); the output is the
     rank's rows, whole.  ``dropped`` is averaged over the model group,
     and ``aux_loss`` and ``dropped`` over dp where the batch is sharded
-    (the reference's ``pmean``s).  The shared experts are the sharded
-    SwiGLU (``tp.swiglu_sharded``; in ``decode`` under ``"manual"`` its
-    2-D forms)."""
+    (the reference's ``pmean``s); both are metrics, without a gradient,
+    and aux adds ``"aux_loss_own"``, this rank's own aux loss with its
+    gradient, which the training loss takes its share of
+    (``transformer.loss_and_metrics``).  The shared experts are the
+    sharded SwiGLU (``tp.swiglu_sharded``; in ``decode`` under
+    ``"manual"`` its 2-D forms).
+
+    Under autograd with ``ctx`` the tokens and the combine weights enter
+    the rank's experts through ``tp.copy_to_tp`` (``f``), so their
+    gradients, each rank's experts' share, are summed over the model
+    group; the partial outputs leave through ``tp.psum_tp`` (``g``).  The
+    router and the aux loss, the same on every model rank, take no
+    collective, so the router's weight gets its whole gradient on every
+    model rank."""
     B, S, d = x.shape
     if ctx is None:
         out2d, aux = _moe_math(x.reshape(-1, d), p.router.w, p.gate, p.up,
@@ -202,10 +221,12 @@ def moe_apply(p: MoE, x, cfg, ctx=None, *, batch=None, decode=False):
     wg, wu = (tp.gather_weight(w, ctx, 1) for w in (p.gate, p.up))
     wd = tp.gather_weight(p.down, ctx, 2)
     part, aux = _moe_math(x.reshape(-1, d), p.router.w, wg, wu, wd, cfg,
-                          ctx.tp_index * E_local, E_local)
+                          ctx.tp_index * E_local, E_local,
+                          enter=lambda t: tp.copy_to_tp(t, ctx))
     del wg, wu, wd
     out = tp.psum_tp(part, ctx, "manual").reshape(B, S, d)
-    aux_loss = aux["aux_loss"]
+    own = aux["aux_loss"]
+    aux_loss = own.detach()
     dropped = ctx.mesh.all_reduce(aux["dropped"], ctx.tp) / ctx.tp_size
     if tp.batch_sharded(batch, ctx):
         both = ctx.mesh.all_reduce(torch.stack([aux_loss, dropped]),
@@ -215,4 +236,5 @@ def moe_apply(p: MoE, x, cfg, ctx=None, *, batch=None, decode=False):
         out = out + tp.swiglu_sharded(p.shared, x, ctx,
                                       collectives=cfg.tp_collectives,
                                       batch=batch if decode else None)
-    return out, {"aux_loss": aux_loss, "dropped": dropped}
+    return out, {"aux_loss": aux_loss, "dropped": dropped,
+                 "aux_loss_own": own}

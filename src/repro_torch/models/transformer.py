@@ -50,14 +50,16 @@ the MoE takes its tokens in.  An MoE layer's capacity counts the rank's
 tokens, so a sharded run equals the unsharded one on each dp shard's
 rows (on the whole batch where it is replicated).
 
-The dense families (every layer attention and a SwiGLU: Qwen2.5,
-Llama-3, Mistral, DeepSeek, Qwen2-VL, MusicGen) also train with a ctx:
-the collectives are differentiable (``distributed.tp``'s ``f``/``g``
-pairs and FSDP gathers), the loss is the vocabulary-parallel
-cross-entropy, and :func:`loss_and_metrics` returns the rank's share of
-the global loss (``launch.train`` sums the gradients over dp:
-``sharding.reduce_grads``).  A forward under autograd with a ctx for an
-MoE, SSM or hybrid config raises (ROADMAP Queue 1 item 26).
+Every family also trains with a ctx: the collectives are
+differentiable (``distributed.tp``'s ``f``/``g`` pairs and FSDP
+gathers; the MoE's and the Mamba mixer's place them as their modules
+say), the loss is the vocabulary-parallel cross-entropy, and
+:func:`loss_and_metrics` returns the rank's share of the global loss
+(``launch.train`` sums the gradients over dp:
+``sharding.reduce_grads``).  An MoE layer's aux loss enters that share
+as the rank's own (``"aux_loss_own"``, summed over the layers beside
+``aux_loss`` and ``dropped``, which with a ctx are metrics without a
+gradient).
 """
 from __future__ import annotations
 
@@ -69,8 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..distributed import tp
-from ..distributed.sharding import (ShardingCtx, check_divisible,
-                                    check_train_ctx)
+from ..distributed.sharding import ShardingCtx, check_divisible
 from ..launch import specs
 from . import attention, layers, mamba, moe, rope
 from .attention import KVCache
@@ -268,11 +269,9 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     inputs: int tokens (B, S) when cfg.embed_input else embeddings
     (B, S, d).  Returns (logits (B, S, V), caches_or_None, aux); with a
     ctx, the rank's blocks (see the module's docstring; ``positions``
-    too are the whole batch's)."""
+    too are the whole batch's) and aux also holds ``"aux_loss_own"``,
+    the rank's own aux loss with its gradient."""
     _check_ctx(cfg, ctx)
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in params.parameters()):
-        check_train_ctx(cfg, ctx)
     x = _embed_inputs(params, cfg, inputs, ctx)
     B, S = x.shape[:2]
     if positions is None:
@@ -283,6 +282,8 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     caches = []
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_sum: Dict[str, Any] = {"aux_loss": zero, "dropped": zero}
+    if ctx is not None:
+        aux_sum["aux_loss_own"] = zero
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     batch = inputs.shape[0]
     for layer in params.layers:
@@ -309,7 +310,8 @@ def _layer_out(layer: DecoderLayer, x, angles, impl, ctx, batch):
     """The layer's output and aux (remat's checkpointed function: the
     aux must come out of it, or remat would drop the MoE's loss; with a
     ctx its recomputation gathers the weights again, every rank in the
-    same order)."""
+    same order, and an MoE layer routes again: on bitwise the inputs of
+    the forward, so as the forward did)."""
     x, _, aux = layer(x, angles=angles, impl=impl, ctx=ctx, batch=batch)
     return x, aux
 
@@ -322,16 +324,19 @@ def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
     summed over the MoE layers (zeros without any), and ``loss`` is
     ``xent + aux_weight * aux_loss``.
 
-    With ``ctx`` (dense configs: ``sharding.check_train_ctx``): the batch
-    is the whole batch on every rank (``labels`` cut to the rank's rows
-    as ``inputs`` are), ``params`` the rank's blocks, and the
-    cross-entropy vocabulary-parallel
+    With ``ctx``: the batch is the whole batch on every rank (``labels``
+    cut to the rank's rows as ``inputs`` are), ``params`` the rank's
+    blocks, and the cross-entropy vocabulary-parallel
     (``tp.vocab_parallel_cross_entropy``).  The metrics are the global
     batch's, the same on every rank; the first element is this rank's
     share of the global loss, whose sum over dp is the loss (its token
     sum over the global count, or the loss over dp where the batch is
     replicated), so the gradients summed over dp
-    (``sharding.reduce_grads``) are the global loss's."""
+    (``sharding.reduce_grads``) are the global loss's.  Its aux term is
+    ``aux_weight / dp`` times the rank's own aux loss (``moe_apply``'s
+    ``"aux_loss_own"``): summed over dp, the mean over dp of the shards'
+    aux losses, as the metric ``aux_loss`` (their pmean, without a
+    gradient) reports it."""
     _check_ctx(cfg, ctx)
     logits, _, aux = forward(params, cfg, batch["inputs"],
                              positions=batch.get("positions"), ctx=ctx,
@@ -343,7 +348,7 @@ def loss_and_metrics(params: Transformer, cfg: ModelConfig, batch, *,
     share, xent = tp.vocab_parallel_cross_entropy(
         logits, tp.local_batch(batch["labels"], ctx), ctx,
         sharded=tp.batch_sharded(batch["inputs"].shape[0], ctx))
-    share = share + aux_weight * aux["aux_loss"] / ctx.dp_size
+    share = share + aux_weight * aux.pop("aux_loss_own") / ctx.dp_size
     loss = xent + aux_weight * aux["aux_loss"].detach()
     return share, {"loss": loss, "xent": xent, **aux}
 

@@ -758,6 +758,117 @@ def split_train_step(state, batch, cfg, opt_cfg, *, ctx=None,
             (t1 - t0, time.perf_counter() - t1))
 
 
+def row_oracle(model, cfg, batch, dp: int, *, impl: str = "pallas",
+               aux_weight: float = 0.01):
+    """The unsharded port's oracle of a training loss on a mesh with
+    ``dp`` data rows: ``(grads, metrics)`` of ``model`` (whole, no ctx)
+    on ``batch`` (the global batch, numpy arrays or tensors).  An MoE
+    layer's capacity counts its call's tokens, so a dp-sharded model
+    routes and drops each data row's rows on their own and its aux loss
+    is the mean over dp of the rows' aux losses.  Where ``dp`` divides
+    the batch, each data row's rows run through
+    ``transformer.loss_and_metrics`` on their own and are combined as the
+    sharded loss combines them: the cross-entropy by valid-label count
+    (``n_r / N`` each; none when no label is valid) and the aux term by
+    the mean over dp, ``aux_weight / dp`` each; the rows' gradients are
+    summed in fp32.  Otherwise (a replicated batch) the whole batch is
+    the one row.  ``grads`` are fp32 ``{name: tensor}``; ``metrics``
+    ``{"loss", "xent", "aux_loss", "dropped"}`` floats, the global
+    batch's."""
+    from .launch import train as ltrain
+    from .models import transformer as T
+    named = dict(model.named_parameters())
+    dev = next(iter(named.values())).device
+    batch = ltrain.to_device(batch, dev)
+    B = batch["inputs"].shape[0]
+    n = dp if B % dp == 0 else 1
+    rows = [{k: v[i * B // n:(i + 1) * B // n] for k, v in batch.items()}
+            for i in range(n)]
+    counts = [int((r["labels"] != -100).sum()) for r in rows]
+    total = sum(counts)
+    grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for k, p in named.items()}
+    sums = dict.fromkeys(("xent", "aux_loss", "dropped"), 0.0)
+    was = {k: p.requires_grad for k, p in named.items()}
+    try:
+        for p in named.values():
+            p.requires_grad_(True)
+        for r, c in zip(rows, counts):
+            _, m = T.loss_and_metrics(model, cfg, r, impl=impl)
+            w = c / total if total else 0.0
+            loss = w * m["xent"] + aux_weight / n * m["aux_loss"]
+            if loss.requires_grad:
+                for a, g in zip(grads.values(), torch.autograd.grad(
+                        loss, list(named.values()), allow_unused=True)):
+                    if g is not None:
+                        a.add_(g.float())
+            sums["xent"] += w * float(m["xent"].detach())
+            sums["aux_loss"] += float(m["aux_loss"].detach()) / n
+            sums["dropped"] += float(m["dropped"].detach()) / n
+    finally:
+        for k, p in named.items():
+            p.requires_grad_(was[k])
+    sums["loss"] = sums["xent"] + aux_weight * sums["aux_loss"]
+    return grads, sums
+
+
+def unsum_over_tp(root: torch.Tensor, pick) -> int:
+    """A control: in the backward of ``root``, each ``tp.copy_to_tp``
+    (``f``) of its autograd graph that ``pick`` chooses (a function of
+    the node: :func:`x_proj_partials`, :func:`combine_weights`) passes on
+    the gradient it receives, this rank's own share, where the program
+    passes the model group's sum (the sum is still taken, so the ranks
+    stay in step).  The program runs as it is; only this graph's
+    backward differs.  Returns how many ``f``s it chose."""
+    from .distributed import tp
+    seen, todo, n = set(), [root.grad_fn], 0
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if _backward_of(node) is tp._CopyTp and pick(node):
+            node.register_hook(lambda grad_in, grad_out: (grad_out[0],))
+            n += 1
+        todo.extend(c for c, _ in node.next_functions)
+    return n
+
+
+def _backward_of(node):
+    """The ``torch.autograd.Function`` whose backward autograd ``node``
+    is (``None`` for a built-in op's)."""
+    return getattr(node, "_forward_cls", None)
+
+
+def x_proj_partials(node) -> bool:
+    """:func:`unsum_over_tp`'s pick of the Mamba mixer's ``f`` after the
+    sum of ``x_proj``'s partials (the one whose input is a
+    ``tp.psum_tp``): each model rank's ``x_proj``, and what lies upstream,
+    then gets only its own channels' share of the gradient."""
+    from .distributed import tp
+    return _backward_of(node.next_functions[0][0]) is tp._SumTp
+
+
+def combine_weights(node) -> bool:
+    """:func:`unsum_over_tp`'s pick of the MoE's ``f`` on its combine
+    weights (the one from whose input the router's softmax is reached
+    without crossing a collective of ``distributed.tp``): each model
+    rank's router then gets only its own experts' share of the expert
+    path's gradient, and the aux path's whole."""
+    from .distributed import tp
+    seen, todo = set(), [node.next_functions[0][0]]
+    while todo:
+        n = todo.pop()
+        if n is None or n in seen or getattr(_backward_of(n), "__module__",
+                                             None) == tp.__name__:
+            continue
+        if n.name() == "SoftmaxBackward0":
+            return True
+        seen.add(n)
+        todo.extend(c for c, _ in n.next_functions)
+    return False
+
+
 def kind_norms(grads, ctx) -> dict:
     """``{str(spec): sharding.global_norm of the gradients of that spec
     kind}`` (``grads``: ``{state_dict name: this rank's block}``), the
@@ -785,6 +896,26 @@ def block_rows(t: torch.Tensor, spec, ctx, rows=None):
     mine = rows[(rows >= lo) & (rows < lo + n0)] - lo
     return t.detach()[torch.from_numpy(mine).to(t.device)].float().cpu(
         ).numpy()
+
+
+def unhalve(name: str, whole, n: int):
+    """A whole tensor (numpy) put together block by block by
+    :func:`assemble_rows` from the blocks of parameter ``name``, in the
+    parameter's own layout: where ``name`` is a tensor whose last
+    dimension ``sharding.shard_param`` cuts half by half (Mamba's
+    ``in_proj``, each of ``n`` blocks ``[x block | z block]``), the
+    columns reordered to ``[x | z]``; any other tensor as it is."""
+    import re
+
+    import numpy as np
+
+    from .distributed.sharding import _HALVED
+    if not re.search(_HALVED, name.replace(".", "/")):
+        return whole
+    blocks = np.split(whole, n, axis=-1)
+    return np.concatenate([h for i in (0, 1)
+                           for h in (np.split(b, 2, axis=-1)[i]
+                                     for b in blocks)], axis=-1)
 
 
 def assemble_rows(parts, coords, shape, spec, axis_names, mesh_shape,
@@ -827,6 +958,79 @@ def assemble_rows(parts, coords, shape, spec, axis_names, mesh_shape,
     return out, equal
 
 
+def loss_grads(params, cfg, batch, ctx, *, aux_weight: float = 0.01,
+               only=None, unsum=None):
+    """The gradients on a mesh of ``transformer.loss_and_metrics(ctx=)``
+    at ``aux_weight`` (every label of ``batch`` ignored: the aux term
+    alone), with respect to the parameters whose names hold one of
+    ``only`` (``None``: all), after ``sharding.reduce_grads``: ``(grads
+    (blocks; zeros where the loss does not reach), whether the loss had
+    a gradient at all, metrics, how many f's unsum chose)``, attention
+    through the flash kernel, as ``launch.train``'s step takes them.
+    ``unsum`` (a pick of :func:`unsum_over_tp`) makes it a control.  The
+    other parameters take no gradient, so the backward stops where it
+    leaves the chosen ones."""
+    from .distributed.sharding import reduce_grads
+    from .launch import train as ltrain
+    from .models import transformer as T
+    named = dict(params.named_parameters())
+    chosen = {k: p for k, p in named.items()
+              if only is None or any(o in k for o in only)}
+    was = {k: p.requires_grad for k, p in named.items()}
+    try:
+        for k, p in named.items():
+            p.requires_grad_(k in chosen)
+        share, m = T.loss_and_metrics(
+            params, cfg, ltrain.to_device(batch, params.lm_head.w.device),
+            ctx=ctx, impl="pallas", aux_weight=aux_weight)
+        n = 0
+        if share.requires_grad:
+            n = 0 if unsum is None else unsum_over_tp(share, unsum)
+            got = torch.autograd.grad(share, list(chosen.values()),
+                                      allow_unused=True)
+        else:
+            got = [None] * len(chosen)
+    finally:
+        for k, p in named.items():
+            p.requires_grad_(was[k])
+    grads = reduce_grads({k: torch.zeros_like(p) if g is None else g
+                          for (k, p), g in zip(chosen.items(), got)}, ctx)
+    return (grads, bool(share.requires_grad),
+            {k: float(m[k]) for k in ltrain.METRICS}, n)
+
+
+def _grads_out(run: str, what: str, spec: dict, params, cfg, ctx,
+               out: dict) -> None:
+    """:func:`loss_grads` of a ``"train"`` case's ``extra`` ``spec``
+    (``batch``, ``aux_weight``, ``only``, ``unsum``, ``cfg_kw``) under
+    ``out[run + "." + what + ...]``: the blocks (``grad.<name>``),
+    ``requires_grad``, ``metrics``, ``unsummed`` (how many f's),
+    ``seconds`` and, on a card, ``card_peak_bytes`` (the pass's)."""
+    import dataclasses
+
+    from .distributed.sharding import spec_for
+    dev = params.lm_head.w.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grads, live, m, n = loss_grads(
+        params, dataclasses.replace(cfg, **spec.get("cfg_kw", {})),
+        spec["batch"], ctx, aux_weight=spec.get("aux_weight", 0.01),
+        only=spec.get("only"), unsum=spec.get("unsum"))
+    pre = f"{run}.{what}"
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        out[f"{pre}.card_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out[f"{pre}.seconds"] = time.perf_counter() - t0
+    for k, g in grads.items():
+        out[f"{pre}.grad.{k}"] = block_rows(g, spec_for(k, g.dim(), ctx),
+                                            ctx)
+    out[f"{pre}.requires_grad"] = live
+    out[f"{pre}.metrics"] = m
+    out[f"{pre}.unsummed"] = n
+
+
 def _train_case(run: dict, mesh, ctx, out: dict) -> None:
     """A ``"train"`` case of :func:`run_lm_on_mesh`: see there."""
     import dataclasses
@@ -842,8 +1046,6 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
                               **run.get("cfg_kw", {}))
     opt_cfg = adamw.AdamWConfig(**run.get("opt", {}))
     keep = run.get("keep")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     if "params" in run:
         full = lm_params_from_reference(run["params"], cfg, device="cpu")
         params = shard_lm_params(full, cfg, ctx, device=dev)
@@ -887,6 +1089,12 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
               warmup=run.get("warmup", 0),
               grad_accum=run.get("grad_accum", 1))
     step = ltrain.make_train_step(cfg, ctx, opt_cfg, **kw)
+    for what, spec in run.get("extra", {}).items():
+        # read before the step, on its state, outside its counters
+        _grads_out(name, what, spec, state["params"], cfg, ctx, out)
+    if dev.type == "cuda":
+        # the step's peak, the state's resident blocks in it
+        torch.cuda.reset_peak_memory_stats(dev)
     for k in mesh.stats:
         mesh.stats[k] = 0
     metrics, secs, wire = [], [], []
@@ -1117,7 +1325,14 @@ def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
       state's leaves that
       differ from ``launch.specs.train_state_struct``
       (``struct_mismatches``), the flash launches and plain calls and the
-      collective counters of the steps, the card's peak;
+      collective counters of the steps, the card's peak over the steps;
+      ``extra`` (``{what: spec}``) first takes, on the same state and
+      outside the steps' counters, each spec's :func:`loss_grads` (of the
+      global ``batch`` at ``aux_weight``, ``only``, ``unsum``; ``cfg_kw``
+      replaces fields for it alone) under ``<name>.<what>.``: the
+      gradient blocks, whether the loss had a gradient at all
+      (``requires_grad``), the metrics, the f's ``unsum`` chose
+      (``unsummed``), the seconds and the card's peak over the pass;
     * ``"decode_attention"``: ``decode_attention_sharded`` over the
       model axis on a seeded cache (B 2, Hq 4, Hkv 2, S 64, D 16) at
       ``cur_len``;

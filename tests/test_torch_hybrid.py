@@ -544,13 +544,17 @@ def test_train_cli_trains_the_family(arch, capsys):
     assert losses and all(np.isfinite(losses))
 
 
-def test_a_sharding_context_still_raises():
-    """The MoE and SSM layers take a ``ctx`` since ROADMAP Queue 1 item
-    24: on a mesh of one rank (no process group) ``forward``,
-    ``decode_step`` and ``moe_apply`` serve and equal the unsharded ones
-    bitwise (``tests/test_torch_lm_ep_spmd.py`` serves on 4 ranks).
-    Training them with a ctx still raises (item 26), also a forward under
-    autograd."""
+def test_a_sharding_context_serves_and_trains_on_one_rank():
+    """The MoE and SSM layers take a ``ctx``: on a mesh of one rank (no
+    process group) ``forward``, ``decode_step`` and ``moe_apply`` serve
+    and equal the unsharded ones bitwise (``tests/test_torch_lm_ep_spmd.py``
+    serves on 4 ranks), and they train with it: a forward under autograd
+    gives the unsharded logits bitwise, and one step of
+    ``make_train_step(cfg, ctx, ...)`` from ``init_state(ctx=)`` equals the
+    unsharded step (its loss and the MoE's aux bitwise, the parameters
+    after it within ``rtol=1e-5, atol=1e-6``: the vocabulary-parallel
+    cross-entropy's backward rounds otherwise than the unsharded one's;
+    ``tests/test_torch_lm_train_ep_spmd.py`` trains on 4 ranks)."""
     from repro_torch.distributed.sharding import make_ctx
     from repro_torch.launch.mesh import make_test_mesh
     ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
@@ -566,11 +570,21 @@ def test_a_sharding_context_still_raises():
                                                   ctx=c), 0, ctx=c)[0]
                      for c in (None, ctx)]
         assert torch.equal(steps[1], steps[0])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
-            ttrain.make_train_step(cfg, ctx, TA.AdamWConfig())
         model.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
-            TT.forward(model, cfg, x, ctx=ctx)
+        assert torch.equal(TT.forward(model, cfg, x, ctx=ctx)[0], want)
+        opt = TA.AdamWConfig(**OPT_KW)
+        batch = batch_of(cfg)
+        runs = [ttrain.make_train_step(cfg, c, opt, warmup=0, total_steps=2)(
+            ttrain.init_state(0, cfg, opt, device=CPU, ctx=c), batch)
+            for c in (None, ctx)]
+        (want_s, wm), (got_s, gm) = runs
+        for k in ("loss", "xent", "aux_loss", "dropped", "lr"):
+            assert float(gm[k]) == float(wm[k]), k
+        want_p = dict(want_s["params"].named_parameters())
+        for k, p in got_s["params"].named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       want_p[k].detach().numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
     cfg = tconfigs.get_smoke_config("qwen3_moe_30b_a3b")
     layer = TT.init_params(0, cfg, device=CPU).layers[0]
     h = torch.from_numpy(np.random.default_rng(0).normal(

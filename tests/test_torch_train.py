@@ -394,8 +394,18 @@ def test_entry_points_default_to_cuda():
 def test_training_runs_the_moe_and_ssm_families(arch):
     """``init_state`` and ``make_train_step`` build for the MoE, SSM and
     hybrid configs and a step runs on the CPU (the loss carries the MoE
-    aux); a sharding context still raises (``tests/test_torch_hybrid.py``
-    and the family files hold the steps to the reference)."""
+    aux; ``tests/test_torch_hybrid.py`` and the family files hold the
+    steps to the reference).  With a sharding context on a mesh of one
+    rank, ``init_state(ctx=)`` draws the same state and one step of
+    ``make_train_step(cfg, ctx, ...)`` equals the unsharded step: its
+    loss, ``xent``, ``aux_loss``, ``dropped`` and ``lr`` bitwise, its
+    gradients and ``grad_norm`` within the one-rank bounds of
+    :func:`test_training_refuses_a_sharding_context` (the
+    vocabulary-parallel cross-entropy's backward, ``(softmax - onehot)
+    g``, rounds otherwise than autograd of the unsharded one), and the
+    parameters after it likewise, at an eps far above that rounding
+    (``tests/test_torch_lm_train_spmd.py`` says why;
+    ``tests/test_torch_lm_train_ep_spmd.py`` trains on 4 ranks)."""
     cfg = tconfigs.get_smoke_config(arch)
     opt = TA.AdamWConfig()
     state = ttrain.init_state(0, cfg, opt, device=CPU)
@@ -410,8 +420,27 @@ def test_training_runs_the_moe_and_ssm_families(arch):
     from repro_torch.distributed.sharding import make_ctx
     from repro_torch.launch.mesh import make_test_mesh
     ctx = make_ctx(make_test_mesh(1, 1, device=CPU))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 26"):
-        ttrain.make_train_step(cfg, ctx, opt)
+    opt = TA.AdamWConfig(lr=1e-3, eps=1e-4)
+    batch = _batch(cfg)
+    runs = []
+    for c in (None, ctx):
+        state = ttrain.init_state(0, cfg, opt, device=CPU, ctx=c)
+        grads, _ = ttrain.grads_and_metrics(
+            state["params"], cfg, ttrain.to_device(batch, CPU), ctx=c)
+        step = ttrain.make_train_step(cfg, c, opt, warmup=0, total_steps=2)
+        runs.append((grads,) + step(state, batch))
+    (want_g, want, wm), (got_g, got, gm) = runs
+    for k in ("loss", "xent", "aux_loss", "dropped", "lr"):
+        assert float(gm[k]) == float(wm[k]), k
+    assert float(gm["grad_norm"]) == pytest.approx(float(wm["grad_norm"]),
+                                                   rel=1e-5)
+    want_p = dict(want["params"].named_parameters())
+    for k, p in got["params"].named_parameters():
+        np.testing.assert_allclose(got_g[k].numpy(), want_g[k].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   want_p[k].detach().numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
 
 
 def test_training_refuses_a_sharding_context():
