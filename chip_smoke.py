@@ -9,8 +9,10 @@
                                      # Falcon-Mamba training);
                                      # streaming; then
                                      # the full Netflix size: NOMAD, its
-                                     # SPMD executor in 8 ranks, then the
-                                     # paper's baselines
+                                     # SPMD executor in 8 ranks (then, in
+                                     # the same ranks, Qwen3-MoE at tp 8
+                                     # with its 4 KV heads shared), then
+                                     # the paper's baselines
 
 Phases, one line each (any failure raises and exits non-zero):
 
@@ -175,7 +177,8 @@ Phases, one line each (any failure raises and exits non-zero):
    3's run.  ``[12.chaos]``: ``ChaosHarness(mesh_factory=make_mc_mesh)``
    with a leave, a join, a kill and a NaN on a small problem equals the
    same harness on one device in this process.  ``[12.ranks]``: each
-   rank's card and host peaks.
+   rank's card and host peaks.  Phase 19's ranks' runs follow in the
+   same spawn.
 13. LM training (it runs after phase 7's flash checks, phase 7's model
    freed): Qwen2.5-32B at full width, 2 of its 64 layers, bf16 with an
    fp32 AdamW state and master copy, ``remat``, through
@@ -341,6 +344,30 @@ Phases, one line each (any failure raises and exits non-zero):
    (B=2, Hq=16, Hkv=2) against its plain version with a control, beside
    its bound, the torch-ops backward's and SDPA's times, a kernel record
    whose launches are the ranks' (``[18.flash]``).
+19. KV heads shared across model ranks, tp above ``n_kv_heads`` (its
+   unsharded runs after ``[9.sim]``, its ranks' runs in phase 11's spawn
+   after phase 12's, its checks after phase 12's report, before phase
+   10): Qwen3-30B-A3B (32 query, 4 KV heads) at full width, 2 layers,
+   bf16, seeded, on a (1, 8) mesh of phase 11's 8 ranks (its layout on
+   one 8-GPU node: tp 8, each KV head shared by 2 model ranks, which
+   gather its column slices over the model axis); ``[19.kvrep]`` serves
+   4 prompts of 1,024 tokens and 2 greedy decode steps under "manual"
+   and "gspmd" against the unsharded run in this process (the ranks'
+   blocks by fingerprint; logits, tokens and routes with ``[16.ep]``'s
+   bounds; "manual" against "gspmd"; the model ranks routing alike;
+   each rank's prefill and decode seconds, collectives and card peak);
+   ``[19.kvrep.control]``, one prefill with layer 0's wk and wv blocks of
+   KV group 0's two model ranks swapped, must be rejected;
+   ``[19.kvrep.train]``, one "gspmd" step on a global batch of 2 x 1,024
+   tokens without remat, against the unsharded step (loss, ``grad_norm``,
+   the gradients of ``[18.moe.train]``'s tensors and of each layer's wk
+   and wv with ``[18.moe.train]``'s bounds, the state blocks, one flash
+   launch a layer on every rank and 0 plain calls); then ``[19.flash]``,
+   the flash kernel at the ranks' shape (B=4, Hq=4, Hkv=1) against its
+   plain version with two controls (no causal mask; the KV head's
+   column halves swapped), beside its bound and SDPA's time, a kernel
+   record whose launches are the "gspmd" prefill's, summed over the
+   ranks, with each rank's launches, plain calls and card peak.
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -1139,14 +1166,22 @@ def flash_case(dev, g, dtype, B, Hq, Hkv, S, D, tag="7.flash",
             raise AssertionError("flash_attention fp32: kernel and "
                                  "materialized oracle disagree")
     # wrong results the check must reject: no causal mask, and query
-    # head h reading KV head h % Hkv instead of h // (Hq / Hkv)
-    wrong_heads = torch.arange(Hq, device=dev) % Hkv
+    # head h reading KV head h % Hkv instead of h // (Hq / Hkv); with one
+    # KV head (a head shared by model ranks) that is the right one, so
+    # instead the head with its two column halves swapped, as two ranks'
+    # slices assembled in the wrong order
+    if Hkv > 1:
+        wrong_heads = torch.arange(Hq, device=dev) % Hkv
+        wrong = ("plain with KV head h % Hkv",
+                 kfa.flash_attention_plain(q, k[:, wrong_heads],
+                                           v[:, wrong_heads], causal=True))
+    else:
+        wrong = ("plain with the KV head's column halves swapped",
+                 kfa.flash_attention_plain(q, k.roll(D // 2, -1),
+                                           v.roll(D // 2, -1), causal=True))
     for what, bad in (
             ("plain without the causal mask",
-             kfa.flash_attention_plain(q, k, v, causal=False)),
-            ("plain with KV head h % Hkv",
-             kfa.flash_attention_plain(q, k[:, wrong_heads],
-                                       v[:, wrong_heads], causal=True))):
+             kfa.flash_attention_plain(q, k, v, causal=False)), wrong):
         rejected = not flash_within(got, bad, dtype, abs_v)
         phase("control", what=f"flash {name} B={B} Hq={Hq} Hkv={Hkv} S={S} "
               f"D={D} {what}", rejected=rejected)
@@ -2303,17 +2338,17 @@ def tp_agree(what, got, toks, want, want_toks, bound, tag="check",
     return within
 
 
-def rank_fingerprints(model, dev) -> list:
-    """The fingerprint of the blocks each TP_MESH rank must hold of
-    ``model``: the spec's slices of its weights."""
+def rank_fingerprints(model, dev, mesh=TP_MESH) -> list:
+    """The fingerprint of the blocks each rank of ``mesh`` (data, model)
+    must hold of ``model``: the spec's slices of its weights."""
     from repro_torch.distributed.sharding import make_ctx, shard_param
     from repro_torch.launch.mesh import LmMesh
     from repro_torch.testing import param_fingerprint
     state = model.state_dict()
     out = []
-    for rank in range(TP_MESH[0] * TP_MESH[1]):
-        ctx = make_ctx(LmMesh(("data", "model"), TP_MESH, tuple(
-            int(c) for c in np.unravel_index(rank, TP_MESH)), dev,
+    for rank in range(mesh[0] * mesh[1]):
+        ctx = make_ctx(LmMesh(("data", "model"), mesh, tuple(
+            int(c) for c in np.unravel_index(rank, mesh)), dev,
             "gloo-staged"))
         out.append(param_fingerprint({n: shard_param(n, w, ctx)
                                       for n, w in state.items()}))
@@ -2602,6 +2637,28 @@ def ep_compare(what, cfg, got: list, want: list, P: int, tag="check"
     return bool(ok)
 
 
+def mesh_records(outs, name, mesh, rows) -> list:
+    """A serve run's results on the ranks of ``mesh`` (``outs``) as one
+    record a data row, as :func:`ep_compare` reads them: the ranks (i, j)
+    hold rows i of the batch (``rows[i]``), their logits and routes alike
+    (rank (i, 0)'s taken), the SSM states their d_inner blocks j (joined);
+    the tokens every rank's, which must be equal."""
+    tk = [o[f"{name}.tokens"] for o in outs]
+    if any(not np.array_equal(x, tk[0]) for x in tk):
+        raise AssertionError(f"[{name}] the ranks' tokens differ")
+    recs = []
+    for i in range(mesh[0]):
+        group = outs[i * mesh[1]:(i + 1) * mesh[1]]
+        r = {k: group[0][f"{name}.{k}"] for k in ("logits", "routes")}
+        r["ssm"] = [tuple(np.concatenate([o[f"{name}.ssm"][layer][n]
+                                          for o in group], axis=axis)
+                          for n, axis in ((0, 2), (1, 1)))
+                    for layer in range(len(group[0][f"{name}.ssm"]))]
+        r["tokens"] = tk[0][rows[i]]
+        recs.append(r)
+    return recs
+
+
 def ep_runs(dev):
     """[16.*.unsharded]: Qwen3-30B-A3B and Falcon-Mamba-7B at full width,
     EP_LAYERS layers each, bf16, seeded, each served unsharded in this
@@ -2675,22 +2732,7 @@ def ep_check(dev, st: dict, outs: list) -> dict:
     oracle, rows = st["oracle"], st["rows"]
 
     def shards(name):
-        # the ranks (i, j) hold rows i of the batch: its logits and routes
-        # alike, the SSM states their d_inner blocks j
-        tk = [o[f"{name}.tokens"] for o in outs]
-        if any(not np.array_equal(x, tk[0]) for x in tk):
-            raise AssertionError(f"[{name}] the ranks' tokens differ")
-        recs = []
-        for i in range(TP_MESH[0]):
-            group = outs[i * TP_MESH[1]:(i + 1) * TP_MESH[1]]
-            r = {k: group[0][f"{name}.{k}"] for k in ("logits", "routes")}
-            r["ssm"] = [tuple(np.concatenate([o[f"{name}.ssm"][layer][n]
-                                              for o in group], axis=axis)
-                              for n, axis in ((0, 2), (1, 1)))
-                        for layer in range(len(group[0][f"{name}.ssm"]))]
-            r["tokens"] = tk[0][rows[i]]
-            recs.append(r)
-        return recs
+        return mesh_records(outs, name, TP_MESH, rows)
 
     launches = 0
     for tag, arch, control, modes in EP_MODELS:
@@ -3188,14 +3230,14 @@ EP_GRAD_BOUND = 2.0 ** -2
 AUX_GRAD_BOUND = 2.0 ** -2
 
 
-def ep_train_rows(arch: str, cfg, shapes: dict, batch) -> dict:
-    """``{tensor: global rows of dim 0 or None}`` of the tensors
-    EP_TRAIN_TENSORS names for ``arch``: the embedding's as
+def ep_train_rows(tensors, cfg, shapes: dict, batch) -> dict:
+    """``{tensor: global rows of dim 0 or None}`` of ``tensors`` (as
+    EP_TRAIN_TENSORS names them for an arch): the embedding's as
     :func:`mesh_train_rows` names them, a tensor above EP_TRAIN_WHOLE
     elements the first rows of each half of dim 0 (EP_TRAIN_EXPERTS
     experts, else MESH_TRAIN_W_ROWS), the rest whole."""
     out = {}
-    for k in EP_TRAIN_TENSORS[arch]:
+    for k in tensors:
         shape = shapes[k]
         if k == "embed.table":
             out[k] = mesh_train_rows(cfg, batch)["embed.table"]
@@ -3247,7 +3289,7 @@ def ep_train_runs(dev):
             torch.Generator(device=dev).manual_seed(EP_TRAIN_SEED), cfg,
             device=dev))
         shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
-        rows = ep_train_rows(arch, cfg, shapes, batch)
+        rows = ep_train_rows(EP_TRAIN_TENSORS[arch], cfg, shapes, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with FlashCounts() as fc:
@@ -3547,6 +3589,300 @@ def mesh_phases(dev) -> list:
             ep_train_check(dev, st18, outs)]
     phase("15+16+17+18.done", seconds=f"{time.perf_counter() - t0:.1f}")
     return recs
+
+
+# --------------------------------------------------------------------- #
+# 19. KV heads shared across model ranks (tp above n_kv_heads)           #
+# --------------------------------------------------------------------- #
+
+#: [19.kvrep]: Qwen3-30B-A3B (32 query heads, 4 KV heads) at full width,
+#: EP_LAYERS layers, bf16, seeded from EP_SEED, on KV_MESH = (data, model)
+#: ranks that share the card over staged gloo: the model's layout on one
+#: 8-GPU node, tp 8 against 4 KV heads, so each KV head is shared by 2
+#: model ranks (each rank 4 query heads and a 64-column slice of one KV
+#: head's wk and wv); LM_B prompts of LM_P tokens, EP_G greedy decode
+#: steps under each tp_collectives ("manual" first, the ranks' warm-up)
+KV_ARCH, KV_MESH, KV_TIMEOUT = "qwen3_moe_30b_a3b", (1, 8), 600
+#: [19.kvrep.train]: one "gspmd" step on a global batch of KV_TRAIN_B x
+#: TRAIN_S tokens (each rank's tokens a [18.moe.train] rank's), at
+#: LEARN_LR without warm-up, without remat (2 layers fit; a new spawn's
+#: first remat'd step imports torch._dynamo, ~14 s a rank in [18]), held
+#: with [18.moe.train]'s bounds on [18.moe.train]'s tensors and each
+#: layer's wk and wv
+KV_TRAIN_B = 2
+KV_TRAIN_TENSORS = EP_TRAIN_TENSORS[KV_ARCH] + tuple(
+    f"layers.{i}.mixer.{w}.w" for i in (0, 1) for w in ("wk", "wv"))
+
+
+def kvrep_runs(dev):
+    """[19.kvrep.unsharded]: KV_ARCH at full width, EP_LAYERS layers,
+    bf16, drawn from EP_SEED in this process: served unsharded
+    (``testing.serve_record``, EP_G decode steps; one data row, so the
+    whole batch is the oracle), the fingerprints of each KV_MESH rank's
+    blocks, and the gradients of one unsharded step's loss on the global
+    training batch (``testing.row_oracle``, one data row) of which the
+    rows of KV_TRAIN_TENSORS, the squared norm and the metrics are kept;
+    the model then freed.  Returns the ranks' runs (``generate(ctx=)``
+    under "manual" and "gspmd", the control: the first attention layer's
+    wk and wv blocks of KV group 0's two model ranks swapped, one
+    prefill; one training step) and what :func:`kvrep_check` holds them
+    to."""
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed.sharding import kv_share
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import (FlashCounts, block_rows, row_oracle,
+                                     serve_record)
+
+    t_phase = time.perf_counter()
+    full = configs.get_config(KV_ARCH)
+    cfg = dataclasses.replace(full, n_layers=EP_LAYERS, remat=False)
+    model, secs, held = build_on_card(lambda: T.init_params(
+        torch.Generator(device=dev).manual_seed(EP_SEED), cfg, device=dev))
+    prompts = prompts_for(cfg, LM_B, LM_P, dev)
+    want = [serve_record(model, cfg, prompts, EP_G + 1)]
+    want_fp = rank_fingerprints(model, dev, KV_MESH)
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         global_batch=KV_TRAIN_B, seed=EP_SEED)
+    batch = pipe.batch_at(0)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    rows = ep_train_rows(KV_TRAIN_TENSORS, cfg, shapes, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with FlashCounts() as fc:
+        grads, m = row_oracle(model, cfg, batch, KV_MESH[0])
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    grad_want = {k: block_rows(grads[k], (None,) * len(shapes[k]), None, r)
+                 for k, r in rows.items()}
+    grad_norm = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                              for g in grads.values()))
+    del grads
+    phase("19.kvrep.unsharded", model=cfg.name,
+          layers=f"{cfg.n_layers} of {full.n_layers}",
+          heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+          kv_share=kv_share(cfg.n_kv_heads, KV_MESH[1]),
+          params=sum(p.numel() for p in model.parameters()),
+          state_bytes=held, init_s=f"{secs:.2f}",
+          prefill_ms=f"{want[0]['prefill_s'] * 1e3:.2f}",
+          decode_ms_per_step=f"{want[0]['decode_s'] / EP_G * 1e3:.3f}",
+          serve_flash_launches=want[0]["flash_launches"],
+          serve_plain_calls=want[0]["plain_calls"],
+          aux_loss=f"{want[0]['aux_loss']:.4f}",
+          dropped=f"{want[0]['dropped']:.4f}",
+          train_batch=KV_TRAIN_B, row_grads_s=f"{grads_s:.3f}",
+          loss=f"{m['loss']:.6f}", grad_norm=f"{grad_norm:.6f}",
+          train_flash_launches=fc.launches, train_plain_calls=fc.plain_calls)
+    del model
+    free_cuda()
+    common = dict(kind="serve", mesh=KV_MESH, cfg=cfg, seed=EP_SEED,
+                  weights="19.kvrep", prompts=prompts.cpu().numpy())
+    runs = [dict(common, name=f"19.kvrep.{mode}", mode=mode, gen=EP_G + 1)
+            for mode in ("manual", "gspmd")]
+    runs.append(dict(common, name="19.kvrep.control", mode="manual", gen=1,
+                     swap="kv"))
+    runs.append(dict(name="19.kvrep.train", kind="train", mesh=KV_MESH,
+                     mode="gspmd", cfg=cfg, seed=EP_SEED, batches=[batch],
+                     opt=dict(lr=LEARN_LR), warmup=0, total_steps=1,
+                     impl="pallas", keep=rows, state_keys=()))
+    return runs, dict(cfg=cfg, want=want, want_fp=want_fp, shapes=shapes,
+                      rows=rows, grad_want=grad_want, grad_norm=grad_norm,
+                      metrics=m, seconds=time.perf_counter() - t_phase)
+
+
+def kvrep_check(dev, st: dict, outs: list) -> dict:
+    """[19.kvrep], [19.kvrep.control], [19.kvrep.train] and [19.flash]:
+    the KV_MESH ranks' runs (``outs``) against :func:`kvrep_runs`'s
+    ``st``.  Serving: the ranks' blocks (fingerprints); under each mode
+    the logits, tokens and routes against the unsharded run
+    (:func:`ep_compare`: ROUTE_SHARE_BOUND for the prefill's routes,
+    DECODE_ROUTE_SHARE_BOUND for the decode steps', LM_TP_LOGIT_BOUND),
+    "manual" against "gspmd", the model ranks routing alike, EP_LAYERS
+    flash launches a prefill on every rank and 0 plain calls; the
+    control rejected.  Training: the loss and ``grad_norm``
+    (TRAIN_LOSS_BOUND, the same on every rank), the gradients of
+    KV_TRAIN_TENSORS each as one tensor (EP_GRAD_BOUND for an MoE layer's,
+    TRAIN_GRAD_BOUND for the rest, wk and wv among them; a replicated
+    block's copies equal), the state blocks against
+    ``launch.specs.train_state_struct``, one flash launch a layer on every
+    rank and 0 plain calls.  Prints each rank's seconds, collectives and
+    card peak; then the flash kernel at the ranks' shape (B=LM_B, Hq/tp
+    query heads against one KV head).  Returns its kernel record."""
+    from repro_torch.distributed.sharding import kv_share, make_ctx, spec_for
+    from repro_torch.launch.mesh import LmMesh
+    from repro_torch.testing import assemble_rows
+
+    t_phase = time.perf_counter() - st["seconds"]
+    cfg, want = st["cfg"], st["want"]
+    B, P, world = LM_B, LM_P, KV_MESH[0] * KV_MESH[1]
+    names = ("19.kvrep.manual", "19.kvrep.gspmd", "19.kvrep.control",
+             "19.kvrep.train")
+    ranks_s = (max(o["ended_at"] for o in outs)
+               - min(o["started_at"] for o in outs))
+    phase("19.runs", ranks=len(outs), spawn="phase 11's, after phase 12",
+          seconds=f"{ranks_s:.1f}", to_lm_mesh_s=(
+              f"{max(o['ready_at'] - o['started_at'] for o in outs):.2f}"),
+          runs_s=json.dumps({n: round(max(o[f"{n}.run_s"] for o in outs),
+                                      2) for n in names}))
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    rows = [slice(0, B)]
+    fps = [o["19.kvrep.gspmd.fingerprint"] for o in outs]
+    phase("19.kvrep.weights", ranks=world, equal=fps == st["want_fp"],
+          fingerprints=json.dumps(fps))
+    if fps != st["want_fp"]:
+        raise AssertionError(f"[19.kvrep] the ranks' blocks {fps} are not "
+                             f"the unsharded weights' {st['want_fp']}")
+    got = {}
+    for mode in ("manual", "gspmd"):
+        name = f"19.kvrep.{mode}"
+        fl = [o[f"{name}.flash_launches"] for o in outs]
+        plain = [o[f"{name}.plain_calls"] for o in outs]
+        digests = [o[f"{name}.route_digests"] for o in outs]
+        phase("19.kvrep", run=mode, transport=repr(outs[0]["transport"]),
+              mesh="x".join(map(str, KV_MESH)), batch=B, prompt=P,
+              decode_steps=EP_G, kv_share=kv_share(cfg.n_kv_heads,
+                                                   KV_MESH[1]),
+              prefill_ms=json.dumps([round(o[f"{name}.prefill_s"] * 1e3, 2)
+                                     for o in outs]),
+              decode_ms_per_step=json.dumps(
+                  [round(o[f"{name}.decode_s"] / EP_G * 1e3, 2)
+                   for o in outs]),
+              collective_calls=json.dumps([o[f"{name}.calls"] for o in outs]),
+              bytes_in=json.dumps([o[f"{name}.bytes_in"] for o in outs]),
+              bytes_out=json.dumps([o[f"{name}.bytes_out"] for o in outs]),
+              stage_s=json.dumps([round(o[f"{name}.stage_s"], 3)
+                                  for o in outs]),
+              wire_s=json.dumps([round(o[f"{name}.wire_s"], 3)
+                                 for o in outs]),
+              card_peak_bytes=json.dumps([o.get(f"{name}.card_peak_bytes")
+                                          for o in outs]),
+              aux_loss=json.dumps([round(o[f"{name}.aux_loss"], 4)
+                                   for o in outs]),
+              dropped=json.dumps([round(o[f"{name}.dropped"], 4)
+                                  for o in outs]),
+              model_ranks_route_alike=all(d == digests[0] for d in digests),
+              flash_launches=json.dumps(fl), want=n_attn,
+              plain_calls=json.dumps(plain))
+        if fl != [n_attn] * world or any(plain):
+            raise AssertionError(f"[19.kvrep] {mode}: flash launches {fl} "
+                                 f"(want {n_attn} a rank), plain calls "
+                                 f"{plain}")
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f"[19.kvrep] {mode}: the model ranks routed "
+                                 f"differently: {digests}")
+        got[mode] = mesh_records(outs, name, KV_MESH, rows)
+        if not ep_compare(f"[19.kvrep] {mode} vs unsharded, prefill and "
+                          f"{EP_G} decode steps", cfg, got[mode], want, P):
+            raise AssertionError(f"[19.kvrep] {mode}: beyond the bounds "
+                                 "against the unsharded run")
+        if not all(np.isfinite(r["logits"]).all() for r in got[mode]):
+            raise AssertionError(f"[19.kvrep] {mode}: non-finite logits")
+    if not ep_compare(f"[19.kvrep] manual vs gspmd, prefill and {EP_G} "
+                      "decode steps", cfg, got["manual"], got["gspmd"], P):
+        raise AssertionError("[19.kvrep] manual and gspmd disagree")
+    bad = mesh_records(outs, "19.kvrep.control", KV_MESH, rows)
+    if ep_compare("[19.kvrep.control] layer 0's wk and wv blocks of KV group "
+                  "0's two model ranks swapped, prefill vs unsharded", cfg,
+                  bad, ep_head(want, 1, n_moe), P, tag="control"):
+        raise AssertionError("[19.kvrep] the check cannot tell a KV head "
+                             "assembled from swapped slices")
+    phase("control", what="[19.kvrep.control] swapped KV slices",
+          rejected=True,
+          prefill_ms=json.dumps([round(o["19.kvrep.control.prefill_s"] * 1e3,
+                                       2) for o in outs]))
+
+    # -- [19.kvrep.train] --------------------------------------------------
+    tag, shapes = "19.kvrep.train", st["shapes"]
+    layout = make_ctx(LmMesh(("data", "model"), KV_MESH, (0, 0), dev,
+                             "gloo-staged"))
+    coords = [o[f"{tag}.coords"] for o in outs]
+    metrics = [o[f"{tag}.metrics"] for o in outs]
+    same = all(x == metrics[0] for x in metrics)
+    m0, want_m = metrics[0][0], st["metrics"]
+    launches = [o[f"{tag}.flash_launches"] for o in outs]
+    plain = [o[f"{tag}.plain_calls"] for o in outs]
+    bad_struct = [o[f"{tag}.struct_mismatches"] for o in outs]
+    phase(tag, transport=repr(outs[0]["transport"]),
+          mesh="x".join(map(str, KV_MESH)), batch=KV_TRAIN_B, seq=TRAIN_S,
+          model=cfg.name, layers=cfg.n_layers, remat=cfg.remat,
+          step_s=json.dumps([round(o[f"{tag}.step_s"][0], 3) for o in outs]),
+          grads_update_s=json.dumps([[round(x, 3) for x in o[
+              f"{tag}.step_split_s"]] for o in outs]),
+          wire_s=json.dumps([round(o[f"{tag}.step_wire_s"][0], 3)
+                             for o in outs]),
+          run_s=json.dumps([round(o[f"{tag}.run_s"], 2) for o in outs]),
+          loss=f"{m0['loss']:.6f}", aux_loss=f"{m0['aux_loss']:.6f}",
+          grad_norm=f"{m0['grad_norm']:.6f}", metrics_equal_on_ranks=same,
+          collective_calls=json.dumps([o[f"{tag}.calls"] for o in outs]),
+          bytes_in=json.dumps([o[f"{tag}.bytes_in"] for o in outs]),
+          bytes_out=json.dumps([o[f"{tag}.bytes_out"] for o in outs]),
+          card_peak_bytes=json.dumps([o.get(f"{tag}.card_peak_bytes")
+                                      for o in outs]),
+          flash_launches=json.dumps(launches), want=n_attn,
+          plain_calls=json.dumps(plain),
+          state_struct_equal=not any(bad_struct))
+    fails = []
+    if not same:
+        fails.append("the ranks' metrics differ")
+    if launches != [n_attn] * world or any(plain):
+        fails.append(f"flash launches {launches} (want {n_attn} a rank), "
+                     f"plain calls {plain}")
+    if any(bad_struct):
+        fails.append(f"state blocks unlike train_state_struct: {bad_struct}")
+    dl = abs(m0["loss"] - want_m["loss"]) / abs(want_m["loss"])
+    dn = abs(m0["grad_norm"] - st["grad_norm"]) / st["grad_norm"]
+    ok = dl <= TRAIN_LOSS_BOUND and dn <= TRAIN_LOSS_BOUND
+    phase("check", what=f"[{tag}] loss and grad_norm vs unsharded",
+          loss=f"{m0['loss']:.6f}", want=f"{want_m['loss']:.6f}",
+          rel=f"{dl:.3e}", grad_norm=f"{m0['grad_norm']:.6f}",
+          want_grad_norm=f"{st['grad_norm']:.6f}", grad_norm_rel=f"{dn:.3e}",
+          bound=TRAIN_LOSS_BOUND, within=ok)
+    if not ok:
+        fails.append("loss or grad_norm")
+    g_rel, equal = {}, {}
+    for k, r in st["rows"].items():
+        g, equal[k] = assemble_rows(
+            [o[f"{tag}.grad.{k}"] for o in outs], coords, shapes[k],
+            spec_for(k, len(shapes[k]), layout), ("data", "model"), KV_MESH,
+            r)
+        w = np.asarray(st["grad_want"][k], np.float64)
+        g_rel[k] = float(np.linalg.norm(np.asarray(g, np.float64) - w)
+                         / np.linalg.norm(w))
+    bounds = {k: EP_GRAD_BOUND if ".moe." in k or "norm2" in k
+              else TRAIN_GRAD_BOUND for k in g_rel}
+    ok = all(g_rel[k] <= bounds[k] for k in g_rel) and all(equal.values())
+    phase("check", what=f"[{tag}] step gradients vs unsharded, one tensor "
+          "of each spec kind and each layer's wk and wv",
+          rel=json.dumps({k: f"{v:.3e}" for k, v in g_rel.items()}),
+          bound_moe_layers=EP_GRAD_BOUND, bound=TRAIN_GRAD_BOUND,
+          copies_equal=all(equal.values()), within=ok)
+    if not ok:
+        fails.append("gradients")
+    if fails:
+        raise AssertionError(f"[19.kvrep.train]: {fails}")
+
+    # -- [19.flash]: the kernel at the shape every rank's prefill runs ----
+    r = kv_share(cfg.n_kv_heads, KV_MESH[1])
+    g = torch.Generator(device=dev).manual_seed(19)
+    rec = flash_case(dev, g, torch.bfloat16, B // KV_MESH[0],
+                     cfg.n_heads // KV_MESH[1],
+                     cfg.n_kv_heads * r // KV_MESH[1], P, cfg.head_dim,
+                     tag="19.flash")
+    rec["launches"] = sum(o["19.kvrep.gspmd.flash_launches"] for o in outs)
+    rec["launches_on"] = (f"[19.kvrep] gspmd prefill, summed over its {world} "
+                          "ranks")
+    phase("19.flash", runs=json.dumps(names),
+          flash_launches=json.dumps([[o[f"{n}.flash_launches"]
+                                      for n in names] for o in outs]),
+          plain_calls=json.dumps([[o[f"{n}.plain_calls"] for n in names]
+                                  for o in outs]),
+          card_peak_bytes=json.dumps([max(o.get(f"{n}.card_peak_bytes", 0)
+                                          for n in names) for o in outs]))
+    parent_s = time.perf_counter() - t_phase
+    phase("19.done", seconds=f"{parent_s + ranks_s:.1f}",
+          parent_s=f"{parent_s:.1f}", ranks_s=f"{ranks_s:.1f}")
+    return rec
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -4521,7 +4857,8 @@ SPMD_API_SCALE, SPMD_API_EPOCHS = 0.02, 1
 SPMD_TRACE_RTOL = 1e-6
 
 
-def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
+def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream,
+               lm_runs):
     """[11.netflix], [11.api]: NOMAD's SPMD executor in ``SPMD_P`` ranks
     started by ``launch.mesh.spawn_ranks`` (spawned, one process group, the
     transport ``make_mc_mesh`` picks: staged gloo when the ranks share the
@@ -4537,7 +4874,9 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
     one-device ``solve``), the ring under both dispatches, and
     ``sub_blocks=2`` (the sequential route, sub-block by sub-block) held
     to the one-device ``solve`` of the same config.
-    Returns the ranks' launches of the per-cell and the sequential route.
+    Returns the ranks' launches of the per-cell and the sequential route,
+    and each rank's results of ``lm_runs`` (phase 19's, which the same
+    spawn runs after phase 12's, ``testing.run_mc_then_lm``).
     Chain bounds are waves x ``floor_ns`` (``[4.floor]``): a step's longest
     cell, and its cells one after another (what 8 processes time-slicing one
     card can at best do).  Phase 12's runs (:func:`mesh_stream_runs`, on
@@ -4550,7 +4889,7 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
     from repro_torch.core.objective import init_factors
     from repro_torch.core.stepsize import PowerSchedule
     from repro_torch.launch.mesh import spawn_ranks
-    from repro_torch.testing import HostPeak, run_on_mesh
+    from repro_torch.testing import HostPeak, run_mc_then_lm
 
     t_phase = time.perf_counter()
     peak = HostPeak()
@@ -4619,7 +4958,8 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
     torch.cuda.empty_cache()
     t_spawn = time.time()
     t0 = time.perf_counter()
-    outs = spawn_ranks(run_on_mesh, p, runs, None, timeout=SPMD_TIMEOUT)
+    outs = spawn_ranks(run_mc_then_lm, p, runs, lm_runs, None,
+                       timeout=SPMD_TIMEOUT)
     spawn_s = time.perf_counter() - t0
 
     # -- [11.netflix] ---------------------------------------------------
@@ -4746,7 +5086,7 @@ def spmd_phase(api, ks, dev, problem, ran, want_digest, floor_ns, stream):
           spawn_s=f"{spawn_s:.1f}", host_peak_rss_gb=peak.gb())
     launched["per_cell"] += mesh_stream_report(outs, first12, stream,
                                                chaos_local, t12)
-    return launched
+    return launched, [o["lm"] for o in outs]
 
 
 #: [12.*]: phase 8's sequence on the mesh, each op with the phase 8
@@ -5389,11 +5729,16 @@ def main() -> int:
     sim_launches = sim_phase(api, ks, dev)
     # -- 11, 12. the SPMD executor in ranks on the card: phase 9's pack;
     # phase 8's streaming, elastic and fault-tolerant sequence ----------
+    # -- 19. KV heads shared over tp: its unsharded runs here, its ranks'
+    # runs in phase 11's spawn after phase 12's -------------------------
     torch.cuda.empty_cache()
-    spmd_launches = spmd_phase(api, ks, dev, netflix, ran, digest, floor_ns,
-                               stream_in)
+    runs19, st19 = kvrep_runs(dev)
+    free_cuda()
+    spmd_launches, outs19 = spmd_phase(api, ks, dev, netflix, ran, digest,
+                                       floor_ns, stream_in, runs19)
     del ran
     netflix._pack_cache.clear()
+    kernels.append(kvrep_check(dev, st19, outs19))
     # -- 10. the paper's baselines at full Netflix ----------------------
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -19,8 +19,13 @@ path does (``repro_torch.convert`` maps the two), so every tensor gets
 the reference's spec.  GSPMD inserts the collectives the specs imply;
 the port calls them itself (``repro_torch.distributed.tp``), and unlike
 GSPMD it does not pad uneven shards: :func:`check_divisible` refuses
-them.  The rules run without a process group (a mesh of one rank, or
-one made for its layout only).
+them.  One uneven cut is served: where tp exceeds the KV heads (``tp =
+r * n_kv_heads``), the ``(dp, tp)`` blocks of ``wk``/``wv`` (and of
+their biases) hold a ``1/r`` column slice of one head each, stored as
+the reference stores them; the ``r`` model ranks whose query heads use
+that head gather its slices (:func:`kv_share`,
+``models.attention``), where GSPMD reshards.  The rules run without a
+process group (a mesh of one rank, or one made for its layout only).
 """
 from __future__ import annotations
 
@@ -161,10 +166,21 @@ def shard_tensor(t: torch.Tensor, spec: Spec, ctx: ShardingCtx,
     return t
 
 
+def kv_share(n_kv_heads: int, tp: int) -> int:
+    """How many model ranks share each KV head: ``r = tp / n_kv_heads``
+    where tp exceeds the KV heads (and :func:`check_divisible` accepts
+    it), else 1 (each rank holds ``n_kv_heads / tp`` whole heads).  With
+    ``r > 1`` model rank ``t`` holds columns ``[t c, (t+1) c)`` of
+    ``wk``/``wv``, ``c = head_dim / r``: a slice of head ``t // r``, the
+    one its query heads use."""
+    return tp // n_kv_heads if n_kv_heads and tp > n_kv_heads else 1
+
+
 def _even_dims(cfg):
     """``(name, size, axis)`` of each dimension a sharded model splits
-    evenly; the MoE's and the SSM's are 0 where the config has no such
-    layers (``shared_width``: the shared experts' SwiGLU)."""
+    evenly (the KV heads evenly or shared: :func:`check_divisible`); the
+    MoE's and the SSM's are 0 where the config has no such layers
+    (``shared_width``: the shared experts' SwiGLU)."""
     has_ssm = any(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
     return [("n_heads", cfg.n_heads, "tp"),
             ("n_kv_heads", cfg.n_kv_heads, "tp"), ("d_ff", cfg.d_ff, "tp"),
@@ -180,13 +196,37 @@ def check_divisible(cfg, ctx: ShardingCtx) -> None:
     ``n_kv_heads``, ``d_ff``, ``vocab_size``, ``n_experts``, the shared
     experts' width and (with SSM layers) ``d_inner`` (over tp), and
     ``d_model`` (over dp, the FSDP axis) that the axis does not divide.
-    GSPMD pads an uneven shard; the port does not."""
+    The KV heads may also be fewer than tp where they divide it (each
+    head shared by ``tp / n_kv_heads`` model ranks, :func:`kv_share`),
+    with that share dividing ``head_dim``; ``n_heads`` must then still
+    divide over tp: the port does not pad query heads, where GSPMD pads
+    an uneven shard (ROADMAP item 29).  Nor does it pad any other."""
     for field, val, axis in _even_dims(cfg):
         n = ctx.tp_size if axis == "tp" else ctx.dp_size
-        if val % n:
+        if field == "n_kv_heads":
+            _check_kv_heads(cfg, n)
+        elif val % n:
+            why = ("the port does not pad query heads (ROADMAP item 29)"
+                   if field == "n_heads" else
+                   "the port does not pad uneven shards")
             raise ValueError(f"{field}={val} is not divisible by the "
-                             f"{axis} size {n} (the port does not pad "
-                             "uneven shards)")
+                             f"{axis} size {n} ({why})")
+
+
+def _check_kv_heads(cfg, n_tp: int) -> None:
+    """tp and ``n_kv_heads`` must divide one another, and a shared head's
+    ``tp / n_kv_heads`` slices must cut ``head_dim`` evenly."""
+    hkv = cfg.n_kv_heads
+    if hkv % n_tp and n_tp % hkv:
+        raise ValueError(f"n_kv_heads={hkv} and the tp size {n_tp} do not "
+                         "divide one another (the port shares a KV head "
+                         "over tp / n_kv_heads model ranks, and does not "
+                         "pad uneven shards)")
+    r = kv_share(hkv, n_tp)
+    if cfg.head_dim % r:
+        raise ValueError(f"head_dim={cfg.head_dim} is not divisible by the "
+                         f"{r} model ranks that share each of the "
+                         f"n_kv_heads={hkv} KV heads")
 
 
 def _axes(spec: Spec) -> set:

@@ -25,6 +25,9 @@ backward runs the collectives GSPMD derives from the reference's specs:
   identity backward;
 * :func:`gather_weight`: an FSDP block gathered over dp forward, the
   gradient reduce-scattered over dp (in fp32, rounded once) backward;
+* :func:`gather_tp`: its counterpart over the model axis, for the
+  column slices of a KV head that several model ranks share (the
+  gradient of each slice summed over the ranks that used it);
 * :func:`vocab_parallel_embed`: its lookup's gradient sums each local
   row's occurrences in fp32, as ``layers._Embed`` does, reduce-scatters
   the rows the batch touched over dp and rounds once.
@@ -105,6 +108,22 @@ class _GatherDp(Function):
                 .to(g.dtype), None, None)
 
 
+class _GatherTp(Function):
+    """A gather over tp along ``dim``; the gradient reduce-scattered over
+    tp in fp32 and rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, sc: ShardingCtx, dim: int):
+        ctx.sc, ctx.dim = sc, dim
+        return sc.mesh.all_gather(x, sc.tp, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        sc = ctx.sc
+        return (sc.mesh.reduce_scatter(g.float(), sc.tp, dim=ctx.dim)
+                .to(g.dtype), None, None)
+
+
 def copy_to_tp(x: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
     """``x`` (tp-replicated) entering tp-local work: itself forward, its
     gradient summed over the model group backward (``f``)."""
@@ -131,6 +150,13 @@ def gather_weight(w: torch.Tensor, ctx: ShardingCtx, dim: int
     """An FSDP weight block whole along ``dim`` (gathered over dp); its
     gradient is reduce-scattered back over dp."""
     return _GatherDp.apply(w, ctx, dim)
+
+
+def gather_tp(x: torch.Tensor, ctx: ShardingCtx, dim: int) -> torch.Tensor:
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order;
+    the gradient of the whole is reduce-scattered back over tp, so each
+    rank's block gets the sum of what every rank's use of it gave."""
+    return _GatherTp.apply(x, ctx, dim)
 
 
 def col_parallel_many(x, lins, ctx: ShardingCtx):

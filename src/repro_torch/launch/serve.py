@@ -64,10 +64,12 @@ def _merge_prefill_cache(full_cache, pre_cache, cfg, P, *, ctx=None,
     unchanged (its slot in the list is replaced).  Returns the list.
 
     With ``ctx`` (a batch of ``batch``): the prefill's KV holds the rank's
-    ``Hkv/tp`` heads of every position, the caches the rank's slice of the
-    positions with every head (``launch.specs``); one all-to-all over the
-    model axis carries every attention layer's k and v slice to the rank
-    that holds it.  An SSM layer's state is already the rank's block (its
+    ``Hkv/tp`` heads of every position (where tp exceeds the KV heads, its
+    ``1/r`` column slice of one head: ``models.attention``), the caches
+    the rank's slice of the positions with every head (``launch.specs``);
+    one all-to-all over the model axis carries every attention layer's k
+    and v slice to the rank that holds it, the ranks' columns side by side
+    in rank order.  An SSM layer's state is already the rank's block (its
     ``d_inner/tp`` channels) and goes into its slot as it is."""
     if ctx is not None:
         return _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch)
@@ -93,7 +95,7 @@ def _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch):
     base = 0 if tp.batch_sharded(batch, ctx) else ctx.dp_index * m * S_loc
     kv = torch.stack([t for i in attn for t in (pre_cache[i].k,
                                                 pre_cache[i].v)])
-    L2, Bl, _, h, D = kv.shape                  # (2 L, B, P, Hkv/tp, D)
+    L2, Bl, _, h, D = kv.shape          # (2 L, B, P, Hkv/tp, D) or D/r
     send = kv.new_zeros((L2, Bl, m * S_loc, h, D),
                         dtype=full_cache[attn[0]].k.dtype)
     hi = min(P, base + m * S_loc)
@@ -101,7 +103,8 @@ def _reshard_prefill_cache(full_cache, pre_cache, P, ctx, batch):
         send[:, :, :hi - base] = kv[:, :, base:hi]
     send = send.reshape(L2, Bl, m, S_loc, h, D).movedim(2, 0).contiguous()
     got = ctx.mesh.all_to_all(send, ctx.tp)     # (m, 2 L, B, S_loc, h, D)
-    got = got.permute(1, 2, 3, 0, 4, 5).reshape(L2, Bl, S_loc, m * h, D)
+    got = got.permute(1, 2, 3, 0, 4, 5).reshape(
+        L2, Bl, S_loc, *full_cache[attn[0]].k.shape[2:])
     for j, i in enumerate(attn):
         full_cache[i].k.copy_(got[2 * j])
         full_cache[i].v.copy_(got[2 * j + 1])

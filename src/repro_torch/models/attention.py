@@ -8,17 +8,24 @@ reference's ``(B, S_max, Hkv, D)`` layout; the port updates them in
 place during decode (the reference returns new arrays), which saves a
 copy of every layer's cache per token.
 
-With a sharding context (``ctx``, dense models) the projections are
-Megatron's: wq, wk and wv column-parallel, so a rank holds ``Hq/tp``
-query and ``Hkv/tp`` KV heads and runs the flash kernel on them; wo
-row-parallel (``repro_torch.distributed.tp``).  Prefill returns its
-head-sharded k, v; decode caches are sequence-sharded
-(``repro_torch.launch.specs``): the step's k, v and q are gathered over
-the model axis, the rank whose slice holds the position writes them,
-every rank attends over its slice and the partial softmax statistics are
-combined by max and sum (:func:`decode_attention_sharded`: what GSPMD
-makes of the reference's reductions over a sharded axis), and each rank
-keeps its own heads for wo.
+With a sharding context (``ctx``) the projections are Megatron's: wq,
+wk and wv column-parallel, so a rank holds ``Hq/tp`` query and
+``Hkv/tp`` KV heads and runs the flash kernel on them; wo row-parallel
+(``repro_torch.distributed.tp``).  Where tp exceeds the KV heads
+(``tp = r * Hkv``, ``distributed.sharding.kv_share``), a rank's wk and
+wv blocks hold a ``1/r`` column slice of the one KV head its query heads
+use: the rank projects its slice, the slices are gathered over the model
+axis (``tp.gather_tp``, whose backward sums each slice's gradient over
+the ranks that used it) and the rank attends with its ``Hq/tp`` query
+heads against that whole head.  Prefill returns its head-sharded k, v
+(with ``r > 1`` its post-rope column slice); decode caches are
+sequence-sharded (``repro_torch.launch.specs``): the step's k, v and q
+are gathered over the model axis (with ``r > 1`` k's rope after the
+gather, on whole heads), the rank whose slice holds the position writes
+them, every rank attends over its slice and the partial softmax
+statistics are combined by max and sum (:func:`decode_attention_sharded`:
+what GSPMD makes of the reference's reductions over a sharded axis), and
+each rank keeps its own heads for wo.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 from torch import nn
 
 from ..distributed import tp
+from ..distributed.sharding import kv_share
 from ..kernels import flash_attn
 from ..launch import specs
 from . import layers, rope as rope_mod
@@ -170,23 +178,30 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
     With ``ctx``: x is this rank's batch, and the rank's ``Hq/tp`` query
     and ``Hkv/tp`` KV heads are projected (wq, wk, wv gathered over dp),
     attended and summed through the row-parallel wo; the cache holds
-    those KV heads.  Under autograd x enters the model group once
-    (``tp.copy_to_tp``, its gradient summed over tp) and wo's sum passes
-    the gradient to every rank's heads (``tp.psum_tp``), so the flash
-    forward and backward run on the rank's heads only.
+    those KV heads.  Where ``r = kv_share(Hkv, tp) > 1`` the rank projects
+    its column slice of one KV head, gathers the head's slices
+    (:func:`_kv_head`) and ropes it whole; the cache holds the rank's
+    post-rope slice ``(B, S, 1, D/r)``.  Under autograd x enters the
+    model group once (``tp.copy_to_tp``, its gradient summed over tp) and
+    wo's sum passes the gradient to every rank's heads (``tp.psum_tp``),
+    so the flash forward and backward run on the rank's heads only.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
     n = 1 if ctx is None else ctx.tp_size
-    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads // n
+    r = kv_share(cfg.n_kv_heads, n)
+    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads * r // n
     if ctx is None:
         proj = [layers.dense(lin, x) for lin in (p.wq, p.wk, p.wv)]
     else:
         proj = tp.col_parallel_many(x, [(lin.w, lin.b)
                                         for lin in (p.wq, p.wk, p.wv)], ctx)
     q = proj[0].reshape(B, S, hq, hd)
-    k = proj[1].reshape(B, S, hkv, hd)
-    v = proj[2].reshape(B, S, hkv, hd)
+    k, v = proj[1], proj[2]
+    if r > 1:
+        k, v = (_kv_head(t, ctx, r) for t in (k, v))
+    k = k.reshape(B, S, hkv, hd)
+    v = v.reshape(B, S, hkv, hd)
     if angles is not None:
         q = rope_mod.apply_rotary(q, angles)
         k = rope_mod.apply_rotary(k, angles)
@@ -209,7 +224,20 @@ def attn_apply(p, x, cfg, *, angles=None, impl="xla", ctx=None):
         return layers.dense(p.wo, o), KVCache(k=k, v=v)
     out = tp.row_parallel_dense(o, p.wo.w, ctx, p.wo.b,
                                 collectives=cfg.tp_collectives)
+    if r > 1:
+        c = hd // r
+        k, v = (t.narrow(-1, ctx.tp_index % r * c, c) for t in (k, v))
     return out, KVCache(k=k, v=v)
+
+
+def _kv_head(cols, ctx, r: int):
+    """The whole KV head ``(..., D)`` whose column slice ``cols`` (``(...,
+    D/r)``, this rank's block of wk or wv applied) this model rank holds:
+    every model rank's slice gathered in rank order (``tp.gather_tp``),
+    head ``tp_index // r`` kept."""
+    c = cols.shape[-1]
+    whole = tp.gather_tp(cols, ctx, dim=-1)
+    return whole.narrow(-1, ctx.tp_index // r * r * c, r * c)
 
 
 def attn_decode(p, x, cache: KVCache, cfg, *, pos: int, angles=None,
@@ -246,7 +274,8 @@ def _attn_decode_sharded(p, x, cache: KVCache, cfg, pos: int, angles, ctx,
                          batch: int):
     Bl = x.shape[0]
     hd, n = cfg.head_dim, ctx.tp_size
-    hq, hkv = cfg.n_heads // n, cfg.n_kv_heads // n
+    r = kv_share(cfg.n_kv_heads, n)
+    hq, kc = cfg.n_heads // n, cfg.n_kv_heads * hd // n
     sharded = tp.batch_sharded(batch, ctx)
     manual = cfg.tp_collectives == "manual"
     proj = [tp.col_parallel_dense_2dtp(x, lin.w, ctx, lin.b,
@@ -254,16 +283,23 @@ def _attn_decode_sharded(p, x, cache: KVCache, cfg, pos: int, angles, ctx,
             else tp.col_parallel_dense(x[:, 0], lin.w, ctx, lin.b)
             for lin in (p.wq, p.wk, p.wv)]
     q = proj[0].reshape(Bl, hq, hd)
-    k = proj[1].reshape(Bl, hkv, hd)
+    k = proj[1]
     if angles is not None:
         q = rope_mod.apply_rotary(q[:, None], angles)[:, 0]
-        k = rope_mod.apply_rotary(k[:, None], angles)[:, 0]
-    # every head of the step's q, k and v: one gather over the model axis
-    qkv = torch.cat([q, k, proj[2].reshape(Bl, hkv, hd)], 1)
-    heads = ctx.mesh.all_gather(qkv[:, None], ctx.tp, dim=1)
-    q_all = heads[:, :, :hq].reshape(Bl, cfg.n_heads, hd)
-    k_all = heads[:, :, hq:hq + hkv].reshape(Bl, cfg.n_kv_heads, hd)
-    v_all = heads[:, :, hq + hkv:].reshape(Bl, cfg.n_kv_heads, hd)
+        if r == 1:
+            # whole heads: rope before the gather; shared ones after it
+            k = rope_mod.apply_rotary(k.reshape(Bl, 1, -1, hd),
+                                      angles)[:, 0]
+    # every column of the step's q, k and v: one gather over the model
+    # axis, each rank's (hq heads, kc columns of k, kc of v) in rank order
+    qkv = torch.cat([t.reshape(Bl, -1) for t in (q, k, proj[2])], 1)
+    cols = ctx.mesh.all_gather(qkv[:, None], ctx.tp, dim=1)
+    qc = hq * hd
+    q_all = cols[:, :, :qc].reshape(Bl, cfg.n_heads, hd)
+    k_all = cols[:, :, qc:qc + kc].reshape(Bl, cfg.n_kv_heads, hd)
+    v_all = cols[:, :, qc + kc:].reshape(Bl, cfg.n_kv_heads, hd)
+    if angles is not None and r > 1:
+        k_all = rope_mod.apply_rotary(k_all[:, None], angles)[:, 0]
     axes = specs.cache_seq_axes(batch, ctx)
     S_loc = cache.k.shape[1]
     off = ctx.mesh.index(axes) * S_loc

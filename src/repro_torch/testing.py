@@ -553,6 +553,24 @@ def run_on_mesh(rank: int, p: int, runs, device=None) -> dict:
     return out
 
 
+def run_mc_then_lm(rank: int, world: int, runs, lm_runs,
+                   device=None) -> dict:
+    """Rank body of one launch that carries a matrix-completion mesh and
+    an LM mesh in turn: :func:`run_on_mesh` of ``runs``, then (its card
+    memory returned) :func:`run_lm_on_mesh` of ``lm_runs`` on the same
+    process group.  Returns the first's results with the second's under
+    ``"lm"``, which also holds the ``time.time()`` it started and ended
+    at (``started_at``, ``ended_at``)."""
+    import time
+    out = run_on_mesh(rank, world, runs, device)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    started = time.time()
+    lm = run_lm_on_mesh(rank, world, lm_runs, device)
+    out["lm"] = dict(lm, started_at=started, ended_at=time.time())
+    return out
+
+
 class FlashCounts:
     """Over a ``with`` block: the flash kernel's launches (its wrapper's
     own count, zeroed on entry) and the calls of its plain version."""
@@ -648,7 +666,9 @@ def serve_record(model, cfg, prompts, gen: int, ctx=None) -> dict:
     ``aux_loss`` and ``dropped`` (the prefill's, summed over its MoE
     layers), ``ssm`` (each SSM layer's ``(conv, ssm)`` state after the
     last step, fp32); the timings, and the flash kernel's launches and
-    plain calls (:class:`FlashCounts`)."""
+    plain calls (:class:`FlashCounts`); ``kv``: each attention layer's
+    ``(k, v)`` decode cache after the last step, fp32 (with ``ctx`` the
+    rank's block, ``launch.specs.local_kv_shape``)."""
     from .launch import serve
     n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
     with torch.inference_mode(), FlashCounts() as fc, MoeLog() as log:
@@ -668,16 +688,25 @@ def serve_record(model, cfg, prompts, gen: int, ctx=None) -> dict:
              for i, c in enumerate(t["cache"])
              if cfg.layer_kind(i) == "ssm"],
         prefill_s=t["prefill_s"], decode_s=t["decode_s"],
-        flash_launches=fc.launches, plain_calls=fc.plain_calls)
+        flash_launches=fc.launches, plain_calls=fc.plain_calls,
+        kv=[(c.k.float().cpu().numpy(), c.v.float().cpu().numpy())
+            for i, c in enumerate(t["cache"]) if cfg.layer_kind(i) == "attn"])
 
 
 def control_params(cfg, control: str):
-    """The parameters a control of :func:`run_lm_on_mesh` serves with the
-    next model rank's blocks of: ``"wo"`` layer 0's attention output,
-    ``"out_proj"`` layer 0's Mamba output projection, ``"experts"`` the
-    first MoE layer's experts (``gate``, ``up``, ``down``)."""
+    """The parameters a control of :func:`run_lm_on_mesh` serves with
+    another model rank's blocks of (:func:`control_partner`): ``"wo"``
+    layer 0's attention output, ``"out_proj"`` layer 0's Mamba output
+    projection, ``"experts"`` the first MoE layer's experts (``gate``,
+    ``up``, ``down``), ``"kv"`` the first attention layer's ``wk`` and
+    ``wv`` (with their biases where the config has them)."""
     if control == "wo":
         return ["layers.0.mixer.wo.w"]
+    if control == "kv":
+        i = next(i for i in range(cfg.n_layers)
+                 if cfg.layer_kind(i) == "attn")
+        return [f"layers.{i}.mixer.{w}.{x}" for w in ("wk", "wv")
+                for x in (("w", "b") if cfg.qkv_bias else ("w",))]
     if control == "out_proj":
         return ["layers.0.mixer.out_proj.w"]
     if control == "experts":
@@ -686,16 +715,33 @@ def control_params(cfg, control: str):
     raise ValueError(f"unknown control {control!r}")
 
 
-def _controls(cfg):
-    """The controls that apply to ``cfg``."""
+def control_partner(cfg, control: str, ctx) -> int:
+    """The model rank whose blocks this rank serves a control with: the
+    next one along the model axis; for ``"kv"``, where ``r`` model ranks
+    share each KV head (``sharding.kv_share``), the next of the ``r``
+    ranks of KV group 0 (a head's slices assembled in the wrong order),
+    and every other rank its own."""
+    from .distributed.sharding import kv_share
+    t, n = ctx.tp_index, ctx.tp_size
+    if control != "kv":
+        return (t + 1) % n
+    r = kv_share(cfg.n_kv_heads, n)
+    return (t + 1) % r if t < r else t
+
+
+def _controls(cfg, ctx):
+    """The controls that apply to ``cfg`` on ``ctx``'s mesh."""
+    from .distributed.sharding import kv_share
     out = ["wo" if cfg.layer_kind(0) == "attn" else "out_proj"]
     if any(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers)):
         out.append("experts")
+    if kv_share(cfg.n_kv_heads, ctx.tp_size) > 1:
+        out.append("kv")
     return out
 
 
 def _lm_weights(run: dict, cfg, ctx, dev):
-    """``(the rank's blocks, its model-axis neighbour's blocks of each
+    """``(the rank's blocks, its :func:`control_partner`'s blocks of each
     control's parameters (:func:`control_params`) by name, the blocks'
     fingerprint)`` for a ``"serve"`` run: the model is the reference's
     numpy tree (``run["params"]``) or drawn from ``run["seed"]`` on
@@ -709,13 +755,13 @@ def _lm_weights(run: dict, cfg, ctx, dev):
         full = T.init_params(torch.Generator(device=dev).manual_seed(
             run["seed"]), cfg, device=dev)
     model = shard_lm_params(full, cfg, ctx, device=dev)
-    # the controls' blocks: the next rank's along the model axis
-    coords = list(ctx.mesh.coords)
-    coords[-1] = (coords[-1] + 1) % ctx.mesh.shape[-1]
+    # the controls' blocks: their partners' along the model axis
     state = full.state_dict()
-    other = {name: shard_param(name, state[name], ctx, tuple(coords)).to(
-        dev, copy=True) for c in _controls(cfg)
-        for name in control_params(cfg, c)}
+    other = {}
+    for c in _controls(cfg, ctx):
+        coords = ctx.mesh.coords[:-1] + (control_partner(cfg, c, ctx),)
+        other.update({name: shard_param(name, state[name], ctx, coords).to(
+            dev, copy=True) for name in control_params(cfg, c)})
     del full, state
     return model, other, param_fingerprint(model)
 
@@ -1342,7 +1388,7 @@ def run_lm_on_mesh(rank: int, world: int, runs, device=None) -> dict:
       from ``seed`` on the device (built once per ``weights`` key, and
       dropped after the last run that names it);
       ``swap`` names a control (:func:`control_params`): the run serves
-      with those blocks replaced by the next model rank's.
+      with those blocks replaced by its :func:`control_partner`'s.
 
     Returns the rank's blocks of each result (numpy, fp32) under
     ``"<name>.<what>"``: a train run's as above, a serve run's :func:`serve_record` (tokens,

@@ -182,6 +182,62 @@ def test_an_uneven_shard_raises(field):
         shard_lm_params(TT.Transformer(cfg, device="meta"), cfg, ctx)
 
 
+@pytest.mark.parametrize("tp", [4, 8])
+def test_kv_heads_fewer_than_tp_are_shared_by_model_ranks(tp):
+    """2 KV heads at tp 4 and 8 (the smoke Llama-3: 8 query heads, head
+    dim 8) are accepted, each shared by ``r = tp / 2`` model ranks: model
+    rank ``t``'s wk and wv blocks are the reference's ``(dp, tp)`` blocks,
+    columns ``[t c, (t+1) c)`` with ``c = head_dim / r``, a slice of KV
+    head ``t // r``, the one its query heads use."""
+    cfg = tconfigs.get_smoke_config("llama3_405b")
+    assert (cfg.n_heads, cfg.n_kv_heads) == (8, 2)
+    r = tp // cfg.n_kv_heads
+    assert tsharding.kv_share(cfg.n_kv_heads, tp) == r
+    full = TT.init_params(0, cfg, device=CPU)
+    hd, c = cfg.head_dim, cfg.head_dim // r
+    group = cfg.n_heads // cfg.n_kv_heads           # query heads a KV head
+    for t in range(tp):
+        mesh, _ = _layout({"data": 1, "model": tp}, (0, t))
+        ctx = tsharding.make_ctx(mesh)
+        tsharding.check_divisible(cfg, ctx)
+        part = shard_lm_params(full, cfg, ctx)
+        hq = cfg.n_heads // tp
+        assert {h // group for h in range(t * hq, (t + 1) * hq)} == {t // r}
+        for w in ("wk", "wv"):
+            got = getattr(part.layers[0].mixer, w).w
+            whole = getattr(full.layers[0].mixer, w).w
+            head = whole[:, (t // r) * hd:(t // r + 1) * hd]
+            assert torch.equal(got, head[:, (t % r) * c:(t % r + 1) * c])
+    # one KV head a rank and more are the even case
+    for n_tp in (1, 2):
+        assert tsharding.kv_share(cfg.n_kv_heads, n_tp) == 1
+
+
+@pytest.mark.parametrize("case", ["n_kv_heads", "n_heads", "head_dim"])
+def test_uneven_kv_or_query_heads_over_tp_raise(case):
+    """At tp 4: 3 KV heads (neither divides the other) name
+    ``n_kv_heads``; the smoke Mistral's 6 query heads name ``n_heads``
+    with the reason that the port does not pad query heads (ROADMAP item
+    29); KV heads shared by more model ranks than ``head_dim`` can be cut
+    into name ``head_dim``."""
+    cfg = {"n_kv_heads": dataclasses.replace(
+               tconfigs.get_smoke_config("qwen2_5_32b"), n_heads=12,
+               n_kv_heads=3),
+           "n_heads": tconfigs.get_smoke_config("mistral_large_123b"),
+           "head_dim": dataclasses.replace(
+               tconfigs.get_smoke_config("llama3_405b"), n_kv_heads=1,
+               head_dim=2)}[case]
+    match = {"n_kv_heads": "n_kv_heads=3",
+             "n_heads": r"n_heads=6 .*ROADMAP item 29",
+             "head_dim": "head_dim=2"}[case]
+    mesh, _ = _layout({"data": 1, "model": 4})
+    ctx = tsharding.make_ctx(mesh)
+    with pytest.raises(ValueError, match=match):
+        tsharding.check_divisible(cfg, ctx)
+    with pytest.raises(ValueError, match=match):
+        shard_lm_params(TT.Transformer(cfg, device="meta"), cfg, ctx)
+
+
 @pytest.mark.parametrize("arch,field", [("qwen3_moe_30b_a3b", "n_experts"),
                                         ("kimi_k2_1t_a32b", "shared_width"),
                                         ("falcon_mamba_7b", "d_inner"),
