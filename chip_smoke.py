@@ -368,6 +368,24 @@ Phases, one line each (any failure raises and exits non-zero):
    column halves swapped), beside its bound and SDPA's time, a kernel
    record whose launches are the "gspmd" prefill's, summed over the
    ranks, with each rank's launches, plain calls and card peak.
+20. the LM dry-run (``repro_torch.launch.dryrun``; its traces run on
+   the host in DRY_WORKERS niced processes from after phase 1 until
+   phase 13, which waits for them (``[20.wait]``), its checks at the
+   end): (a) every rank of ``[17.train]`` (each step on
+   its batch's tokens) and of ``[15.tp]`` (the prefill and the decode
+   step under "manual" and "gspmd") traced on the meta device over a
+   ``DryMesh``, held to the ranks' own records of that step
+   (``testing.StepLog`` and the train case's per-step records): the
+   collectives' calls, bytes in and bytes out equal, the argument bytes
+   (params, and AdamW's state) equal to the rank's state, the dry-run's
+   temporaries within DRY_TEMP_FACTOR of the rank's card peak over the
+   step less what it held before, and a control that must be rejected
+   (rank 0's first step with one collective dropped from the ledger);
+   (b) one rank of each of the 32 (arch x shape) cells of the port's
+   (32, 8) H100 mesh: its argument and temporary GB, whether they fit the
+   card's memory, its TFLOPs (matrix products) and its wire GB; and
+   Qwen2.5-32B's cells refused on the JAX package's (16, 16) (ROADMAP
+   item 29).
 
 The line before the last is a JSON record of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA the script exits
@@ -380,6 +398,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -445,11 +464,10 @@ TRAIN_ACCUM_BOUND, TRAIN_ACCUM_LOSS_BOUND = 2.0 ** -6, 2.0 ** -8
 LEARN_LR = 3e-6
 #: [13.kernel.L]: |L_kernel - L_plain| <= LSE_REL (1 + |L_plain|)
 LSE_REL = 2e-5
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
-#: the tensor cores, dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate)
-PEAK_BW = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_TC16 = 989e12
+#: H100 SXM peaks: HBM bytes/s, fp32 FLOP/s outside the tensor cores,
+#: dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate); main() reads
+#: them from repro_torch.launch.mesh, the port's one source of them
+PEAK_BW = PEAK_FP32 = PEAK_TC16 = None
 EPS_FP32 = 2.0 ** -24
 
 
@@ -2910,7 +2928,6 @@ def mesh_train_runs(dev):
     ``grad_norm`` s, then frees the state.  Returns the ranks' run and
     what :func:`mesh_train_check` holds it to."""
     from repro_torch import configs
-    from repro_torch.data import TokenPipeline
     from repro_torch.distributed.sharding import make_ctx, spec_for
     from repro_torch.launch import train as ltrain
     from repro_torch.launch.mesh import LmMesh
@@ -2923,9 +2940,7 @@ def mesh_train_runs(dev):
     layout = make_ctx(LmMesh(("data", "model"), TP_MESH, (0, 0), dev,
                              "gloo-staged"))
     opt_cfg = optim.AdamWConfig(lr=LEARN_LR)
-    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
-                         global_batch=MESH_TRAIN_B, seed=MESH_TRAIN_SEED)
-    batches = [pipe.batch_at(s) for s in range(MESH_TRAIN_STEPS)]
+    batches = mesh_train_batches(cfg)
     rows = mesh_train_rows(cfg, batches[0])
     torch.cuda.reset_peak_memory_stats()
     state, init_s, held = build_on_card(lambda: ltrain.init_state(
@@ -3561,7 +3576,8 @@ def mesh_phases(dev) -> list:
     :func:`mesh_train_check`, :func:`ep_train_check`).  Prints the
     spawn's seconds, each phase's runs' seconds on the ranks and its
     ranks' time to their mesh.  Returns the phases' flash kernel
-    records."""
+    records and what [20.dryrun] holds its dry-runs to
+    (:func:`dry_ranks`)."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.testing import run_lm_on_mesh
     t0 = time.perf_counter()
@@ -3588,7 +3604,7 @@ def mesh_phases(dev) -> list:
             mesh_train_check(dev, st17, outs),
             ep_train_check(dev, st18, outs)]
     phase("15+16+17+18.done", seconds=f"{time.perf_counter() - t0:.1f}")
-    return recs
+    return recs, dry_ranks(outs)
 
 
 # --------------------------------------------------------------------- #
@@ -3883,6 +3899,261 @@ def kvrep_check(dev, st: dict, outs: list) -> dict:
     phase("19.done", seconds=f"{parent_s + ranks_s:.1f}",
           parent_s=f"{parent_s:.1f}", ranks_s=f"{ranks_s:.1f}")
     return rec
+
+
+# --------------------------------------------------------------------- #
+# 20. the LM dry-run                                                     #
+# --------------------------------------------------------------------- #
+
+#: [20.dryrun]: processes that trace the dry-runs on the host, at the
+#: lowest priority, from after phase 1 until phase 13 waits for them (the
+#: dry-runs take 385-660 s of one core: they could not fit the phase's
+#: 30 s in line; 6 of the host's 8 cores finish them beside phases 2-7,
+#: and no later phase runs beside them)
+DRY_WORKERS = 6
+#: [20.dryrun]: seconds phase 13 waits for them at most
+DRY_TIMEOUT = 600
+#: [20.dryrun]: the dry-run's temporaries against a rank's card peak over
+#: the step less what it held before the step: within this factor either
+#: way (the dry-run runs attention's plain route, the card the flash
+#: kernel; the rest is the same code)
+DRY_TEMP_FACTOR = 2.0
+#: [20.dryrun]: the [15.tp] runs held to their dry-runs
+DRY_SERVE_RUNS = ("manual", "gspmd")
+
+
+def dry_init(src: str) -> None:
+    """A dry-run process: the lowest priority, one thread, the port on
+    the path."""
+    os.nice(19)
+    sys.path.insert(0, src)
+    torch.set_num_threads(1)
+
+
+def mesh_train_batches(cfg) -> list:
+    """[17.train]'s global batches (``TokenPipeline`` from
+    MESH_TRAIN_SEED)."""
+    from repro_torch.data import TokenPipeline
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                         global_batch=MESH_TRAIN_B, seed=MESH_TRAIN_SEED)
+    return [pipe.batch_at(s) for s in range(MESH_TRAIN_STEPS)]
+
+
+def dry_jobs() -> list:
+    """[20.dryrun]'s dry-runs: (a) every rank of [17.train] (each step on
+    its batch's tokens; rank 0's first step again with its first
+    collective dropped, the control) and of [15.tp] (a prefill and its
+    decode step, under each of DRY_SERVE_RUNS); (b) the 32 cells of the
+    port's production mesh (32, 8), and Qwen2.5-32B's on the JAX
+    package's (16, 16).  The slowest first (the SSM scans)."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import production_axes
+    world = TP_MESH[0] * TP_MESH[1]
+    jobs = []
+    slow = ("falcon_mamba_7b", "jamba_1_5_large_398b")
+    cells = [(a, s) for a, s, skip in configs.cells() if not skip]
+    cells.sort(key=lambda c: (c[0] not in slow, c[1] not in ("train_4k",
+                                                            "prefill_32k")))
+    jobs += [dict(what="cell", arch=a, shape=s, mesh=production_axes())
+             for a, s in cells]
+    jobs += [dict(what="cell", arch="qwen2_5_32b", shape=s,
+                  mesh={"data": 16, "model": 16})
+             for s in ("train_4k", "prefill_32k", "decode_32k")]
+    for r in range(world):
+        jobs += [dict(what="train", rank=r, step=i)
+                 for i in range(MESH_TRAIN_STEPS)]
+        jobs += [dict(what=kind, rank=r, mode=mode)
+                 for mode in DRY_SERVE_RUNS for kind in ("prefill", "decode")]
+    jobs.append(dict(what="train", rank=0, step=0, drop=0))
+    return jobs
+
+
+def dry_job(job: dict) -> dict:
+    """One of :func:`dry_jobs` in a dry-run process: a cell's record
+    (``launch.dryrun.run_cell``; a refused cell's text), or a faithfulness
+    run's counters, argument bytes and temporaries
+    (``launch.dryrun.lower_cell``), with the process's CPU seconds and
+    the time it ended."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import COUNTERS
+    t0 = time.process_time()
+    out = dict(job)
+    if job["what"] == "cell":
+        try:
+            rec = D.run_cell(job["arch"], job["shape"], job["mesh"])
+            out.update(memory=rec["memory"], flops=rec["cost"]["flops"],
+                       wire=rec["collectives"]["wire_bytes_per_device"],
+                       trace_s=rec["trace_s"])
+        except D.Refused as e:
+            out["refused"] = str(e)
+    else:
+        axes = {"data": TP_MESH[0], "model": TP_MESH[1]}
+        full = configs.get_config("qwen2_5_32b")
+        if job["what"] == "train":
+            cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS,
+                                      tp_collectives="gspmd")
+            batch = mesh_train_batches(cfg)[job["step"]]
+            tr = D.lower_cell(
+                cfg, dict(kind="train", seq_len=TRAIN_S,
+                          global_batch=MESH_TRAIN_B), axes, rank=job["rank"],
+                opt_overrides=dict(lr=LEARN_LR),
+                train_kwargs=dict(total_steps=MESH_TRAIN_STEPS, warmup=0),
+                tokens=batch["inputs"], drop=job.get("drop"))
+        else:
+            cfg = dataclasses.replace(full, n_layers=TP_LAYERS,
+                                      tp_collectives=job["mode"])
+            # generate's caches hold P + G positions; its first decode
+            # step writes position P
+            S = LM_P if job["what"] == "prefill" else LM_P + TP_G
+            tr = D.lower_cell(cfg, dict(kind=job["what"], seq_len=S,
+                                        global_batch=LM_B), axes,
+                              rank=job["rank"], pos=LM_P)
+        out.update(counters={k: tr.mesh.stats[k] for k in COUNTERS},
+                   coords=list(tr.mesh.coords), arguments=tr.arguments,
+                   temp=tr.temp_bytes, trace_s=tr.trace_s)
+    out.update(cpu_s=time.process_time() - t0, done_at=time.time())
+    return out
+
+
+def dry_start():
+    """Start [20.dryrun]'s processes on :func:`dry_jobs`: ``(pool, [(job,
+    pending result)], start)``."""
+    import multiprocessing as mp
+    pool = mp.get_context("spawn").Pool(DRY_WORKERS, initializer=dry_init,
+                                        initargs=(str(ROOT / "src"),))
+    return pool, [(j, pool.apply_async(dry_job, (j,))) for j in dry_jobs()], \
+        time.time()
+
+
+def dry_wait(dry) -> dict:
+    """Wait (at most DRY_TIMEOUT s) for the dry-runs that :func:`dry_start`
+    started, then stop their processes: ``{"res": each job's result,
+    "waited": the seconds waited, "at": the seconds from their start to
+    the wait}``, with a ``[20.wait]`` line."""
+    pool, pending, t_start = dry
+    at = time.time() - t_start
+    t0 = time.perf_counter()
+    try:
+        res = [r.get(timeout=max(
+            1.0, DRY_TIMEOUT - (time.perf_counter() - t0)))
+            for _, r in pending]
+    finally:
+        pool.terminate()
+        pool.join()
+    waited = time.perf_counter() - t0
+    phase("20.wait", waited_s=f"{waited:.1f}", at_s=f"{at:.1f}",
+          workers=DRY_WORKERS,
+          workers_cpu_s=f"{sum(r['cpu_s'] for r in res):.1f}",
+          workers_span_s=f"{max(r['done_at'] for r in res) - t_start:.1f}")
+    return dict(res=res, waited=waited, at=at)
+
+
+def dry_ranks(outs: list) -> list:
+    """What [20.dryrun] holds the dry-runs to, from phases 15 and 17's
+    ranks: each rank's coordinates, and for [17.train] and each of
+    DRY_SERVE_RUNS its steps' counters and card memory and its state's
+    bytes."""
+    keep = ("train",) + DRY_SERVE_RUNS
+    return [{"coords": o["train.coords"],
+             **{f"{n}.{k}": o[f"{n}.{k}"] for n in keep
+                for k in ("steps", "state_bytes")}} for o in outs]
+
+
+def dryrun_phase(dry: dict, ranks: list, smi: str) -> None:
+    """[20.dryrun]: the dry-runs of :func:`dry_jobs` (:func:`dry_wait`'s
+    results) against the ranks of [17.train] and [15.tp]
+    (:func:`dry_ranks`).  (a) For every rank and step kind (each train
+    step, the prefill, the decode step): the collectives' calls, bytes in
+    and bytes out equal; the argument bytes (params, and AdamW's state)
+    equal the rank's state; the dry-run's temporaries within
+    DRY_TEMP_FACTOR of the rank's card peak over the step less what it
+    held before; the control (a collective dropped) rejected.  (b) Each
+    production cell's argument and temporary GB a rank, whether they fit
+    the card's memory, its TFLOPs and its wire GB, and the refusals."""
+    t0 = time.perf_counter()
+    by = {}
+    for r in dry["res"]:
+        by.setdefault(r["what"], []).append(r)
+
+    fails = []
+
+    def held(counters, steps_rec):
+        return {k: steps_rec[k] for k in counters}
+
+    lines = []
+    for r in by["train"] + by["prefill"] + by["decode"]:
+        if r.get("drop") is not None:
+            continue
+        rank = ranks[r["rank"]]
+        if r["what"] == "train":
+            run, have = "train", rank["train.steps"][r["step"]]
+            state = r["arguments"]["params"] + r["arguments"]["opt"]
+        else:
+            run = r["mode"]
+            have = next(s for s in rank[f"{run}.steps"]
+                        if s["kind"] == r["what"])
+            state = r["arguments"]["params"]
+        real_temp = have["peak"] - have["allocated"]
+        ratio = r["temp"] / max(real_temp, 1)
+        equal = r["counters"] == held(r["counters"], have) and \
+            tuple(r["coords"]) == tuple(rank["coords"])
+        same_state = state == rank[f"{run}.state_bytes"]
+        within = 1 / DRY_TEMP_FACTOR <= ratio <= DRY_TEMP_FACTOR
+        what = f"{run}:{r['what']}" + (f"{r['step']}" if run == "train"
+                                       else "")
+        lines.append(dict(rank=r["rank"], step=what, **{
+            f"dry_{k}": v for k, v in r["counters"].items()},
+            **{f"card_{k}": have[k] for k in r["counters"]},
+            equal=equal, dry_state_bytes=state,
+            card_state_bytes=rank[f"{run}.state_bytes"],
+            state_equal=same_state, dry_temp_bytes=r["temp"],
+            card_temp_bytes=real_temp, temp_ratio=f"{ratio:.3f}"))
+        if not (equal and same_state and within):
+            fails.append(what + f" rank {r['rank']}")
+    lines.sort(key=lambda x: (x["step"], x["rank"]))
+    for line in lines:
+        phase("20.dryrun", card=repr(smi), **line)
+    ctrl = next(r for r in by["train"] if r.get("drop") is not None)
+    have = ranks[0]["train.steps"][0]
+    rejected = ctrl["counters"] != held(ctrl["counters"], have)
+    phase("control", what="[20.dryrun] train step 0 of rank 0 with its "
+          "first collective dropped from the ledger", rejected=rejected,
+          dry_calls=ctrl["counters"]["calls"], card_calls=have["calls"])
+    if not rejected:
+        fails.append("the control was not rejected")
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    for r in sorted(by["cell"], key=lambda r: (
+            "x".join(map(str, r["mesh"].values())), r["arch"], r["shape"])):
+        mesh = "x".join(map(str, r["mesh"].values()))
+        if "refused" in r:
+            phase("20.refused", arch=r["arch"], shape=r["shape"], mesh=mesh,
+                  why=repr(r["refused"]))
+            continue
+        args = r["memory"]["argument_size_in_bytes"]
+        temp = r["memory"]["temp_size_in_bytes"]
+        phase("20.cell", arch=r["arch"], shape=r["shape"], mesh=mesh,
+              args_gb=f"{args / 1e9:.2f}", temp_gb=f"{temp / 1e9:.2f}",
+              fits=args + temp <= total, tflop=f"{r['flops'] / 1e12:.1f}",
+              wire_gb=f"{r['wire'] / 1e9:.2f}", trace_s=r["trace_s"])
+    cells = [r for r in by["cell"] if "refused" not in r]
+    refused = [r for r in by["cell"] if "refused" in r]
+    want_refused = {("qwen2_5_32b", s) for s in ("train_4k", "prefill_32k",
+                                                 "decode_32k")}
+    if len(cells) != 32 or {(r["arch"], r["shape"]) for r in refused} \
+            != want_refused or any("item 29" not in r["refused"]
+                                   for r in refused):
+        fails.append(f"{len(cells)} production cells traced, "
+                     f"{len(refused)} refused")
+    phase("20.done", seconds=f"{time.perf_counter() - t0:.1f}",
+          waited_s=f"{dry['waited']:.1f}", cells=len(cells),
+          refused=len(refused), card_total_gb=f"{total / 1e9:.2f}",
+          fit=sum(r["memory"]["argument_size_in_bytes"]
+                  + r["memory"]["temp_size_in_bytes"] <= total
+                  for r in cells))
+    if fails:
+        raise AssertionError(f"[20.dryrun]: {fails}")
 
 
 #: [8.*]'s arrival batches: new ratings as a share of the training set,
@@ -5313,11 +5584,13 @@ def mesh_stream_report(outs, first: int, stream, chaos_local,
     return launched
 
 
-def main_path(args, api, ks, ref, dev):
-    """Phases 2-8 at Netflix x ``args.scale``.  Returns the kernel
-    records, phase 2's errors, ``[4.floor]``'s ns per wave, phase 2's
-    problem (its packs released) and phase 12's inputs
-    (:func:`mesh_stream_inputs`)."""
+def main_path(args, api, ks, ref, dev, dry):
+    """Phases 2-8 at Netflix x ``args.scale``, with [20.dryrun]'s
+    processes (``dry``, :func:`dry_start`) beside phases 2-7 and waited
+    for before phase 13.  Returns the kernel records, phase 2's errors,
+    ``[4.floor]``'s ns per wave, phase 2's problem (its packs released),
+    phase 12's inputs (:func:`mesh_stream_inputs`), [20.dryrun]'s ranks
+    (:func:`dry_ranks`) and the dry-runs (:func:`dry_wait`)."""
     from repro_torch.core.nomad import wave_csr
     from repro_torch.core.partition import padded_waves
     from repro_torch.core.stepsize import PowerSchedule
@@ -5651,12 +5924,15 @@ def main_path(args, api, ks, ref, dev):
     flash_launches = lm_phase(dev)
     torch.cuda.empty_cache()
     kernels.extend(flash_kernel_checks(dev, flash_launches))
+    # -- 20. the dry-runs' processes end here: none beside phases 13-19 --
+    dry_out = dry_wait(dry)
     torch.cuda.empty_cache()
     kernels.append(train_phase(dev))
     torch.cuda.empty_cache()
     kernels.extend(lm_families_phase(dev))
     free_cuda()
-    kernels.extend(mesh_phases(dev))
+    recs, ranks = mesh_phases(dev)
+    kernels.extend(recs)
     stream, digests = stream_phase(api, ks, ref, problem, config,
                                    routes["grid"]["result"], dev)
     for rec in kernels:
@@ -5669,7 +5945,7 @@ def main_path(args, api, ks, ref, dev):
     stream_in = mesh_stream_inputs(problem, config, routes["grid"]["result"],
                                    br, digests)
     problem._pack_cache.clear()
-    return kernels, errs, floor_ns, problem, stream_in
+    return kernels, errs, floor_ns, problem, stream_in, ranks, dry_out
 
 
 def main() -> int:
@@ -5683,8 +5959,12 @@ def main() -> int:
               "script runs on an NVIDIA card only", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global PEAK_BW, PEAK_FP32, PEAK_TC16
     from repro_torch import api
     from repro_torch.kernels import _build, nomad_sgd as ks, ref
+    from repro_torch.launch.mesh import (HBM_BW as PEAK_BW,
+                                         PEAK_FLOPS_BF16 as PEAK_TC16,
+                                         PEAK_FLOPS_FP32 as PEAK_FP32)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5719,48 +5999,58 @@ def main() -> int:
     phase("1.plan", shapes=5, main=ks.plan(228, 100, 4).describe(),
           full_netflix=ks.plan(2222, 100, 4).describe())
 
-    kernels, errs, floor_ns, small, stream_in = main_path(args, api, ks, ref,
-                                                          dev)
-    # -- 9. full Netflix on the main path; the simulator's schedule ------
-    torch.cuda.empty_cache()
-    record, netflix, digest, global_floor_ns, ran = netflix_phase(
-        api, ks, ref, dev, floor_ns)
-    kernels.append(record)
-    sim_launches = sim_phase(api, ks, dev)
-    # -- 11, 12. the SPMD executor in ranks on the card: phase 9's pack;
-    # phase 8's streaming, elastic and fault-tolerant sequence ----------
-    # -- 19. KV heads shared over tp: its unsharded runs here, its ranks'
-    # runs in phase 11's spawn after phase 12's -------------------------
-    torch.cuda.empty_cache()
-    runs19, st19 = kvrep_runs(dev)
-    free_cuda()
-    spmd_launches, outs19 = spmd_phase(api, ks, dev, netflix, ran, digest,
-                                       floor_ns, stream_in, runs19)
-    del ran
-    netflix._pack_cache.clear()
-    kernels.append(kvrep_check(dev, st19, outs19))
-    # -- 10. the paper's baselines at full Netflix ----------------------
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    kernels.append(dsgd_phase(api, ks, dev, netflix, digest, floor_ns,
-                              global_floor_ns))
-    torch.cuda.empty_cache()
-    baselines_phase(api, dev, netflix, small)
-    del netflix, small
-    phase("10.done", seconds=f"{time.perf_counter() - t0:.1f}")
-    for rec in kernels:
-        if rec["name"] == "nomad_sgd_waves_csr[grid]":
-            rec["launches"] += sim_launches
-            rec["launches_on"] = "[3.grid], [8.*] and [9.sim]"
-        elif rec["name"] == "nomad_sgd_waves_csr[per_cell]":
-            rec["launches"] += spmd_launches["per_cell"]
-            rec["launches_on"] = ("[3.per_cell], and [11.netflix], "
-                                  "[11.api] and [12.*] summed over their "
-                                  "ranks")
-        elif rec["name"] == "nomad_sgd_waves_csr[sequential]":
-            rec["launches"] += spmd_launches["sequential"]
-            rec["launches_on"] = ("[3.sequential], and [11.api]'s "
-                                  "sub_blocks=2 summed over its ranks")
+    # -- 20. the dry-runs' processes: from here to phase 13, on the host --
+    dry = dry_start()
+    try:
+        kernels, errs, floor_ns, small, stream_in, ranks, dry_out = \
+            main_path(args, api, ks, ref, dev, dry)
+        # -- 9. full Netflix on the main path; the simulator's schedule --
+        torch.cuda.empty_cache()
+        record, netflix, digest, global_floor_ns, ran = netflix_phase(
+            api, ks, ref, dev, floor_ns)
+        kernels.append(record)
+        sim_launches = sim_phase(api, ks, dev)
+        # -- 11, 12. the SPMD executor in ranks on the card: phase 9's
+        # pack; phase 8's streaming, elastic and fault-tolerant sequence --
+        # -- 19. KV heads shared over tp: its unsharded runs here, its
+        # ranks' runs in phase 11's spawn after phase 12's ---------------
+        torch.cuda.empty_cache()
+        runs19, st19 = kvrep_runs(dev)
+        free_cuda()
+        spmd_launches, outs19 = spmd_phase(api, ks, dev, netflix, ran,
+                                           digest, floor_ns, stream_in,
+                                           runs19)
+        del ran
+        netflix._pack_cache.clear()
+        kernels.append(kvrep_check(dev, st19, outs19))
+        # -- 10. the paper's baselines at full Netflix -------------------
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        kernels.append(dsgd_phase(api, ks, dev, netflix, digest, floor_ns,
+                                  global_floor_ns))
+        torch.cuda.empty_cache()
+        baselines_phase(api, dev, netflix, small)
+        del netflix, small
+        phase("10.done", seconds=f"{time.perf_counter() - t0:.1f}")
+        for rec in kernels:
+            if rec["name"] == "nomad_sgd_waves_csr[grid]":
+                rec["launches"] += sim_launches
+                rec["launches_on"] = "[3.grid], [8.*] and [9.sim]"
+            elif rec["name"] == "nomad_sgd_waves_csr[per_cell]":
+                rec["launches"] += spmd_launches["per_cell"]
+                rec["launches_on"] = ("[3.per_cell], and [11.netflix], "
+                                      "[11.api] and [12.*] summed over their "
+                                      "ranks")
+            elif rec["name"] == "nomad_sgd_waves_csr[sequential]":
+                rec["launches"] += spmd_launches["sequential"]
+                rec["launches_on"] = ("[3.sequential], and [11.api]'s "
+                                      "sub_blocks=2 summed over its ranks")
+        # -- 20. the LM dry-run against phases 15 and 17's ranks; the
+        # production table ----------------------------------------------
+        dryrun_phase(dry_out, ranks, smi)
+    finally:
+        dry[0].terminate()
+        dry[0].join()
     phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
           errors=json.dumps({f"{a}/{b}": f"{v:.3e}"
                              for (a, b), v in errs.items()}))

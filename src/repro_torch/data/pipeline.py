@@ -14,16 +14,17 @@ checkpointing pipeline state:
   stream stays a coherent low-rank problem as it grows.  Feeds
   ``repro_torch.api.StreamingSession`` / ``partial_fit``.
 
-Numpy only, the JAX package's draws bit for bit.  (That module's
-``lm_input_specs``, the dry-run's input shapes, is ROADMAP.md Queue 1
-item 17.)
+Numpy only, the JAX package's draws bit for bit.  :func:`lm_input_specs`
+gives the dry-run (``repro_torch.launch.dryrun``) its inputs as meta
+tensors: shapes and dtypes, no data.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -185,3 +186,34 @@ class RatingArrivalStream:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         for t in range(self.batches):
             yield self.batch_at(t)
+
+
+def lm_input_specs(cfg, shape: dict, *, batch_override: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """Every model input of an (arch x shape) cell as a tensor on the
+    ``meta`` device (no allocation), with the JAX package's names,
+    shapes and dtypes: ``inputs`` int32 ``(B, S)``, or ``(B, S, d_model)``
+    in the config's dtype where the config does not embed tokens;
+    ``labels`` int32 ``(B, S)`` for a train cell; ``positions`` int32
+    ``(B, S, 3)`` for mrope; a decode cell's ``inputs`` one token,
+    ``(B, 1)`` (or ``(B, 1, d_model)``)."""
+    S = shape["seq_len"]
+    B = batch_override or shape["global_batch"]
+    kind = shape["kind"]
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    def tokens(n):
+        if cfg.embed_input:
+            return meta(B, n)
+        return meta(B, n, cfg.d_model, dtype=getattr(torch, cfg.dtype))
+
+    if kind not in ("train", "prefill"):
+        return {"inputs": tokens(1)}
+    out = {"inputs": tokens(S)}
+    if kind == "train":
+        out["labels"] = meta(B, S)
+    if cfg.rope_kind == "mrope":
+        out["positions"] = meta(B, S, 3)
+    return out

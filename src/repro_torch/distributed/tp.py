@@ -43,6 +43,9 @@ partial activations are combined there.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch.autograd import Function
 
@@ -269,18 +272,48 @@ def _lookup(table_loc, tokens, ctx: ShardingCtx):
     return emb * valid[..., None].to(emb.dtype)
 
 
-def _union_over_dp(rows: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
+def _union_over_dp(rows: torch.Tensor, ctx: ShardingCtx,
+                   sizes=None) -> torch.Tensor:
     """The sorted union of every dp rank's sorted int64 ``rows`` (their
-    counts, then the rows padded with -1 to the largest, gathered)."""
+    counts, then the rows padded with -1 to the largest, gathered).  On
+    the meta device ``sizes`` gives what the data would: ``(the largest
+    count, the union's size)``."""
     if ctx.dp_size == 1:
         return rows
     n = ctx.mesh.all_gather(torch.tensor([rows.numel()], device=rows.device),
                             ctx.dp)
-    pad = torch.full((max(int(n.max()), 1),), -1, dtype=rows.dtype,
+    most = int(n.max()) if sizes is None else sizes[0]
+    pad = torch.full((max(most, 1),), -1, dtype=rows.dtype,
                      device=rows.device)
     pad[:rows.numel()] = rows
     every = ctx.mesh.all_gather(pad, ctx.dp)
+    if sizes is not None:
+        return every.new_empty(sizes[1])
     return torch.unique(every[every >= 0])
+
+
+def _dry_rows(tokens: Optional[np.ndarray], B_loc: int, S: int, V_loc: int,
+              ctx: ShardingCtx):
+    """For a trace on the meta device: ``(this rank's tokens in its
+    vocabulary shard, each dp rank's count of distinct rows there, the
+    size of their union)`` for the global (micro)batch of token ids
+    ``tokens`` (every rank's rows, as :func:`local_batch` cuts them);
+    without them, a bound: every one of the rank's ``B_loc x S`` tokens
+    in its shard, all distinct, on every dp rank."""
+    dp, t = ctx.dp_size, ctx.tp_index
+    if tokens is None:
+        n = min(V_loc, B_loc * S)
+        return B_loc * S, [n] * dp, min(V_loc, dp * n)
+    B = tokens.shape[0]
+    step = B // dp if B % dp == 0 else B
+    sets = []
+    for d in range(dp):
+        rows = tokens[d * step:(d + 1) * step] if B % dp == 0 else tokens
+        local = rows.reshape(-1).astype(np.int64) - t * V_loc
+        sets.append(local[(local >= 0) & (local < V_loc)])
+    me = sets[ctx.dp_index]
+    return (me.size, [np.unique(x).size for x in sets],
+            np.unique(np.concatenate(sets)).size)
 
 
 class _VocabEmbed(Function):
@@ -289,13 +322,19 @@ class _VocabEmbed(Function):
     in fp32 (``layers._Embed``'s arithmetic), reduce-scatters the sums
     over dp and rounds once; only the rows some dp rank of the model
     column looked up have a gradient, so only they are reduce-scattered
-    (the batch's tokens, not the (V/tp, d) block GSPMD would move)."""
+    (the batch's tokens, not the (V/tp, d) block GSPMD would move).
+    Those rows are the one shape the program takes from its data: on the
+    meta device (``launch.mesh.DryMesh``) the forward takes the batch's
+    token ids from the mesh and the backward computes their counts on
+    the host (:func:`_dry_rows`)."""
 
     @staticmethod
     def forward(ctx, table, tokens, sc: ShardingCtx):
         full = sc.mesh.all_gather(table, sc.dp, dim=1)
         ctx.sc, ctx.shape = sc, full.shape
         ctx.save_for_backward(tokens)
+        if tokens.is_meta and ctx.needs_input_grad[0]:
+            ctx.dry = sc.mesh.take_tokens()
         return _lookup(full, tokens, sc)
 
     @staticmethod
@@ -303,8 +342,15 @@ class _VocabEmbed(Function):
         (tokens,) = ctx.saved_tensors
         sc, (V_loc, d) = ctx.sc, ctx.shape
         local = (tokens - sc.tp_index * V_loc).reshape(-1)
-        mine = (local >= 0) & (local < V_loc)
-        rows = _union_over_dp(torch.unique(local[mine]), sc)
+        if tokens.is_meta:
+            n_mine, counts, union = _dry_rows(ctx.dry, *tokens.shape, V_loc,
+                                              sc)
+            mine = local.new_empty(n_mine)
+            rows = _union_over_dp(local.new_empty(counts[sc.dp_index]), sc,
+                                  (max(counts), union))
+        else:
+            mine = (local >= 0) & (local < V_loc)
+            rows = _union_over_dp(torch.unique(local[mine]), sc)
         sums = torch.zeros((rows.numel(), d), dtype=torch.float32,
                            device=g.device)
         sums.index_put_((torch.searchsorted(rows, local[mine]),),

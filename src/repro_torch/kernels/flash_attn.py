@@ -34,7 +34,8 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MAX_D = 128
 
 
-def _check(q, k, v, block_q: int, block_k: int, dtypes=_DTYPES) -> None:
+def _check(q, k, v, block_q: int, block_k: int, dtypes=_DTYPES,
+           devices=("cuda", "cpu")) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, D)")
     B, Hq, S, D = q.shape
@@ -55,7 +56,7 @@ def _check(q, k, v, block_q: int, block_k: int, dtypes=_DTYPES) -> None:
         raise TypeError(f"q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
                         f"one of {dtypes} for all three")
     dev = q.device
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in devices:
         raise RuntimeError(f"unsupported device {dev}")
     if k.device != dev or v.device != dev:
         raise RuntimeError(f"q on {dev}, k on {k.device}, v on {v.device}")
@@ -77,8 +78,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     With ``return_lse`` also each row's log-normaliser ``L = m +
     log(max(l, 1e-30))``, ``(B, Hq, S)`` in fp32.  It also takes float64
     (the kernel does not), computing (and returning ``L``) in float64
-    then, for gradient checks."""
-    _check(q, k, v, block_q, block_k, _DTYPES + (torch.float64,))
+    then, for gradient checks, and meta tensors (shapes only: the
+    dry-run, ``launch.dryrun``)."""
+    _check(q, k, v, block_q, block_k, _DTYPES + (torch.float64,),
+           ("cuda", "cpu", "meta"))
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
     g = Hq // Hkv

@@ -31,6 +31,15 @@ group per data row and per model column (and one over all ranks), every
 rank in the same order; its collectives take the axes they run over.
 Its transport is :func:`choose_transport`'s, as above.
 
+:class:`DryMesh` is one rank's view of an LM mesh of any size with no
+process group, on the ``meta`` device: its collectives return what an
+:class:`LmMesh`'s would (the same code, the same shapes and counters)
+and record each one instead of sending it, for the dry-run
+(``launch.dryrun``).  :func:`production_axes` names the port's
+production mesh on H100 nodes, and the module holds the H100's peak
+rates (:data:`PEAK_FLOPS_BF16`, :data:`HBM_BW`, :data:`NVLINK_BW`, ...):
+the JAX package's ``launch/mesh.py`` holds a TPU v5e's.
+
 :func:`spawn_ranks` runs a function in ``p`` processes started with the
 ``spawn`` method (never ``fork``), each in a process group over a
 ``file://`` store, and returns what each rank returned; it kills every
@@ -370,6 +379,40 @@ def make_mc_mesh(p: int, *, ranks: Optional[Sequence[int]] = None,
 
 Axes = Union[str, Tuple[str, ...]]
 
+#: the collectives' kinds, by the names XLA's HLO gives them (the JAX
+#: package's ``launch/hlo_analysis.py`` counts them under these names)
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute")
+#: the counters of :attr:`LmMesh.stats` that a :class:`DryMesh` keeps as
+#: the real mesh does
+COUNTERS = ("calls", "bytes_in", "bytes_out")
+
+# NVIDIA H100 SXM5 80GB, per GPU.  The tensor-core and vector peaks and
+# the HBM rate are the H100 data sheet's (dense, no sparsity); NVLink 4
+# is 18 links of 50 GB/s both ways (900 GB/s, the same sheet), half of it
+# each way; between nodes each GPU has one 400 Gb/s NDR InfiniBand port
+# (the DGX H100 reference architecture), 50 GB/s each way.
+#: dense bf16/fp16 tensor-core FLOP/s (fp32 accumulate)
+PEAK_FLOPS_BF16 = 989e12
+#: fp32 FLOP/s outside the tensor cores
+PEAK_FLOPS_FP32 = 67e12
+#: HBM3 bytes/s
+HBM_BW = 3.35e12
+#: NVLink bytes/s each way, within a node
+NVLINK_BW = 450e9
+#: InfiniBand bytes/s each way, between nodes
+NET_BW = 50e9
+
+
+def production_axes(multi_pod: bool = False) -> Dict[str, int]:
+    """The port's production LM mesh on H100 nodes of 8 GPUs: tp 8, the
+    model axis within one node's NVLink domain, and dp over 32 nodes
+    (256 GPUs), or two pods of that (512).  The JAX package's
+    ``make_production_mesh`` is a TPU v5e pod's (16, 16) and (2, 16,
+    16); :class:`DryMesh` takes those too."""
+    axes = {"data": 32, "model": 8}
+    return {"pod": 2, **axes} if multi_pod else axes
+
 
 @dataclasses.dataclass(eq=False)
 class LmMesh:
@@ -483,7 +526,10 @@ class LmMesh:
         self.stats["stage_s"] += time.perf_counter() - t0
         return out
 
-    def _run(self, fn, inp: torch.Tensor, out: torch.Tensor) -> None:
+    def _run(self, kind: str, key: Tuple[str, ...], fn, inp: torch.Tensor,
+             out: torch.Tensor) -> None:
+        """Run the collective ``fn`` of ``kind`` (:data:`KINDS`) over the
+        group of ``key`` and count it in :attr:`stats`."""
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             # newer torch names all_gather_into_tensor/reduce_scatter_tensor
@@ -491,9 +537,18 @@ class LmMesh:
             warnings.simplefilter("ignore", FutureWarning)
             fn()
         self.stats["wire_s"] += time.perf_counter() - t0
+        self._count(inp, out)
+
+    def _count(self, inp: torch.Tensor, out: torch.Tensor
+               ) -> Tuple[int, int]:
+        """Count one collective of ``inp`` and ``out`` in :attr:`stats`;
+        returns their bytes."""
+        b_in = inp.numel() * inp.element_size()
+        b_out = out.numel() * out.element_size()
         self.stats["calls"] += 1
-        self.stats["bytes_in"] += inp.numel() * inp.element_size()
-        self.stats["bytes_out"] += out.numel() * out.element_size()
+        self.stats["bytes_in"] += b_in
+        self.stats["bytes_out"] += b_out
+        return b_in, b_out
 
     # -- collectives -----------------------------------------------------
     def all_reduce(self, t: torch.Tensor, axes: Axes, op: str = "sum"
@@ -507,8 +562,8 @@ class LmMesh:
         buf = self._host(t, "reduce")
         if buf is t:
             buf = t.clone()
-        self._run(lambda: dist.all_reduce(buf, op=red,
-                                          group=self._group(key)), buf, buf)
+        self._run("all-reduce", key, lambda: dist.all_reduce(
+            buf, op=red, group=self._group(key)), buf, buf)
         return self._back(buf)
 
     def all_gather(self, t: torch.Tensor, axes: Axes, dim: int = 0
@@ -521,7 +576,7 @@ class LmMesh:
             return t
         src = self._host(t, "gather_in")
         out = self._out((n, *src.shape), src, "gather_out")
-        self._run(lambda: dist.all_gather_into_tensor(
+        self._run("all-gather", key, lambda: dist.all_gather_into_tensor(
             _flat(out), _flat(src), group=self._group(key)), src, out)
         dim %= t.dim()
         out = self._back(out).movedim(0, dim)
@@ -544,7 +599,7 @@ class LmMesh:
         src = self._host(t.movedim(dim, 0), "scatter_in")
         out = self._out((src.shape[0] // n, *src.shape[1:]), src,
                         "scatter_out")
-        self._run(lambda: dist.reduce_scatter_tensor(
+        self._run("reduce-scatter", key, lambda: dist.reduce_scatter_tensor(
             out.view(-1), src.view(-1), group=self._group(key)), src, out)
         return self._back(out).movedim(0, dim)
 
@@ -561,7 +616,7 @@ class LmMesh:
                              f"group's {n} ranks")
         src = self._host(t, "a2a_in")
         out = self._out(src.shape, src, "a2a_out")
-        self._run(lambda: dist.all_to_all_single(
+        self._run("all-to-all", key, lambda: dist.all_to_all_single(
             _flat(out), _flat(src), group=self._group(key)), src, out)
         return self._back(out)
 
@@ -571,18 +626,18 @@ class LmMesh:
         receive a tensor of its shape from the rank of index ``src``
         (``batch_isend_irecv`` over the group)."""
         key = self._key(axes)
-        group = self._group(key)
-        peers = dist.get_process_group_ranks(group)
         s = self._host(send, "p2p_in")
         out = self._out(s.shape, s, "p2p_out")
 
         def post():
+            group = self._group(key)
+            peers = dist.get_process_group_ranks(group)
             for w in dist.batch_isend_irecv([
                     dist.P2POp(dist.isend, _flat(s), peers[dst], group=group),
                     dist.P2POp(dist.irecv, _flat(out), peers[src],
                                group=group)]):
                 w.wait()
-        self._run(post, s, out)
+        self._run("collective-permute", key, post, s, out)
         return self._back(out)
 
     def _out(self, shape, like: torch.Tensor, role: str) -> torch.Tensor:
@@ -617,6 +672,17 @@ def _lm_groups(axis_names, shape, me: int) -> Dict[Tuple[str, ...], Any]:
     return out
 
 
+def _lm_axes(axes: Dict[str, int]) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+    """An LM mesh's axis names and sizes; the last axis must be
+    ``"model"``, each size at least 1."""
+    names, shape = tuple(axes), tuple(int(n) for n in axes.values())
+    if not names or names[-1] != "model" or len(set(names)) != len(names) \
+            or not all(n >= 1 for n in shape):
+        raise ValueError(f"LM mesh axes {axes}: the last must be 'model', "
+                         "each size at least 1")
+    return names, shape
+
+
 def make_lm_mesh(axes: Dict[str, int], *, device: Device = None) -> LmMesh:
     """An LM mesh of the sizes ``axes`` (``{"data": D, "model": M}``, or
     with ``"pod"`` first), the model axis last, over the whole default
@@ -625,11 +691,7 @@ def make_lm_mesh(axes: Dict[str, int], *, device: Device = None) -> LmMesh:
     device and transport come from :func:`choose_transport` (``None`` =
     CUDA; it raises when there is none: no fallback).  Collective: every
     rank of the launch calls it with the same sizes."""
-    names, shape = tuple(axes), tuple(int(n) for n in axes.values())
-    if not names or names[-1] != "model" or len(set(names)) != len(names) \
-            or not all(n >= 1 for n in shape):
-        raise ValueError(f"LM mesh axes {axes}: the last must be 'model', "
-                         "each size at least 1")
+    names, shape = _lm_axes(axes)
     n = int(np.prod(shape))
     if not (dist.is_available() and dist.is_initialized()):
         if n != 1:
@@ -661,6 +723,75 @@ def make_test_mesh(n_data: int, n_model: int, *, device: Device = None
     """The ``(data, model)`` mesh of ``n_data x n_model`` ranks
     (:func:`make_lm_mesh`), as the JAX package's ``make_test_mesh``."""
     return make_lm_mesh({"data": n_data, "model": n_model}, device=device)
+
+
+@dataclasses.dataclass(eq=False)
+class DryMesh(LmMesh):
+    """One rank of an LM mesh of any axes, traced shape-only: the rank's
+    ``coords``, the ``meta`` device, the transport ``"dry"`` and no
+    process group.  Its collectives are :class:`LmMesh`'s, with the same
+    result shapes (meta tensors) and the same :attr:`stats` counts, but
+    nothing is sent: each appends ``(kind, axes, group size, payload
+    bytes)`` to :attr:`ledger` (:data:`KINDS`; the payload is the larger
+    of the bytes handed in and out, the JAX package's
+    ``hlo_analysis`` measure).  ``make_ctx`` takes it as it takes an
+    :class:`LmMesh`.
+
+    ``tokens`` feeds the one shape the program takes from its data: the
+    rows of the vocabulary-parallel embedding's gradient
+    (``distributed.tp``), which are the rows some dp rank's tokens look
+    up.  It holds the token ids of each global (micro)batch that the
+    traced run embeds under autograd, in order; each such embedding takes
+    the next (:meth:`take_tokens`).  Where it runs out, a bound is taken:
+    every token in the rank's vocabulary shard, all distinct.
+
+    ``drop`` (a control) leaves the collective of that index (in call
+    order) out of the ledger and the counters: a comparison with a real
+    run must reject it."""
+    ledger: List[Tuple[str, Tuple[str, ...], int, int]] = dataclasses.field(
+        default_factory=list, repr=False)
+    tokens: List[np.ndarray] = dataclasses.field(default_factory=list,
+                                                 repr=False)
+    drop: Optional[int] = None
+    seen: int = 0
+
+    def describe(self) -> str:
+        shape = "x".join(map(str, self.shape))
+        return (f"dry, ({','.join(self.axis_names)})={shape}, the rank at "
+                f"{self.coords} on the meta device")
+
+    def _group(self, key):
+        return None
+
+    def _run(self, kind: str, key: Tuple[str, ...], fn, inp: torch.Tensor,
+             out: torch.Tensor) -> None:
+        """Count the collective as :meth:`LmMesh._run` does and record it
+        in :attr:`ledger` (unless it is the one to :attr:`drop`); ``fn``
+        is not called."""
+        self.seen += 1
+        if self.seen - 1 == self.drop:
+            return
+        self.ledger.append((kind, key, self.size(key),
+                            max(self._count(inp, out))))
+
+    def take_tokens(self) -> Optional[np.ndarray]:
+        """The next (micro)batch's token ids of :attr:`tokens`, or
+        ``None`` when there are none left."""
+        return self.tokens.pop(0) if self.tokens else None
+
+
+def make_dry_mesh(axes: Dict[str, int], coords: Optional[Sequence[int]] = None
+                  ) -> DryMesh:
+    """The :class:`DryMesh` of the rank at ``coords`` (default: rank 0) of
+    a mesh of the sizes ``axes`` (``{"data": D, "model": M}``, or with
+    ``"pod"`` first; the model axis last)."""
+    names, shape = _lm_axes(axes)
+    coords = (0,) * len(shape) if coords is None else tuple(
+        int(c) for c in coords)
+    if len(coords) != len(shape) or not all(
+            0 <= c < n for c, n in zip(coords, shape)):
+        raise ValueError(f"coords {coords} are not a rank of {axes}")
+    return DryMesh(names, shape, coords, torch.device("meta"), "dry")
 
 
 # ---------------------------------------------------------------------- #

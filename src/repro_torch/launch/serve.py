@@ -25,6 +25,7 @@ Queue 3 lists the difference).  The matrix-completion serving CLI is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -134,7 +135,7 @@ def _all_rows(tok, ctx, B: int):
 def generate(params, cfg: ModelConfig, prompts, gen: int, *,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None, ctx=None,
-             keep_logits: bool = False):
+             keep_logits: bool = False, around=None):
     """Serve one batch as the CLI does: prefill ``prompts`` (B, P), move
     its KV into caches of the ``P + gen - 1`` positions decode writes,
     take the first token from the prefill's logits (greedy) and then
@@ -143,6 +144,9 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
     with ``prefill_s`` (prefill and merge) and ``decode_s``, each ended
     by a device synchronisation, and ``cache``, the caches after the last
     step; with ``keep_logits`` also ``logits``, each step's (B, V).
+    ``around(kind)``, where given, is a context manager entered around
+    each call of the prefill (``kind`` ``"prefill"``) and of the decode
+    step (``"decode"``): a per-call record (``testing.StepLog``).
 
     With ``ctx``: every rank passes the whole batch and its blocks of the
     weights (``convert.shard_lm_params``); the logits are gathered over
@@ -153,10 +157,12 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
     dev = prompts.device
     prefill_fn = make_prefill(cfg, ctx)
     decode_fn = make_decode_step(cfg, ctx)
+    around = around or (lambda kind: contextlib.nullcontext())
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pre_cache = prefill_fn(params, {"inputs": prompts})
+    with around("prefill"):
+        logits, pre_cache = prefill_fn(params, {"inputs": prompts})
     cache = T.init_cache(cfg, B, P + gen - 1, device=dev,
                          dtype=params.dtype, ctx=ctx)
     cache = _merge_prefill_cache(cache, pre_cache, cfg, P, ctx=ctx, batch=B)
@@ -173,7 +179,8 @@ def generate(params, cfg: ModelConfig, prompts, gen: int, *,
     for i in range(gen - 1):
         inp = (tok[:, None] if cfg.embed_input
                else (tok[:, None] == eye).to(params.dtype)[:, None])
-        logits, cache = decode_fn(params, {"inputs": inp}, cache, P + i)
+        with around("decode"):
+            logits, cache = decode_fn(params, {"inputs": inp}, cache, P + i)
         logits = T.gather_logits(logits, ctx)
         if keep_logits:
             kept.append(logits)

@@ -1,7 +1,10 @@
-"""Specs for sharded serving and training: the decode caches' layout
-(the JAX package's ``launch/specs.py::_cache_leaf_spec``/
-``cache_struct``, :82-118) and the train state's blocks
-(``train_state_struct``, :37).
+"""Shape and sharding specs for sharded serving, training and the
+dry-run (the JAX package's ``launch/specs.py``): the parameters' shapes
+and specs (``params_shape``, ``sharded_params_specs``, :27-33), the
+train state's blocks (``train_state_struct``, :37), a cell's inputs
+(``batch_dim_spec``, ``batch_struct``, :65-80) and the decode caches'
+layout (``_cache_leaf_spec``/``cache_struct``, :82-118).  Nothing here
+allocates: shapes come from a model built on the ``meta`` device.
 
 A KV cache ``(B, S_max, Hkv, D)`` keeps its batch as the batch is laid
 out (:func:`batch_dim_spec`) and shards its sequence axis: over tp when
@@ -13,9 +16,10 @@ holds ``n`` slices (the positions past ``S_max`` are never attended).
 An SSM layer's state keeps its batch likewise and shards ``d_inner``
 over tp: the conv history ``(B, K-1, d_inner)`` and the recurrent state
 ``(B, d_inner, N)``.  A train state's params, m, v and master are
-sharded by the parameters' specs, its step replicated.  The rest of the
-reference's module (the dry-run's input structs) is not ported yet
-(ROADMAP Queue 1 items 16 and 17).
+sharded by the parameters' specs, its step replicated.  A cell's inputs
+keep the reference's specs (the batch over dp where it divides), though
+every rank is handed the whole batch and cuts its own rows
+(``distributed.tp.local_batch``).
 """
 from __future__ import annotations
 
@@ -42,9 +46,43 @@ class SSMStruct(NamedTuple):
     ssm: Leaf
 
 
+class BatchLeaf(NamedTuple):
+    """A cell's input: its global shape (every rank is handed all of
+    it), its dtype and the spec the program cuts it by."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    spec: Spec
+
+
+def params_shape(cfg) -> Dict[str, torch.Tensor]:
+    """The model's parameters as meta tensors (no allocation):
+    ``{state_dict name: tensor}``; ``repro_torch.convert`` maps the names
+    to the reference's tree."""
+    from ..models.transformer import Transformer
+    return dict(Transformer(cfg, device="meta").state_dict())
+
+
+def sharded_params_specs(cfg, ctx: ShardingCtx
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Spec]]:
+    """:func:`params_shape` and each parameter's spec
+    (``sharding.spec_for``, the reference's rules)."""
+    ps = params_shape(cfg)
+    return ps, {k: spec_for(k, t.dim(), ctx) for k, t in ps.items()}
+
+
 def batch_dim_spec(B: int, ctx: ShardingCtx):
     """Shard the batch over dp when divisible, else replicate."""
     return ctx.dp if B % ctx.dp_size == 0 else None
+
+
+def batch_struct(cfg, shape: dict, ctx: ShardingCtx) -> Dict[str, BatchLeaf]:
+    """A cell's inputs (``data.pipeline.lm_input_specs``) with their specs:
+    the batch dimension by :func:`batch_dim_spec`, the rest whole."""
+    from ..data.pipeline import lm_input_specs
+    bspec = batch_dim_spec(shape["global_batch"], ctx)
+    return {name: BatchLeaf(tuple(t.shape), t.dtype,
+                            (bspec,) + (None,) * (t.dim() - 1))
+            for name, t in lm_input_specs(cfg, shape).items()}
 
 
 def cache_seq_axes(B: int, ctx: ShardingCtx):
@@ -131,16 +169,12 @@ def train_state_struct(cfg, ctx: ShardingCtx, opt_cfg
     the parameters' specs (``sharding.spec_for``), in the parameters'
     dtype, ``opt_cfg.state_dtype`` and ``opt_cfg.master_dtype``; the step
     is a replicated 0-d int32 (the reference's ``train_state_struct``)."""
-    from ..models.transformer import Transformer
-    model = Transformer(cfg, device="meta")
+    ps, pspecs = sharded_params_specs(cfg, ctx)
 
     def leaves(dtype=None):
-        out = {}
-        for name, p in model.named_parameters():
-            spec = spec_for(name, p.dim(), ctx)
-            out[name] = StateLeaf(block_shape(p.shape, spec, ctx),
-                                  dtype or p.dtype, spec)
-        return out
+        return {name: StateLeaf(block_shape(p.shape, pspecs[name], ctx),
+                                dtype or p.dtype, pspecs[name])
+                for name, p in ps.items()}
 
     opt = {"m": leaves(getattr(torch, opt_cfg.state_dtype)),
            "v": leaves(getattr(torch, opt_cfg.state_dtype)),

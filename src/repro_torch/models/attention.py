@@ -52,7 +52,6 @@ class Attention(nn.Module):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         kw = dict(dtype=dtype, device=device)
-        self.cfg = cfg
         self.wq = layers.Dense(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw)
         self.wk = layers.Dense(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias,
                                **kw)
@@ -63,10 +62,6 @@ class Attention(nn.Module):
     def reset_parameters(self, generator=None) -> None:
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset_parameters(generator)
-
-    def forward(self, x, *, angles=None, impl="xla", ctx=None):
-        return attn_apply(self, x, self.cfg, angles=angles, impl=impl,
-                          ctx=ctx)
 
 
 def attn_init(generator, cfg, dtype, device=None) -> Attention:

@@ -99,11 +99,6 @@ class Mamba(nn.Module):
         for lin in (self.in_proj, self.x_proj, self.dt_proj, self.out_proj):
             lin.reset_parameters(generator)
 
-    def forward(self, x, *, state: Optional[SSMState] = None,
-                chunk: int = 256, ctx=None):
-        return mamba_apply(self, x, self.cfg, state=state, chunk=chunk,
-                           ctx=ctx)
-
 
 def mamba_init(generator, cfg, dtype, device=None) -> Mamba:
     p = Mamba(cfg, dtype=dtype, device=device)

@@ -81,9 +81,6 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.reset_parameters(generator)
 
-    def forward(self, x, ctx=None, *, batch=None, decode=False):
-        return moe_apply(self, x, self.cfg, ctx, batch=batch, decode=decode)
-
 
 def moe_init(generator, cfg, dtype, device=None) -> MoE:
     p = MoE(cfg, dtype=dtype, device=device)

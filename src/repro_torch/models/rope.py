@@ -37,7 +37,8 @@ def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
     base = _freqs(head_dim, theta, dev)                       # (hd/2,)
     ang = positions3[..., None, :].float() * base[None, None, :, None]
     sec_id = torch.repeat_interleave(
-        torch.arange(3, device=dev), torch.tensor(sections, device=dev))
+        torch.arange(3, device=dev), torch.tensor(sections, device=dev),
+        output_size=head_dim // 2)
     idx = sec_id[None, None, :, None].expand(*ang.shape[:-1], 1)
     return torch.gather(ang, -1, idx)[..., 0]
 

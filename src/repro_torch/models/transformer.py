@@ -85,13 +85,16 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 class DecoderLayer(nn.Module):
     """Pre-norm mixer (attention or Mamba) and FFN (SwiGLU ``mlp``, MoE
-    ``moe``, or none), each added to the residual."""
+    ``moe``, or none), each added to the residual.  The ``cfg`` it is
+    built with gives its kinds and shapes; how it runs
+    (``tp_collectives``, ``ssm_chunk``, the MoE's capacity) follows the
+    ``cfg`` each call passes, as the entry points' ``cfg`` argument
+    says."""
 
     def __init__(self, cfg: ModelConfig, idx: int, *, dtype=None,
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.cfg = cfg
         self.kind, self.mlp_kind = cfg.layer_kind(idx), cfg.mlp_kind(idx)
         self.norm1 = layers.RMSNorm(cfg.d_model, cfg.norm_eps, device)
         self.mixer = (attention.Attention(cfg, **kw) if self.kind == "attn"
@@ -110,7 +113,7 @@ class DecoderLayer(nn.Module):
         elif self.mlp_kind == "dense":
             self.mlp.reset_parameters(generator)
 
-    def _ffn(self, x, ctx=None, batch=None, decode=False):
+    def _ffn(self, x, cfg, ctx=None, batch=None, decode=False):
         """``(x + FFN(norm2(x)), aux or None)``; with a ctx, ``batch`` is
         the whole batch's size and ``decode`` says whether this is a
         decode step."""
@@ -118,38 +121,41 @@ class DecoderLayer(nn.Module):
             return x, None
         h = self.norm2(x)
         if self.mlp_kind == "moe":
-            y, aux = self.moe(h, ctx, batch=batch, decode=decode)
+            y, aux = moe.moe_apply(self.moe, h, cfg, ctx, batch=batch,
+                                   decode=decode)
             return x + y, aux
         if ctx is None:
             return x + self.mlp(h), None
         return x + tp.swiglu_sharded(
-            self.mlp, h, ctx, collectives=self.cfg.tp_collectives,
+            self.mlp, h, ctx, collectives=cfg.tp_collectives,
             batch=batch if decode else None), None
 
-    def forward(self, x, *, angles=None, impl="xla", ctx=None, batch=None):
-        """Full sequence; returns ``(x, cache of this sequence, aux or
-        None)``: a KVCache of its k, v or the SSM state after it.  With a
-        ctx, ``batch`` is the whole batch's size."""
+    def forward(self, x, cfg, *, angles=None, impl="xla", ctx=None,
+                batch=None):
+        """Full sequence under ``cfg``; returns ``(x, cache of this
+        sequence, aux or None)``: a KVCache of its k, v or the SSM state
+        after it.  With a ctx, ``batch`` is the whole batch's size."""
         h = self.norm1(x)
         if self.kind == "attn":
-            mix, cache = self.mixer(h, angles=angles, impl=impl, ctx=ctx)
+            mix, cache = attention.attn_apply(self.mixer, h, cfg,
+                                              angles=angles, impl=impl,
+                                              ctx=ctx)
         else:
-            mix, cache = self.mixer(h, chunk=self.cfg.ssm_chunk, ctx=ctx)
-        x, aux = self._ffn(x + mix, ctx, batch)
+            mix, cache = mamba.mamba_apply(self.mixer, h, cfg,
+                                           chunk=cfg.ssm_chunk, ctx=ctx)
+        x, aux = self._ffn(x + mix, cfg, ctx, batch)
         return x, cache, aux
 
-    def decode(self, x, cache, pos: int, *, angles=None, ctx=None,
+    def decode(self, x, cache, pos: int, cfg, *, angles=None, ctx=None,
                batch=None):
         h = self.norm1(x)
         if self.kind == "attn":
-            mix, cache = attention.attn_decode(self.mixer, h, cache,
-                                               self.cfg, pos=pos,
-                                               angles=angles, ctx=ctx,
-                                               batch=batch)
+            mix, cache = attention.attn_decode(self.mixer, h, cache, cfg,
+                                               pos=pos, angles=angles,
+                                               ctx=ctx, batch=batch)
         else:
-            mix, cache = mamba.mamba_decode(self.mixer, h, cache, self.cfg,
-                                            ctx)
-        return self._ffn(x + mix, ctx, batch, decode=True)[0], cache
+            mix, cache = mamba.mamba_decode(self.mixer, h, cache, cfg, ctx)
+        return self._ffn(x + mix, cfg, ctx, batch, decode=True)[0], cache
 
 
 class Transformer(nn.Module):
@@ -190,12 +196,15 @@ def init_params(key: Union[int, torch.Generator], cfg: ModelConfig, *,
     1/√d_in; the embedding σ = 1), zero biases, unit norm scales.  ``key``
     is a seed or a ``torch.Generator`` on ``device``.  The draws differ
     from the reference's threefry ones; tests carry the reference's
-    parameters across with ``repro_torch.convert``."""
+    parameters across with ``repro_torch.convert``.  On the ``meta``
+    device (a shape-only trace) nothing is drawn."""
     dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    if dev.type == "meta":
+        return model
     gen = key
     if not isinstance(key, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(key))
-    model = Transformer(cfg, device=dev)
     model.reset_parameters(gen)
     return model
 
@@ -288,10 +297,10 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     batch = inputs.shape[0]
     for layer in params.layers:
         if remat:
-            x, aux = checkpoint(_layer_out, layer, x, angles, impl, ctx,
-                                batch, use_reentrant=False)
+            x, aux = checkpoint(_layer_out, layer, cfg, x, angles, impl,
+                                ctx, batch, use_reentrant=False)
         else:
-            x, cache, aux = layer(x, angles=angles, impl=impl, ctx=ctx,
+            x, cache, aux = layer(x, cfg, angles=angles, impl=impl, ctx=ctx,
                                   batch=batch)
             if want_cache:
                 caches.append(cache)
@@ -306,13 +315,14 @@ def forward(params: Transformer, cfg: ModelConfig, inputs, *,
     return logits, (caches if want_cache else None), aux_sum
 
 
-def _layer_out(layer: DecoderLayer, x, angles, impl, ctx, batch):
+def _layer_out(layer: DecoderLayer, cfg, x, angles, impl, ctx, batch):
     """The layer's output and aux (remat's checkpointed function: the
     aux must come out of it, or remat would drop the MoE's loss; with a
     ctx its recomputation gathers the weights again, every rank in the
     same order, and an MoE layer routes again: on bitwise the inputs of
     the forward, so as the forward did)."""
-    x, _, aux = layer(x, angles=angles, impl=impl, ctx=ctx, batch=batch)
+    x, _, aux = layer(x, cfg, angles=angles, impl=impl, ctx=ctx,
+                      batch=batch)
     return x, aux
 
 
@@ -392,7 +402,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, inputs,
     angles = _angles_for(cfg, positions)
     new_cache = []
     for layer, c in zip(params.layers, cache):
-        x, c = layer.decode(x, c, pos, angles=angles, ctx=ctx, batch=B)
+        x, c = layer.decode(x, c, pos, cfg, angles=angles, ctx=ctx, batch=B)
         new_cache.append(c)
     x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if ctx is None:

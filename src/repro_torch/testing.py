@@ -21,6 +21,7 @@ type, differs on most of the elements it updates.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -594,6 +595,45 @@ class FlashCounts:
         return False
 
 
+def card_window(dev, seen: int = 0):
+    """On the card: ``(the largest peak before now, at least seen; the
+    bytes allocated now)``, the peak statistics then reset, so that the
+    next peak read is a window's own; elsewhere ``(seen, 0)``."""
+    if dev.type != "cuda":
+        return seen, 0
+    seen = max(seen, torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    return seen, torch.cuda.memory_allocated(dev)
+
+
+class StepLog:
+    """A record of each call of a prefill or a decode step on ``mesh``,
+    given to ``launch.serve.generate`` as its ``around``: ``calls``, each
+    ``{"kind": "prefill" or "decode", calls, bytes_in, bytes_out}``, the
+    mesh's counters that the call added, and on the card also
+    ``allocated`` (bytes before it) and ``peak`` (its own peak: the
+    card's peak statistics are reset before each call; :attr:`peak`
+    keeps the largest seen before each reset)."""
+
+    def __init__(self, mesh):
+        from .launch.mesh import COUNTERS
+        self.mesh, self.calls, self.peak = mesh, [], 0
+        self._counters = COUNTERS
+
+    @contextlib.contextmanager
+    def __call__(self, kind: str):
+        stats, dev = self.mesh.stats, self.mesh.device
+        before = {k: stats[k] for k in self._counters}
+        self.peak, allocated = card_window(dev, self.peak)
+        yield
+        rec = {"kind": kind,
+               **{k: stats[k] - before[k] for k in self._counters}}
+        if dev.type == "cuda":
+            rec.update(allocated=allocated,
+                       peak=torch.cuda.max_memory_allocated(dev))
+        self.calls.append(rec)
+
+
 def param_fingerprint(tensors) -> str:
     """sha256 of every tensor's name, shape, dtype and every 4,099th
     element's bytes (a module's ``state_dict`` or a name -> tensor
@@ -656,7 +696,8 @@ def route_digest(calls) -> str:
     return h.hexdigest()[:16]
 
 
-def serve_record(model, cfg, prompts, gen: int, ctx=None) -> dict:
+def serve_record(model, cfg, prompts, gen: int, ctx=None,
+                 around=None) -> dict:
     """``launch.serve.generate`` of ``prompts`` (``gen`` greedy tokens,
     under inference mode) with what the sharded checks read, as numpy:
     ``tokens`` (B, gen) and ``logits`` (gen, B, V) fp32 (with ``ctx`` the
@@ -668,12 +709,13 @@ def serve_record(model, cfg, prompts, gen: int, ctx=None) -> dict:
     last step, fp32); the timings, and the flash kernel's launches and
     plain calls (:class:`FlashCounts`); ``kv``: each attention layer's
     ``(k, v)`` decode cache after the last step, fp32 (with ``ctx`` the
-    rank's block, ``launch.specs.local_kv_shape``)."""
+    rank's block, ``launch.specs.local_kv_shape``).  ``around`` goes to
+    ``generate`` (a :class:`StepLog`)."""
     from .launch import serve
     n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
     with torch.inference_mode(), FlashCounts() as fc, MoeLog() as log:
         toks, t = serve.generate(model, cfg, prompts, gen, ctx=ctx,
-                                 keep_logits=True)
+                                 keep_logits=True, around=around)
     routes = [(e.to(torch.int16).cpu().numpy(), k.cpu().numpy())
               for e, k in log.routes]
     pre = log.aux[:n_moe]
@@ -1085,6 +1127,8 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
     from .distributed.sharding import spec_for
     from .launch import specs
     from .launch import train as ltrain
+    from .launch.dryrun import nbytes
+    from .launch.mesh import COUNTERS
     from .optim import adamw
 
     name, dev = run["name"], mesh.device
@@ -1143,11 +1187,13 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
     for k in mesh.stats:
         mesh.stats[k] = 0
-    metrics, secs, wire = [], [], []
+    metrics, secs, wire, steps, peak = [], [], [], [], 0
     with FlashCounts() as fc:
         for i, batch in enumerate(run["batches"]):
             sync()
             w0 = mesh.stats["wire_s"]
+            before = {k: mesh.stats[k] for k in COUNTERS}
+            peak, allocated = card_window(dev, peak)
             t0 = time.perf_counter()
             if i == 0:
                 # the first step through the calls make_train_step makes,
@@ -1159,6 +1205,10 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
             sync()
             secs.append(time.perf_counter() - t0)
             wire.append(mesh.stats["wire_s"] - w0)
+            steps.append({k: mesh.stats[k] - before[k] for k in COUNTERS})
+            if dev.type == "cuda":
+                steps[-1].update(allocated=allocated,
+                                 peak=torch.cuda.max_memory_allocated(dev))
             metrics.append({k: float(v) for k, v in m.items()})
             if i == 0:
                 # read outside the steps' collective counters
@@ -1178,8 +1228,12 @@ def _train_case(run: dict, mesh, ctx, out: dict) -> None:
     for part in run.get("state_keys", ("params", "m", "v", "master")):
         window(part, have[part])
     out[f"{name}.step"] = int(state["opt"]["step"])
+    out[f"{name}.steps"] = steps
+    out[f"{name}.state_bytes"] = nbytes([state["params"].state_dict(),
+                                         state["opt"]])
     if dev.type == "cuda":
-        out[f"{name}.card_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out[f"{name}.card_peak_bytes"] = max(
+            peak, torch.cuda.max_memory_allocated(dev))
 
 
 def _tp_grad_case(run: dict, ctx, put, arr, rng) -> None:
@@ -1241,6 +1295,7 @@ def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
 
     from .distributed import ring, tp
     from .distributed.sharding import shard_tensor
+    from .launch.dryrun import nbytes
     from .models import attention as A
 
     name, kind = run["name"], run["kind"]
@@ -1320,16 +1375,20 @@ def _lm_case(run: dict, mesh, ctx, weights: dict, out: dict) -> None:
             mesh.stats[k] = 0
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        log = StepLog(mesh)
         try:
-            rec = serve_record(model, cfg, prompts, run["gen"], ctx=ctx)
+            rec = serve_record(model, cfg, prompts, run["gen"], ctx=ctx,
+                               around=log)
         finally:
             for mod, leaf, mine in swapped.values():
                 setattr(mod, leaf, mine)
         out.update({f"{name}.{k}": v for k, v in dict(
-            rec, fingerprint=fp, **mesh.stats).items()})
+            rec, fingerprint=fp, steps=log.calls,
+            state_bytes=nbytes(model.state_dict()),
+            **mesh.stats).items()})
         if dev.type == "cuda":
-            out[f"{name}.card_peak_bytes"] = torch.cuda.max_memory_allocated(
-                dev)
+            out[f"{name}.card_peak_bytes"] = max(
+                log.peak, torch.cuda.max_memory_allocated(dev))
     else:
         raise ValueError(f"unknown LM case kind {kind!r}")
 
